@@ -6,19 +6,36 @@
 Drives ``repro_torch`` only (never JAX, never ``repro``), in phases; any
 failure exits non-zero and none is caught:
 
-1. build the CUDA kernel library from ``src/repro_torch/kernels/csrc``;
+1. build the CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, all started together) and print ptxas's
+   registers and spills;
 2. hold the bitserial kernel against its plain PyTorch version at the
    main path's shapes (f32 and bf16, per-tensor and per-group scales),
    check ``active=a`` bitwise against ``truncate_packed`` for every a,
    and time the kernel, the plain version and ``torch.matmul`` against
    the dequantised weight (a yardstick only; the port never calls it);
+2b. hold the paged-attention kernel against its plain version at the
+   continuous slice's shapes (f32, bf16, one windowed case; ragged
+   positions with inactive lanes), check that scrambled stale table
+   entries and NaN in never-live blocks leave its output bitwise
+   unchanged, and time the kernel, the plain version and one
+   ``scaled_dot_product_attention`` call on K/V already gathered into
+   lane-contiguous form (a yardstick only; the port never calls it);
 3. full-width granite-3-2b cut to 2 layers, f32, 6-bit packed: the card
    (kernel) against the CPU (plain path) on the same params;
-4. the slice: full-width 40-layer granite-3-2b, bf16, 6-bit packed,
-   served by the bucketed ServeEngine (8 requests, two buckets, 32
-   tokens each), with the kernel's launch count checked exactly;
-5. ``torch.profiler`` over a few decode steps of one bucket: device
-   busy time, idle share and the device ops by time;
+3b. the same 2-layer model through the continuous paged-kernel engine
+   on the card (2 lanes, reused), the bucketed engine on the card and
+   the continuous engine on the CPU: identical greedy tokens;
+4. full-width 40-layer granite-3-2b, bf16, 6-bit packed, served by the
+   bucketed ServeEngine (8 requests, two buckets, 32 tokens each), with
+   the kernel's launch count checked exactly;
+4b. the continuous slice: the same model through
+   ``ServeEngine(continuous=True, paged=True, paged_kernel=True)`` (8
+   lanes, 64 blocks of 32 rows), 16 requests on Poisson arrivals, with
+   both kernels' launch counts checked exactly and the pool drained;
+5. ``torch.profiler`` over a few decode steps of one bucket, and over a
+   short continuous run: device busy time, idle share and the device
+   ops by time;
 6. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    the final ``{"ok": true, ...}`` line.
 
@@ -40,6 +57,11 @@ MATMUL_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
 LAYER_PROJ = [(2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
               (2048, 8192), (2048, 8192), (8192, 2048)]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of max |plain|, see phase 2
+# paged attention, of max |plain|: f32, an online softmax against a
+# one-pass one; bf16, the kernel rounds K to q's dtype and p to V's dtype
+PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the continuous slice (phase 4b): 8 lanes, 64 blocks of 32 rows
+SLOTS, BLOCK, N_BLOCKS, MAX_LEN = 8, 32, 64, 512
 
 
 def card_line() -> str:
@@ -115,6 +137,277 @@ def profile_decode(engine, reqs, cfg, card, steps=4):
                     for k, (t, n) in top]}
 
 
+def device_ms_by_name(prof):
+    """Device time (ms) and event count of a profile, by kernel name."""
+    import torch
+
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    return by_name
+
+
+def paged_kernel_phase(dev, card, time_ms):
+    """Phase 2b: the paged-attention kernel against its plain version at
+    the continuous slice's shapes (8 lanes, 8 KV heads of 4 query heads,
+    d = 64, blocks of 32 rows, 16 table entries per lane, a pool of 64
+    blocks), with ragged positions and two inactive lanes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    B, KV, G, d, nb_lane = SLOTS, 8, 4, 64, MAX_LEN // BLOCK
+    gen = torch.Generator(device=dev).manual_seed(2)
+    # lane-disjoint shuffled tables: lane b owns 8 of the 64 blocks, and its
+    # entries past them name blocks of other lanes (stale ids)
+    own = torch.randperm(N_BLOCKS, generator=gen, device=dev).reshape(B, N_BLOCKS // B)
+    stale = torch.randint(0, N_BLOCKS, (B, nb_lane - N_BLOCKS // B), generator=gen, device=dev)
+    table = torch.cat([own, stale], 1).to(torch.int32).contiguous()
+    pos = torch.tensor([-1, 0, 31, 100, 255, 200, -1, 63], dtype=torch.int32, device=dev)
+    live = [int(p) // BLOCK + 1 if p >= 0 else 0 for p in pos.tolist()]
+    scrambled = table.clone()
+    for b in range(B):
+        scrambled[b, live[b]:] = (scrambled[b, live[b]:] + 7) % N_BLOCKS
+    used = {int(table[b, j]) for b in range(B) for j in range(live[b])}
+    dead = torch.tensor(sorted(set(range(N_BLOCKS)) - used), device=dev)
+    L = nb_lane * BLOCK
+    kpos = torch.arange(L, device=dev)
+    rows = []
+    for dt, window in ((torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, 100)):
+        dname = str(dt).split(".")[-1]
+        q = torch.randn((B, KV, G, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((N_BLOCKS, BLOCK, KV, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((N_BLOCKS, BLOCK, KV, d), generator=gen, device=dev).to(dt)
+        got = ops.paged_attention(q, k, v, table, pos, window=window)
+        want = ref.paged_attention_ref(q, k, v, table, pos, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        scale_ = want.float().abs().max().item()
+        what = f"paged kernel {dname} window={window}"
+        check(bool(torch.isfinite(got).all()) and err <= PAGED_TOL[dname] * scale_,
+              f"{what} vs plain: max err {err} > {PAGED_TOL[dname]} x {scale_}")
+        for b in range(B):
+            if pos[b] < 0:
+                check(torch.equal(got[b], torch.zeros_like(got[b])),
+                      f"{what}: inactive lane {b} is not exact zeros")
+        check(torch.equal(got, ops.paged_attention(q, k, v, table, pos, window=window)),
+              f"{what}: a second call differs")
+        k2, v2 = k.clone(), v.clone()
+        k2[dead] = float("nan")
+        v2[dead] = float("nan")
+        check(torch.equal(got, ops.paged_attention(q, k2, v2, scrambled, pos, window=window)),
+              f"{what}: scrambled stale entries or NaN never-live blocks changed the output")
+        # yardstick: one SDPA call on K/V gathered into (B, KV, L, d) beforehand
+        kc = k[table.long()].reshape(B, L, KV, d).transpose(1, 2).contiguous()
+        vc = v[table.long()].reshape(B, L, KV, d).transpose(1, 2).contiguous()
+        valid = kpos[None, :] <= pos[:, None]
+        if window is not None:
+            valid &= (pos[:, None] - kpos[None, :]) < window
+        mask = valid[:, None, None, :]
+        qs = q.reshape(B, KV * G, 1, d)
+        row = {
+            "dtype": dname, "window": window, "B": B, "KV": KV, "G": G, "d": d,
+            "block_size": BLOCK, "blocks_per_lane": nb_lane, "pos": pos.tolist(),
+            "max_abs_err": err, "max_abs_plain": scale_,
+            "ms": time_ms(lambda: ops.paged_attention(q, k, v, table, pos, window=window)),
+            "plain_ms": time_ms(lambda: ref.paged_attention_ref(q, k, v, table, pos,
+                                                                window=window), iters=5),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qs, kc, vc, attn_mask=mask, enable_gqa=True)),
+        }
+        # the least the card could take: each live K/V row read once, q read
+        # and the output written once; 4 d flops per live row and head
+        live_rows = sum(min(p + 1, window or p + 1, L) for p in pos.tolist() if p >= 0)
+        elt = q.element_size()
+        nbytes = (2 * live_rows * KV * d * elt + 2 * q.numel() * elt
+                  + 4 * (table.numel() + pos.numel()))
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 4.0 * live_rows * KV * G * d / PEAK_FLOPS[dname]
+        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row["live_rows"] = live_rows
+        rows.append(row)
+        print(f"[paged] {dname} window={window} pos={pos.tolist()}: max_err={err:.3e} "
+              f"(max|plain|={scale_:.3e}) kernel {row['ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {live_rows} live rows), plain "
+              f"{row['plain_ms']:.4f} ms, sdpa(gathered) {row['library_ms']:.4f} ms [{card}]",
+              flush=True)
+    print("[paged] kernel == plain within tolerance; inactive lanes exact zeros; stale "
+          "entries and NaN never-live blocks leave it bitwise unchanged", flush=True)
+    return rows
+
+
+def continuous_parity(cfg2, p_gpu, p_cpu, dev, card):
+    """Phase 3b: the 2-layer model through the continuous paged-kernel
+    engine on the card (4 requests on 2 lanes), the bucketed engine on
+    the card and the continuous engine on the CPU: identical greedy
+    tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import MarkovLM
+    from repro_torch.serve import Request, ServeEngine
+
+    task = MarkovLM(vocab=cfg2.vocab_size, seed=3)
+    reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(10 + i), 1, n)[0, :n]
+                    .astype(np.int32), max_new=8) for i, n in enumerate((16, 40, 70, 100))]
+    arrivals = [0, 0, 2, 5]
+    kw = dict(continuous=True, n_slots=2, paged=True, block_size=32, paged_kernel=True)
+    runs = {
+        "continuous-cuda": ServeEngine(p_gpu, cfg2, max_len=128, device=dev, **kw),
+        "bucketed-cuda": ServeEngine(p_gpu, cfg2, max_len=128, device=dev),
+        "continuous-cpu": ServeEngine(p_cpu, cfg2, max_len=128, device="cpu", **kw),
+    }
+    toks = {}
+    for name, eng in runs.items():
+        res = eng.generate(reqs, arrival_steps=arrivals)
+        toks[name] = {r.uid: r.tokens.tolist() for r in res}
+        check(sorted(toks[name]) == [0, 1, 2, 3], f"{name}: results {sorted(toks[name])}")
+        if eng.scheduler is not None:
+            pool = eng.scheduler.pool
+            check(pool.allocator.free_count == pool.n_blocks and pool.allocator.committed == 0,
+                  f"{name}: the pool did not drain")
+    torch.cuda.synchronize()
+    for name in runs:
+        print(f"[parity] 2-layer full-width f32 {name}: {toks[name]}")
+    check(toks["continuous-cuda"] == toks["bucketed-cuda"] == toks["continuous-cpu"],
+          "continuous (cuda), bucketed (cuda) and continuous (cpu) greedy tokens differ")
+    print("[parity] continuous paged-kernel (cuda, 4 requests on 2 lanes) == bucketed (cuda) "
+          "== continuous (cpu) greedy tokens", flush=True)
+    return toks["continuous-cuda"]
+
+
+def continuous_slice(params, cfg, dev, card, engine_cls):
+    """Phase 4b: full-width granite-3-2b through the continuous paged-
+    kernel engine: 16 requests (prompts uniform in [16, 300], seed 0),
+    32 new tokens each, Poisson arrivals at 0.5 per step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import poisson_arrivals
+    from repro_torch.obs.metrics import percentile
+    from repro_torch.serve import Request
+
+    n_req, max_new = 16, 32
+    lens = np.random.default_rng(0).integers(16, 301, size=n_req)
+    task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+    reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(i), 1, 300)[0, :n]
+                    .astype(np.int32), max_new=max_new) for i, n in enumerate(lens)]
+    arrivals = poisson_arrivals(n_req, 0.5, seed=0)
+    engine = engine_cls(params, cfg, max_len=MAX_LEN, device=dev, continuous=True,
+                        n_slots=SLOTS, paged=True, block_size=BLOCK, n_blocks=N_BLOCKS,
+                        paged_kernel=True)
+    sched, pool = engine.scheduler, engine.scheduler.pool
+    engine.generate([Request(uid=100, tokens=reqs[0].tokens[:16], max_new=2)])  # warm-up
+    torch.cuda.synchronize()
+    sched.reset_telemetry()
+    torch.cuda.reset_peak_memory_stats()
+    engine.bad = None
+    bsm.reset_launches()
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.generate(reqs, arrival_steps=arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps, chunks = sched.decode_steps, sched.prefill_chunks
+    got = {r.uid: r for r in results}
+    check(sorted(got) == list(range(n_req)), f"continuous slice results for {sorted(got)}")
+    for r in results:
+        check(len(r.tokens) == max_new and ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all(),
+              f"uid {r.uid}: {len(r.tokens)} tokens, or a token outside the vocab")
+    check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
+    check(pa.launches == steps * cfg.n_layers,
+          f"{pa.launches} paged launches, expected {steps} steps x {cfg.n_layers}")
+    # the tied head is the float embedding: 7 packed projections per layer
+    check(bsm.launches == (steps + chunks) * cfg.n_layers * 7,
+          f"{bsm.launches} bitserial launches, expected ({steps} + {chunks}) x "
+          f"{cfg.n_layers} x 7")
+    check(pool.allocator.free_count == pool.n_blocks and pool.allocator.committed == 0,
+          f"blocks leaked: free {pool.allocator.free_count}/{pool.n_blocks}, committed "
+          f"{pool.allocator.committed}")
+    check(engine.obs.recorder.leaked == [], f"leaked spans {engine.obs.recorder.leaked}")
+    ttft = [got[i].prefill_ms for i in range(n_req)]
+    hd = cfg.resolved_head_dim
+    unpaged = 2 * cfg.n_layers * SLOTS * MAX_LEN * cfg.n_kv_heads * hd * 2  # K+V, bf16
+    rep = {
+        "requests": n_req, "max_new": max_new, "prompt_lens": lens.tolist(),
+        "arrivals": arrivals, "wall_s": wall, "tokens": n_req * max_new,
+        "tokens_per_s": n_req * max_new / wall,
+        "ttft_ms_p50": percentile(ttft, 50), "ttft_ms_p90": percentile(ttft, 90),
+        "decode_steps": steps, "prefill_chunks": chunks,
+        "decode_ms_per_step": sched.decode_ms_total / max(steps, 1),
+        "mean_occupancy": sched.mean_occupancy(),
+        "mean_block_occupancy": sched.mean_block_occupancy(),
+        "serve_peak_bytes": peak, "kv_pool_bytes": pool.cache_bytes(),
+        "kv_unpaged_bytes": unpaged,
+        "admit_blocked_total": sched._c_blocked.value,
+        "paged_launches": pa.launches, "bitserial_launches": bsm.launches,
+    }
+    print(f"[continuous] {n_req} requests x {max_new} tokens, prompts {lens.min()}-"
+          f"{lens.max()}, Poisson arrivals at 0.5/step over {arrivals[-1]} steps: "
+          f"{rep['tokens']} tokens in {wall:.3f} s = {rep['tokens_per_s']:.1f} tok/s; TTFT p50 "
+          f"{rep['ttft_ms_p50']:.2f} ms, p90 {rep['ttft_ms_p90']:.2f} ms; decode "
+          f"{rep['decode_ms_per_step']:.3f} ms per step ({steps} steps, mean occupancy "
+          f"{rep['mean_occupancy']:.2f}), {chunks} prefill chunks [{card}]", flush=True)
+    print(f"[continuous] serve peak memory {peak / 1e9:.3f} GB; KV pool "
+          f"{rep['kv_pool_bytes'] / 1e6:.1f} MB ({N_BLOCKS} + 1 blocks x {BLOCK} rows) against "
+          f"{unpaged / 1e6:.1f} MB unpaged ({SLOTS} x {MAX_LEN}); mean block occupancy "
+          f"{rep['mean_block_occupancy']:.2f}; serve_admit_blocked_total "
+          f"{rep['admit_blocked_total']:.0f}; paged launches {pa.launches} == {steps} x "
+          f"{cfg.n_layers}; bitserial launches {bsm.launches} == ({steps} + {chunks}) x "
+          f"{cfg.n_layers} x 7; pool drained [{card}]", flush=True)
+    return engine, reqs, rep
+
+
+def profile_continuous(engine, reqs, card):
+    """Phase 5, continuous: torch.profiler over a short run of 8 requests
+    (prompts cut to 128 tokens, 8 new tokens, all at step 0): device busy
+    time against wall time, and the kernels by device time."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    work = [dataclasses.replace(r, uid=200 + i, tokens=r.tokens[:128], max_new=8)
+            for i, r in enumerate(reqs[:8])]
+    engine.generate(work[:1])  # warm-up
+    torch.cuda.synchronize()
+    sched = engine.scheduler
+    sched.reset_telemetry()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate(work)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_ms_by_name(prof)
+    if not by_name:
+        print(f"[profile] continuous run: wall {wall_ms:.2f} ms under the profiler; device "
+              f"time not measured (the profiler saw no device events) [{card}]")
+        return {"wall_ms": wall_ms, "device_busy_ms": None}
+    busy = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    paged = [(t, n) for k, (t, n) in by_name.items() if "paged_attention" in k]
+    print(f"[profile] continuous run, 8 requests x (128 prompt + 8 new), {sched.decode_steps} "
+          f"decode steps, {sched.prefill_chunks} prefill chunks: wall {wall_ms:.2f} ms under the "
+          f"profiler, device busy {busy:.2f} ms (idle {1 - busy / wall_ms:.1%}) [{card}]")
+    for name, (t, n) in top:
+        print(f"[profile]   {t:9.3f} ms {n:6d}x  {name[:90]}")
+    if paged:
+        t, n = map(sum, zip(*paged))
+        print(f"[profile]   paged_attention: {t:.3f} ms in {n} launches, "
+              f"{1e3 * t / max(n, 1):.2f} us each [{card}]")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "decode_steps": sched.decode_steps, "prefill_chunks": sched.prefill_chunks,
+            "top": [{"name": k, "ms": t, "count": n} for k, (t, n) in top]}
+
+
 def main() -> int:
     import torch
 
@@ -135,6 +428,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import bitserial_matmul as bsm
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import transformer
     from repro_torch.serve import Request, ServeEngine
 
@@ -149,13 +443,15 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    lib_path = _build.build("bitserial_matmul")
+    libs = _build.build_all(["bitserial_matmul", "paged_attention"])
     bsm._lib()
-    print(f"[build] bitserial_matmul.cu -> {lib_path.name} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for line in _build.build_log["bitserial_matmul"]["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    pa._lib()
+    print(f"[build] {', '.join(f'{n}.cu -> {p.name}' for n, p in libs.items())} in "
+          f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)", flush=True)
+    for name in libs:
+        for line in _build.build_log[name]["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build] {name}: {line.strip()}")
 
     # ---------------------------------------------------------------- 2
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
@@ -232,6 +528,9 @@ def main() -> int:
                           f"[{card}]", flush=True)
     print(f"[kernel] all {len(report['matmul'])} shapes agree; active=a bitwise equal "
           f"to truncate_packed for a in 1..{N_BITS}", flush=True)
+
+    # --------------------------------------------------------------- 2b
+    report["paged"] = paged_kernel_phase(dev, card, time_ms)
     del flush
 
     # ---------------------------------------------------------------- 3
@@ -260,6 +559,9 @@ def main() -> int:
     check(dlog <= 1e-4 * max(1.0, lmax), f"first-step logits differ by {dlog}")
     report["parity"] = {"tokens": toks["cuda"].tolist(), "max_abs_dlogit": dlog,
                         "max_abs_logit": lmax}
+
+    # --------------------------------------------------------------- 3b
+    report["parity"]["continuous_tokens"] = continuous_parity(cfg2, p_gpu, p_cpu, dev, card)
     del p_gpu, p_cpu
 
     # ---------------------------------------------------------------- 4
@@ -327,6 +629,12 @@ def main() -> int:
           flush=True)
     report["slice"] = slice_rep
     report["profile"] = profile_decode(engine, reqs[:4], cfg, card)
+    del engine
+
+    # --------------------------------------------------------------- 4b
+    c_engine, c_reqs, report["continuous"] = continuous_slice(params, cfg, dev, card,
+                                                              CheckedEngine)
+    report["profile_continuous"] = profile_continuous(c_engine, c_reqs, card)
 
     # one decode layer's 7 projections at the decode shape (M = 4 lanes, bf16)
     rows = {(r["M"], r["K"], r["N"], r["dtype"], r["scale"]): r for r in report["matmul"]}
@@ -345,13 +653,27 @@ def main() -> int:
         "library_ms": sum(r["library_ms"] for r in layer),
         "work": "one decode layer of granite-3-2b: its 7 projections at M=4, bf16, 6 bits",
     }
-    report["kernels"] = [entry]
+    p_row = next(r for r in report["paged"] if r["dtype"] == "bfloat16" and r["window"] is None)
+    p_entry = {
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:97",
+        "launches": report["continuous"]["paged_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in report["paged"]),
+        "ms": p_row["ms"], "plain_ms": p_row["plain_ms"], "bound_ms": p_row["bound_ms"],
+        "bound_by": p_row["bound_by"], "library_ms": p_row["library_ms"],
+        "work": "one paged decode layer of the continuous slice: 8 lanes (2 inactive), 8 KV "
+                "heads x 4 query heads, d=64, bf16, blocks of 32 rows, 16 table entries per "
+                f"lane, {p_row['live_rows']} live rows",
+    }
+    entry["launches_continuous"] = report["continuous"]["bitserial_launches"]
+    report["kernels"] = [entry, p_entry]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # ---------------------------------------------------------------- 6
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": report["kernels"]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -80,6 +80,15 @@ def build(name: str) -> Path:
     return out
 
 
+def build_all(names: List[str]) -> Dict[str, Path]:
+    """:func:`build` every source at once: one nvcc process each, all
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as ex:
+        return dict(zip(names, ex.map(build, names)))
+
+
 def load(name: str, argtypes: Dict[str, list]) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; ``argtypes`` maps each
     C entry to its ctypes argument list (``c_void_p`` for every pointer and

@@ -40,3 +40,22 @@ def bitserial_matmul(x: torch.Tensor, pw: PackedWeight, active_planes=None) -> t
             x2, pw.planes, pw.sign, pw.scale, pw.n_bits,
             denom_bits=pw.denom_bits, active_planes=active_planes)
     return out.reshape(*lead, -1)
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                    block_table: torch.Tensor, pos: torch.Tensor, *,
+                    window=None, sm_scale=None) -> torch.Tensor:
+    """Paged decode attention: q (B, KV, G, d) against the block pools.
+
+    On the card the kernel walks each lane's live blocks in place, so
+    device-memory reads scale with live tokens; on the CPU the plain
+    version gathers each lane's whole logical view.  ``pos < 0`` lanes
+    return exact zeros on both paths.
+    """
+    if q.device.type == "cuda":
+        from .paged_attention import paged_attention_cuda
+
+        return paged_attention_cuda(q, k_pool, v_pool, block_table, pos,
+                                    window=window, sm_scale=sm_scale)
+    return ref.paged_attention_ref(q, k_pool, v_pool, block_table, pos, window=window,
+                                   sm_scale=sm_scale)

@@ -1,0 +1,107 @@
+"""Wrapper around the Hopper paged-attention kernel
+(``csrc/paged_attention.cu``), the port of the Pallas kernel
+``paged_attention_pallas`` in ``repro/kernels/paged_attention.py``.
+
+:func:`paged_attention_cuda` checks what it is given and raises on
+anything the kernel does not take; it never copies an operand to make
+it fit.  The block table and the positions are read on the device, so
+a call never syncs the host.  It allocates the output, launches on the
+current stream, raises on a CUDA error from the launch, and adds one to
+:data:`launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256
+MAX_GROUP_ELEMS = 4096  # G * d: 32 accumulators in each of 128 threads
+
+# kernel launches since the last reset (one per call that reaches the card)
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _lib():
+    from . import _build
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.load("paged_attention", {
+        "paged_attention_launch": [i, i, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                   ctypes.c_float, p],
+    })
+
+
+def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                         block_table: torch.Tensor, pos: torch.Tensor,
+                         window: Optional[int] = None,
+                         sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Paged decode attention on the card.
+
+    ``q`` (B, KV, G, d) float32 or bfloat16; ``k_pool``/``v_pool``
+    (n_blocks, block_size, KV, d) of one dtype (float32 or bfloat16);
+    ``block_table`` (B, blocks_per_lane) int32; ``pos`` (B,) int32, < 0
+    for an inactive lane.  Returns (B, KV, G, d) in q's dtype.
+    """
+    global launches
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_cuda needs CUDA tensors, got q on {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q dtype {q.dtype} not supported (float32, bfloat16)")
+    if k_pool.dtype not in _DTYPE_CODE or v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"pool dtypes {k_pool.dtype}/{v_pool.dtype} not supported "
+                        "(both float32 or both bfloat16)")
+    if block_table.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError(f"block_table and pos must be int32, got {block_table.dtype}, "
+                        f"{pos.dtype}")
+    if q.ndim != 4 or k_pool.ndim != 4 or block_table.ndim != 2 or pos.ndim != 1:
+        raise ValueError(f"want q (B, KV, G, d), pools (n_blocks, bs, KV, d), table (B, nb), "
+                         f"pos (B,); got {tuple(q.shape)}, {tuple(k_pool.shape)}, "
+                         f"{tuple(block_table.shape)}, {tuple(pos.shape)}")
+    B, KV, G, d = q.shape
+    _, bs, kv_p, d_p = k_pool.shape
+    if (tuple(v_pool.shape) != tuple(k_pool.shape) or (kv_p, d_p) != (KV, d)
+            or block_table.shape[0] != B or pos.shape[0] != B):
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k_pool {tuple(k_pool.shape)}, "
+                         f"v_pool {tuple(v_pool.shape)}, table {tuple(block_table.shape)}, "
+                         f"pos {tuple(pos.shape)}")
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} must be a multiple of 8 in [8, {MAX_HEAD_DIM}] "
+                         "(16-byte row loads)")
+    if G * d > MAX_GROUP_ELEMS:
+        raise ValueError(f"G * d = {G * d} > {MAX_GROUP_ELEMS} accumulators per block")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_table", block_table), ("pos", pos)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (a stacked cache's layer slice "
+                             "is; the wrapper does not copy)")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if window is not None and int(window) < 1:
+        raise ValueError(f"window={window} must be >= 1 (or None)")
+    window = 0 if window is None else int(window)  # 0: no window, in the C entry
+    sm_scale = d**-0.5 if sm_scale is None else float(sm_scale)
+    out = torch.empty_like(q)
+    if B == 0 or KV == 0 or G == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.paged_attention_launch(
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            B, KV, G, d, bs, block_table.shape[1], window, sm_scale, stream)
+    if err:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out

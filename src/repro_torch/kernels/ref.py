@@ -52,3 +52,36 @@ def bitserial_matmul_ref(x, planes, sign, scale, n_bits: int,
     sgn = 1.0 - 2.0 * unpack_bits_axis0(sign, K).to(torch.float32)
     w = (sgn * mag).to(x.dtype)
     return (x @ w) * s.to(x.dtype)
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_table, pos, *, window=None, sm_scale=None):
+    """Naive f32 softmax decode attention over the block-table gather.
+
+    ``q`` (B, KV, G, d) single-query heads (kv-major GQA layout); pools
+    (n_blocks, block_size, KV, d); ``block_table`` (B, blocks_per_lane)
+    int32; ``pos`` (B,) int32.  Lane b attends its lane-logical rows
+    ``[0, pos[b]]`` (optionally windowed) gathered out of the pool; stale
+    table entries sit past ``pos`` and are masked with -1e30 (so a NaN in
+    a stale block still reaches the output through ``0 * NaN``: this
+    version is not NaN-safe, the kernel is).  ``pos[b] < 0`` marks an
+    inactive lane and yields exact zeros.
+    """
+    B, KV, G, d = q.shape
+    bs = k_pool.shape[1]
+    L = block_table.shape[1] * bs
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    idx = block_table.reshape(-1).long()
+    keys = k_pool[idx].reshape(B, L, KV, d)
+    vals = v_pool[idx].reshape(B, L, KV, d)
+    s = torch.einsum("bkgd,bskd->bkgs", q.to(torch.float32), keys.to(torch.float32)) * sm_scale
+    pos = pos.to(device=q.device, dtype=torch.int64)
+    kpos = torch.arange(L, device=q.device)
+    valid = kpos[None, :] <= pos[:, None]
+    if window is not None:
+        valid &= (pos[:, None] - kpos[None, :]) < window
+    s = torch.where(valid[:, None, None, :], s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, vals.to(torch.float32))
+    out = torch.where((pos >= 0)[:, None, None, None], out, torch.zeros((), device=q.device))
+    return out.to(q.dtype)

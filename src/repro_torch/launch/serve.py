@@ -2,27 +2,38 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --requests 8 --max-new 32 --packed-bits 6 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --paged \
+        --paged-kernel --slots 4 --block-size 16 --arrival-rate 0.5 [--device cpu]
 
-The bucketed path of ``repro.launch.serve``, with the same flags and
-print lines: requests are grouped by prompt length and served by the
-bucketed :class:`~repro_torch.serve.ServeEngine`.  It serves the
-reduced config, as the JAX launcher does.  It runs on the card unless
-``--device cpu`` is given.
+The bucketed, continuous, chunked and paged paths of
+``repro.launch.serve``, with the same flags and print lines (the
+``[continuous]`` line has no compiled-program counts: eager PyTorch
+compiles nothing).  It serves the reduced config, as the JAX launcher
+does, and runs on the card unless ``--device cpu`` is given.
 
-The JAX launcher's continuous, chunked, paged, speculative,
-precision-tier and mesh flags are accepted and exit with a one-line
-"not yet ported" message.
+The JAX launcher's speculative, overcommit, SLO-tier, precision-tier,
+degrade and mesh flags are accepted and exit with a one-line "not yet
+ported" message.
 """
 import argparse
 
 import numpy as np
 
-_UNPORTED_SWITCHES = ("--continuous", "--chunked-prefill", "--paged", "--paged-kernel",
-                      "--spec-decode", "--degrade")
-_UNPORTED_VALUES = ("--data-parallel", "--model-parallel", "--slots", "--block-size",
-                    "--blocks", "--overcommit", "--draft-planes", "--gamma", "--tier",
-                    "--precision-tier", "--economy-planes", "--degrade-queue-depth",
-                    "--degrade-hysteresis", "--arrival-rate")
+_UNPORTED_SWITCHES = ("--spec-decode", "--degrade")
+_UNPORTED_VALUES = ("--data-parallel", "--model-parallel", "--overcommit", "--draft-planes",
+                    "--gamma", "--tier", "--precision-tier", "--economy-planes",
+                    "--degrade-queue-depth", "--degrade-hysteresis")
+
+
+def poisson_arrivals(n: int, rate: float, seed: int = 0):
+    """Arrival steps of a simulated Poisson stream: exponential gaps with
+    mean 1/rate decode steps, cumulated and floored onto the scheduler's
+    integer step clock (``repro.launch.serve.poisson_arrivals``)."""
+    if rate <= 0:
+        return [0] * n
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(scale=1.0 / rate, size=n)
+    return np.floor(np.cumsum(gaps)).astype(int).tolist()
 
 
 def main(argv=None):
@@ -52,6 +63,26 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="after serving, validate the metrics exposition and the "
                          "trace schema, and print OBS_SMOKE_OK")
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve through the slot-pool continuous-batching scheduler")
+    ap.add_argument("--slots", type=int, default=8, help="slot-pool lanes (continuous mode)")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="stream prompts through the pooled step in fixed-size chunks "
+                         "(continuous mode)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV: a global pool of fixed-size blocks + per-lane block "
+                         "tables (continuous mode; implies --chunked-prefill)")
+    ap.add_argument("--block-size", type=int, default=32, help="rows per KV block (--paged)")
+    ap.add_argument("--blocks", type=int, default=0,
+                    help="KV blocks in the pool (--paged); 0 sizes it to the unpaged "
+                         "capacity slots * ceil(max-len / block-size)")
+    ap.add_argument("--paged-kernel", action="store_true",
+                    help="decode attention walks the block table through the paged-"
+                         "attention kernel instead of gathering each lane's whole view "
+                         "(--paged)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="simulate Poisson arrivals at this mean rate per decode step "
+                         "(continuous mode; 0 = all requests at step 0)")
     for flag in _UNPORTED_SWITCHES:
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     for flag in _UNPORTED_VALUES:
@@ -59,7 +90,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
     for flag in _UNPORTED_SWITCHES + _UNPORTED_VALUES:
         if getattr(args, flag[2:].replace("-", "_")) not in (False, None):
-            raise SystemExit(f"{flag} is not yet ported to repro_torch (bucketed serving only)")
+            raise SystemExit(f"{flag} is not yet ported to repro_torch")
+    if args.chunked_prefill and not args.continuous:
+        raise SystemExit("--chunked-prefill requires --continuous")
+    if args.paged and not args.continuous:
+        raise SystemExit("--paged requires --continuous")
+    if args.paged_kernel and not args.paged:
+        raise SystemExit("--paged-kernel requires --paged")
 
     import torch
 
@@ -86,7 +123,11 @@ def main(argv=None):
 
         server = start_metrics_server(obs.registry, port=args.metrics_port)
         print(f"[obs] metrics at {server.url}")
-    engine = ServeEngine(params, cfg, max_len=args.max_len, device=device, obs=obs)
+    engine = ServeEngine(params, cfg, max_len=args.max_len, device=device,
+                         continuous=args.continuous, n_slots=args.slots,
+                         chunked_prefill=args.chunked_prefill, paged=args.paged,
+                         block_size=args.block_size, n_blocks=args.blocks or None,
+                         paged_kernel=args.paged_kernel, obs=obs)
     task = MarkovLM(vocab=cfg.vocab_size, seed=3)
     if args.mixed_lens:
         lens = [max(2, args.prompt_len * m // 2) for m in (1, 2, 3, 4)]
@@ -102,12 +143,30 @@ def main(argv=None):
         )
         for i in range(args.requests)
     ]
-    results = engine.generate(reqs)
+    if args.continuous:
+        results = engine.generate(reqs, arrival_steps=poisson_arrivals(args.requests,
+                                                                       args.arrival_rate))
+    else:
+        results = engine.generate(reqs)
     for r in sorted(results, key=lambda r: r.uid):
         print(f"req {r.uid}: prefill {r.prefill_ms:.1f} ms, "
               f"{r.decode_ms_per_tok:.2f} ms/tok, tokens={r.tokens[:8]}...")
     total = sum(len(r.tokens) for r in results)
     print(f"{total} tokens generated")
+    if args.continuous:
+        sched = engine.scheduler
+        print(f"[continuous] slots={args.slots} occupancy={sched.mean_occupancy():.2f} "
+              f"decode_steps={sched.decode_steps}")
+        if args.chunked_prefill or args.paged:
+            print(f"[chunked] chunk_dispatches={sched.prefill_chunks} "
+                  f"admit_bursts={len(sched.admit_bursts)}")
+        if args.paged:
+            pool = sched.pool
+            print(f"[paged] block_size={pool.block_size} n_blocks={pool.n_blocks} "
+                  f"kernel={args.paged_kernel} table_shards={pool.table_shards} "
+                  f"block_occupancy={sched.mean_block_occupancy():.2f} "
+                  f"fragmentation={sched.mean_fragmentation():.2f} "
+                  f"leaked_blocks={pool.n_blocks - pool.allocator.free_count}")
     if args.trace_out:
         n = obs.recorder.dump_jsonl(args.trace_out)
         print(f"[obs] {n} request traces -> {args.trace_out}")
@@ -123,8 +182,8 @@ def main(argv=None):
 
 def _obs_smoke(args, obs, server):
     """Scrape once (over HTTP when an endpoint was requested), check the
-    exposition parses, the bucketed families are populated, no span
-    leaked and the JSONL trace passes the schema check.  Prints
+    exposition parses, the families of the path served are populated, no
+    span leaked and the JSONL trace passes the schema check.  Prints
     OBS_SMOKE_OK."""
     from urllib.request import urlopen
 
@@ -136,8 +195,12 @@ def _obs_smoke(args, obs, server):
     else:
         text = to_prometheus(obs.registry)
     families = parse_prometheus(text)
-    missing = [f for f in ("serve_ttft_ms", "serve_requests_total")
-               if f not in families or not families[f]["samples"]]
+    required = ["serve_ttft_ms", "serve_requests_total"]
+    if args.continuous:
+        required += ["serve_occupancy", "serve_decode_step_ms"]
+    if args.paged:
+        required += ["serve_blocks_alloc_total", "serve_block_pool_free"]
+    missing = [f for f in required if f not in families or not families[f]["samples"]]
     if missing:
         raise SystemExit(f"[obs] smoke FAILED: empty/missing families {missing}")
     if obs.recorder.leaked:

@@ -188,13 +188,23 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None,
+               paged_blocks: Optional[int] = None, block_size: Optional[int] = None):
     """Zero decode cache for ``batch`` lanes: ``blocks/p{i}/{k,v}`` of shape
-    (n_superblocks, batch, max_len, n_kv, head_dim), plus the tail list."""
+    (n_superblocks, batch, max_len, n_kv, head_dim), plus the tail list.
+
+    With ``paged_blocks``/``block_size`` each K/V leaf is instead a pool
+    of ``paged_blocks + 1`` blocks of ``block_size`` rows shared by every
+    lane: (n_superblocks, paged_blocks + 1, block_size, n_kv, head_dim).
+    The last block is the drop sentinel of ``models.attention`` (JAX's
+    pool has ``paged_blocks`` blocks; the first ``paged_blocks`` match it)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = cfg.cache_dtype if dtype is None else dtype
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if paged_blocks is not None:
+        shape = (paged_blocks + 1, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    else:
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
 
     def layer(lead=()):
         return {"k": torch.zeros(lead + shape, dtype=dtype, device=device),
@@ -216,11 +226,19 @@ def _layer_cache(cache, key):
 
 
 def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig,
-                active: Optional[torch.Tensor] = None, active_planes=None):
+                active: Optional[torch.Tensor] = None, active_planes=None,
+                block_table: Optional[torch.Tensor] = None, paged_kernel: bool = False):
     """One decode step for the whole model.  ``tokens`` (B, 1); ``pos`` a
     scalar shared by every lane or a (B,) tensor of per-slot positions.
     Writes each layer's new K/V row into ``cache`` IN PLACE and returns
-    (logits (B, V) f32, cache)."""
+    (logits (B, V) f32, cache).
+
+    ``active`` ((B,) bool, per-slot only) freezes the cache rows of lanes
+    that are not decoding.  ``block_table`` ((B, blocks_per_lane) int32)
+    selects the paged pool layout of :func:`init_cache`;
+    ``paged_kernel=True`` reads it through the paged-attention kernel.
+    The step's tensor shapes depend only on B and the table's width, and
+    nothing here syncs the host."""
     x = _embed(params, tokens, cfg)
     for p, key in _layers(params, cfg):
         ck, cv = _layer_cache(cache, key)
@@ -228,7 +246,7 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConf
         out = attn_mod.decode_attention(
             p["mixer"], h, ck, cv, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, active=active,
-            active_planes=active_planes,
+            active_planes=active_planes, block_table=block_table, paged_kernel=paged_kernel,
         )
         x = _mlp_residual(p, x + out, cfg, active_planes)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -264,4 +282,45 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, ma
         _seed_layer_cache(*_layer_cache(cache, key), k, v)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_apply(_head(params, cfg), x[:, -1:], cfg.logit_softcap, active_planes)
+    return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill: prompts stream through the pooled decode cache
+# ---------------------------------------------------------------------------
+
+
+def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tensor,
+                  n_valid: torch.Tensor, cfg: ModelConfig,
+                  block_table: Optional[torch.Tensor] = None, active_planes=None):
+    """One fixed-size prefill chunk over the whole slot pool.
+
+    ``tokens`` (B, C), one chunk per lane; ``start`` (B,) the chunk's
+    first position; ``n_valid`` (B,) its real tokens (the rest pad).  The
+    chunk's K/V land in the lane's rows [start, start + n_valid) of the
+    pooled ``cache``, IN PLACE.  Lanes that are not prefilling ride along
+    with ``n_valid = 0`` and ``start = max_len``: their compute is garbage
+    and their cache rows are untouched.  ``block_table`` routes the
+    writes through the paged pool (the caller grants the blocks first).
+
+    Returns (last_logits (B, V) f32, cache): ``last_logits[b]`` is the
+    logits at lane b's last real token of the chunk (garbage for lanes
+    that did not finish their prompt)."""
+    x = _embed(params, tokens, cfg)
+    for p, key in _layers(params, cfg):
+        ck, cv = _layer_cache(cache, key)
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        out = attn_mod.prefill_chunk_attention(
+            p["mixer"], h, ck, cv, start, n_valid, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            block_table=block_table, active_planes=active_planes,
+        )
+        x = _mlp_residual(p, x + out, cfg, active_planes)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    # logits only at each lane's last real token (the row math of
+    # prefill's x[:, -1:], so greedy stays token-identical to the oracle)
+    B, C, D = x.shape
+    last = torch.clamp(n_valid.to(device=x.device, dtype=torch.int64) - 1, 0, C - 1)
+    x_last = x.gather(1, last[:, None, None].expand(B, 1, D))
+    logits = logits_apply(_head(params, cfg), x_last, cfg.logit_softcap, active_planes)
     return logits[:, 0], cache

@@ -1,22 +1,25 @@
-"""Bucketed serving engine over float or BSQ-packed weights (PyTorch port
-of the length-bucketing mode of ``repro.serve.engine``).
+"""Serving engine over float or BSQ-packed weights (PyTorch port of
+``repro.serve.engine`` without the mesh).
 
-Requests are grouped by prompt length; each bucket runs one prefill and
-then a decode loop with one position shared by the bucket.  Packed
-weights are dequantised inside the bitserial kernel at every projection
-(``kernels.ops.bitserial_matmul``), so device-memory reads per decode
-step scale with the packed bit count.
+Bucketed (default): requests are grouped by prompt length; each bucket
+runs one prefill and then a decode loop with one position shared by the
+bucket.  Continuous (``continuous=True``): requests go through the
+slot-pool scheduler (``serve.scheduler``), with legacy batch-1 or
+chunked prefill and, with ``paged=True``, a block-table KV pool whose
+decode reads run through the paged-attention kernel when
+``paged_kernel=True``.  Packed weights are dequantised inside the
+bitserial kernel at every projection (``kernels.ops.bitserial_matmul``),
+so device-memory reads per decode step scale with the packed bit count.
 
 The engine emits the ``serve_ttft_ms`` histogram, the
 ``serve_requests_total`` counter and the ``admitted -> first_token``
-span exactly as the JAX engine's bucketed path does.  The continuous
-slot-pool scheduler, paged KV and the mesh come with the next slices.
+span exactly as the JAX engine does.  The mesh comes with a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,8 +38,9 @@ class Request:
     tokens: np.ndarray  # (S,) int32 prompt
     max_new: int = 32
     temperature: float = 0.0  # 0 => greedy
-    # SLO and precision classes of the continuous scheduler; the
-    # bucketed engine ignores both, as the JAX one does.
+    # SLO class of the continuous scheduler ("latency" is admitted
+    # first); the bucketed engine ignores it, as the JAX one does.
+    # Precision classes other than "full" come with a later slice.
     tier: str = "throughput"
     precision: object = "full"
 
@@ -73,12 +77,10 @@ def serving_params(params, cfg: ModelConfig, device: torch.device):
 
 class ServeEngine:
     def __init__(self, params, cfg: ModelConfig, max_len: int = 4096, seed: int = 0,
-                 device=None, continuous: bool = False,
-                 obs: Optional[Observability] = None):
-        if continuous:
-            raise NotImplementedError(
-                "continuous=True (the slot-pool scheduler, chunked prefill and "
-                "paged KV) comes with the next slice of the port")
+                 device=None, continuous: bool = False, n_slots: int = 8,
+                 policy=None, chunked_prefill: bool = False, paged: bool = False,
+                 block_size: int = 32, n_blocks: Optional[int] = None,
+                 paged_kernel: bool = False, obs: Optional[Observability] = None):
         transformer.check_supported(cfg)
         self.cfg = cfg
         self.max_len = max_len
@@ -86,6 +88,31 @@ class ServeEngine:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.obs = obs if obs is not None else Observability()
         self.params = serving_params(params, cfg, self.device)
+        self.scheduler = None
+        if (paged or paged_kernel) and not continuous:
+            raise ValueError("paged=True requires continuous=True (the block pool lives "
+                             "in the slot-pool scheduler)")
+        if paged_kernel and not paged:
+            raise ValueError("paged_kernel=True requires paged=True: the kernel walks the "
+                             "block table a dense cache does not have")
+        if continuous:
+            from .scheduler import ContinuousScheduler, SchedulerPolicy
+
+            if policy is None:
+                policy = SchedulerPolicy(n_slots=n_slots,
+                                         chunked_prefill=chunked_prefill or paged,
+                                         paged=paged, block_size=block_size,
+                                         n_blocks=n_blocks, paged_kernel=paged_kernel)
+            else:
+                if chunked_prefill and not policy.chunked_prefill:
+                    policy = dataclasses.replace(policy, chunked_prefill=True)
+                if paged and not policy.paged:
+                    # paged implies chunked prefill (the policy validates)
+                    policy = dataclasses.replace(policy, paged=True, chunked_prefill=True,
+                                                 block_size=block_size, n_blocks=n_blocks)
+                if paged_kernel and not policy.paged_kernel:
+                    policy = dataclasses.replace(policy, paged_kernel=True)
+            self.scheduler = ContinuousScheduler(self, policy)
 
     # -- sampling ---------------------------------------------------------
     def _sample(self, logits: torch.Tensor, temperatures: torch.Tensor,
@@ -113,8 +140,14 @@ class ServeEngine:
             out.setdefault(len(r.tokens), []).append(r)
         return out
 
-    def generate(self, requests: List[Request]) -> List[Result]:
-        """Serve a request set: batch by prompt length (offline semantics)."""
+    def generate(self, requests: List[Request],
+                 arrival_steps: Optional[Sequence[int]] = None) -> List[Result]:
+        """Serve a request set.  Continuous engines route through the
+        slot-pool scheduler (``arrival_steps`` simulates staggered
+        arrivals on the scheduler's step clock); bucketed engines batch
+        by prompt length and ignore arrivals (offline semantics)."""
+        if self.scheduler is not None:
+            return self.scheduler.run(requests, arrival_steps)
         rec = self.obs.recorder
         for r in requests:
             rec.begin(r.uid)
@@ -128,6 +161,14 @@ class ServeEngine:
             for r in requests:
                 if r.uid in rec.active:
                     rec.finish(r.uid, obs_trace.ABANDONED)
+
+    def stream(self, requests: List[Request],
+               arrival_steps: Optional[Sequence[int]] = None):
+        """Streaming completion: yield each Result as its lane finishes
+        (continuous mode only)."""
+        if self.scheduler is None:
+            raise ValueError("stream() requires ServeEngine(continuous=True)")
+        return self.scheduler.stream(requests, arrival_steps)
 
     @torch.inference_mode()
     def _run_bucket(self, plen: int, bucket: List[Request]) -> List[Result]:

@@ -1,14 +1,19 @@
-"""The port's CUDA kernel on the card (marked ``cuda``; skips without one).
+"""The port's CUDA kernels on the card (marked ``cuda``; skip without one).
 
 This file imports neither JAX nor ``repro``, so it runs on a machine
 with a card and no JAX:
 
     python -m pytest -q tests/test_torch_cuda.py
 
-Tolerances of kernel vs plain version on the same CUDA tensors: f32,
-1e-4 of the largest output (the order of the sums and the epilogue's
-rounding differ); bf16, 2e-2 (the plain version rounds ``x @ w`` to
-bf16 before the scale, the kernel scales the f32 sum).
+Tolerances of kernel vs plain version on the same CUDA tensors, each of
+the largest |output|:
+
+* bitserial matmul: f32 1e-4 (the order of the sums and the epilogue's
+  rounding differ); bf16 2e-2 (the plain version rounds ``x @ w`` to
+  bf16 before the scale, the kernel scales the f32 sum);
+* paged attention: f32 1e-5 (an online softmax against a one-pass one);
+  bf16 2e-2 (the kernel rounds K to q's dtype and p to V's dtype, the
+  plain version computes in f32).
 """
 import numpy as np
 import pytest
@@ -17,6 +22,7 @@ import torch
 from repro_torch.configs import reduced_config
 from repro_torch.core import packing as tpack
 from repro_torch.kernels import bitserial_matmul as tkern
+from repro_torch.kernels import paged_attention as tpaged
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import transformer
@@ -101,5 +107,97 @@ def test_engine_on_card_matches_cpu_tokens(cuda):
     for dev in (cuda, torch.device("cpu")):
         res = ServeEngine(tpack.tree_to(params, dev), cfg, max_len=32, device=dev).generate(reqs)
         out[dev.type] = {r.uid: r.tokens for r in res}
+    for uid in out["cpu"]:
+        np.testing.assert_array_equal(out["cuda"][uid], out["cpu"][uid])
+
+
+def _paged_case(B, KV, G, d, bs, nb_lane, dtype, seed, dev):
+    """Shuffled lane-disjoint tables over a pool with spare blocks that no
+    table names."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_blocks = B * nb_lane + 3
+    q = torch.randn((B, KV, G, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((n_blocks, bs, KV, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((n_blocks, bs, KV, d), generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(n_blocks, generator=gen, device=dev)[: B * nb_lane]
+    return q, k, v, perm.reshape(B, nb_lane).to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,bs,G,window", [(16, 4, 2, None), (64, 32, 4, None),
+                                           (64, 16, 4, 21), (16, 8, 1, 3)])
+def test_paged_kernel_matches_plain_version(cuda, d, bs, G, window, dtype):
+    B, KV, nb_lane = 5, 2, 6
+    q, k, v, tbl = _paged_case(B, KV, G, d, bs, nb_lane, dtype, seed=d + bs, dev=cuda)
+    pos = torch.tensor([-1, 0, bs - 1, bs * nb_lane - 1, bs * 3 + 2], dtype=torch.int32,
+                       device=cuda)
+    got = tops.paged_attention(q, k, v, tbl, pos, window=window)
+    want = tref.paged_attention_ref(q, k, v, tbl, pos, window=window)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.dtype == dtype and err <= tol * want.float().abs().max().item(), err
+    assert torch.equal(got[0], torch.zeros_like(got[0]))  # pos < 0: exact zeros
+    # a fixed sum order: the same bits again
+    assert torch.equal(got, tops.paged_attention(q, k, v, tbl, pos, window=window))
+
+
+def test_paged_kernel_never_reads_stale_entries_or_dead_rows(cuda):
+    """Entries past a lane's last live block are scrambled and the blocks
+    no lane reaches are NaN: the kernel's output keeps its bits."""
+    B, KV, G, d, bs, nb_lane = 4, 2, 4, 64, 8, 6
+    q, k, v, tbl = _paged_case(B, KV, G, d, bs, nb_lane, torch.bfloat16, seed=7, dev=cuda)
+    pos = torch.tensor([3, 17, -1, 40], dtype=torch.int32, device=cuda)
+    base = tops.paged_attention(q, k, v, tbl, pos)
+    live = {b: (int(pos[b]) // bs + 1 if pos[b] >= 0 else 0) for b in range(B)}
+    used = {int(tbl[b, j]) for b in range(B) for j in range(live[b])}
+    stale = tbl.clone()
+    for b in range(B):
+        stale[b, live[b]:] = (stale[b, live[b]:] + 5) % k.shape[0]
+    dead = torch.tensor([i for i in range(k.shape[0]) if i not in used], device=cuda)
+    k2, v2 = k.clone(), v.clone()
+    k2[dead] = float("nan")
+    v2[dead] = float("nan")
+    assert torch.equal(base, tops.paged_attention(q, k2, v2, stale, pos))
+
+
+def test_paged_launch_counter_and_wrapper_checks(cuda):
+    q, k, v, tbl = _paged_case(2, 2, 2, 16, 4, 3, torch.float32, seed=0, dev=cuda)
+    pos = torch.tensor([5, 2], dtype=torch.int32, device=cuda)
+    tpaged.reset_launches()
+    for _ in range(3):
+        tops.paged_attention(q, k, v, tbl, pos)
+    tref.paged_attention_ref(q, k, v, tbl, pos)
+    assert tpaged.launches == 3
+    with pytest.raises(TypeError, match="dtype"):
+        tpaged.paged_attention_cuda(q.half(), k, v, tbl, pos)
+    with pytest.raises(TypeError, match="int32"):
+        tpaged.paged_attention_cuda(q, k, v, tbl.long(), pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpaged.paged_attention_cuda(q, k.transpose(0, 1).contiguous().transpose(0, 1), v,
+                                    tbl, pos)
+    assert tpaged.launches == 3
+
+
+def test_continuous_paged_kernel_engine_on_card_matches_cpu(cuda):
+    """Reduced granite-3-2b at f32, 6-bit packed, through the paged
+    continuous engine: the same greedy tokens from the kernels on the card
+    and the plain versions on the CPU, with lanes reused."""
+    cfg = reduced_config("granite-3-2b")
+    params = transformer.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda,
+                                     pack_bits=6)
+    rng = np.random.default_rng(1)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new=m) for i, (n, m) in enumerate(((5, 6), (11, 4), (3, 7), (9, 5)))]
+    arrivals = [0, 0, 2, 3]
+    out = {}
+    tpaged.reset_launches()
+    for dev in (cuda, torch.device("cpu")):
+        eng = ServeEngine(tpack.tree_to(params, dev), cfg, max_len=32, device=dev,
+                          continuous=True, n_slots=2, paged=True, block_size=4,
+                          paged_kernel=True)
+        res = eng.generate(reqs, arrival_steps=arrivals)
+        out[dev.type] = {r.uid: r.tokens for r in res}
+        assert eng.scheduler.pool.allocator.free_count == eng.scheduler.pool.n_blocks
+    assert tpaged.launches == eng.scheduler.decode_steps * cfg.n_layers
     for uid in out["cpu"]:
         np.testing.assert_array_equal(out["cuda"][uid], out["cpu"][uid])

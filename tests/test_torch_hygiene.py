@@ -22,7 +22,9 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert {"repro_torch.kernels.ops", "repro_torch.serve.engine",
-            "repro_torch.launch.serve", "repro_torch.bridge"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.bridge",
+            "repro_torch.kernels.paged_attention", "repro_torch.serve.slots",
+            "repro_torch.serve.scheduler"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -64,16 +66,15 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, monkeypatch)
 def test_unported_paths_say_so():
     from repro_torch.launch import serve as launcher
     from repro_torch.models import transformer
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.scheduler import SchedulerPolicy
 
-    with pytest.raises(SystemExit, match="not yet ported"):
-        launcher.main(["--continuous", "--device", "cpu"])
+    for argv in (["--spec-decode"], ["--continuous", "--paged", "--overcommit", "2"]):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            launcher.main(argv + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="later slice"):
         transformer.init_params(reduced_config("gemma3-12b"), torch.Generator(), "cpu")
-    cfg = reduced_config("granite-3-2b")
-    params = transformer.init_params(cfg, torch.Generator(), "cpu", pack_bits=4)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ServeEngine(params, cfg, device="cpu", continuous=True)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        SchedulerPolicy(chunked_prefill=True, paged=True, spec_decode=True)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
