@@ -33,16 +33,38 @@ failure exits non-zero and none is caught:
    ``ServeEngine(continuous=True, paged=True, paged_kernel=True)`` (8
    lanes, 64 blocks of 32 rows), 16 requests on Poisson arrivals, with
    both kernels' launch counts checked exactly and the pool drained;
+2c. hold the bgl_sumsq kernel (per-row sum of squares, the BSQ
+   regulariser's) against its plain version at the training slice's
+   shapes and two ragged ones, f32 and bf16, within 1e-5 of each row's
+   plain value, check a second call bitwise equal, and time the kernel,
+   the plain version and one ``torch.linalg.vector_norm`` call (a
+   yardstick only; the port never calls it);
+3c. reduced granite-3-2b, f32: two BSQ train steps from one state on
+   the card and on the CPU agree within 1e-5 relative, and the masks
+   after a requant are equal;
 5. ``torch.profiler`` over a few decode steps of one bucket, and over a
    short continuous run: device busy time, idle share and the device
    ops by time;
-6. a ``{"kernels": [...]}`` line, the card's name and power limit, and
+6. the BSQ training slice: full-width granite-3-2b cut to 2 layers,
+   trained through ``repro_torch.launch.train.run``: 4 steps with a
+   requant and a checkpoint at step 4, then a second run that resumes
+   from that checkpoint to step 8 (requant at 8; its next checkpoint
+   would be at 12: the card's machine takes at most 45 GiB of disk
+   writes, and a checkpoint is 32 GB).  The bgl_sumsq launches are
+   checked exactly, every step's loss finite, the resume's restore held
+   bit for bit against a host copy of the state saved at step 4; then
+   the final scheme, ``export_packed``, a profile of two train steps,
+   and 4 requests served from the exported packed weights through the
+   bitserial kernel;
+7. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    the final ``{"ok": true, ...}`` line.
 
 Exits non-zero without a CUDA device, and when the repo's ``src`` is not
 beside it.  The per-shape table goes to ``chiprun_out/chip_smoke.json``.
 """
+import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -62,6 +84,35 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of max |plain|, see phase 2
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the continuous slice (phase 4b): 8 lanes, 64 blocks of 32 rows
 SLOTS, BLOCK, N_BLOCKS, MAX_LEN = 8, 32, 64, 512
+# bgl_sumsq (phase 2c): the (bits x groups, rest) plane views of a BSQ train
+# step of 2-layer full-width granite-3-2b (9 planes; 2 layers per stacked
+# tensor), and two ragged shapes
+BGL_EMBED, BGL_QO, BGL_KV, BGL_MLP = (9, 101_187_584), (18, 4_194_304), (18, 1_048_576), \
+    (18, 16_777_216)
+BGL_SHAPES = [BGL_MLP, BGL_QO, BGL_KV, BGL_EMBED, (7, 1_000_003), (1, 33)]
+# the 16 launches of one train step: wp and wn of the embedding, wq, wo, wk,
+# wv and the three MLP projections
+BGL_STEP = [BGL_EMBED] * 2 + [BGL_QO] * 4 + [BGL_KV] * 4 + [BGL_MLP] * 6
+BGL_TOL = 1e-5  # of each row's plain value: f32 sums of non-negative terms
+# the training slice (phase 6)
+TRAIN_STEPS, TRAIN_INTERVAL = 8, 4  # steps; requant and checkpoint interval
+
+
+def checked_engine_cls():
+    from repro_torch.serve import ServeEngine
+
+    class CheckedEngine(ServeEngine):
+        """Counts non-finite logits without a host sync per step."""
+        bad = None
+
+        def _sample(self, logits, temperatures, any_hot):
+            import torch
+
+            nonfinite = (~torch.isfinite(logits)).sum()
+            self.bad = nonfinite if self.bad is None else self.bad + nonfinite
+            return super()._sample(logits, temperatures, any_hot)
+
+    return CheckedEngine
 
 
 def card_line() -> str:
@@ -408,6 +459,348 @@ def profile_continuous(engine, reqs, card):
             "top": [{"name": k, "ms": t, "count": n} for k, (t, n) in top]}
 
 
+def bgl_kernel_phase(dev, card, time_ms):
+    """Phase 2c: the bgl_sumsq kernel against its plain version at the
+    training slice's plane views and two ragged shapes, f32 and bf16."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for R, C in BGL_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[-1]
+            x = torch.randn((R, C), generator=gen, device=dev).to(dt)
+            got = ops.bgl_sumsq(x)
+            want = ref.bgl_sumsq_ref(x)
+            torch.cuda.synchronize()
+            rel = ((got - want).abs() / want).max().item()
+            err = (got - want).abs().max().item()
+            what = f"bgl_sumsq ({R}, {C}) {dname}"
+            check(bool(torch.isfinite(got).all()) and rel <= BGL_TOL,
+                  f"{what} vs plain: max relative error {rel} > {BGL_TOL}")
+            check(torch.equal(got, ops.bgl_sumsq(x)), f"{what}: a second call differs")
+            row = {
+                "R": R, "C": C, "dtype": dname, "max_rel_err": rel, "max_abs_err": err,
+                "max_plain": want.max().item(),
+                "ms": time_ms(lambda: ops.bgl_sumsq(x)),
+                "plain_ms": time_ms(lambda: ref.bgl_sumsq_ref(x), iters=5),
+                "library_ms": time_ms(lambda: torch.linalg.vector_norm(x, dim=1,
+                                                                       dtype=torch.float32)),
+            }
+            # the least the card could take: x read once, the sums written once;
+            # two flops per element at the f32 rate
+            t_bytes = (x.numel() * x.element_size() + 4 * R) / HBM_BYTES_PER_S
+            t_ops = 2.0 * x.numel() / PEAK_FLOPS["float32"]
+            row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            rows.append(row)
+            print(f"[bgl] ({R}, {C}) {dname}: max rel err {rel:.3e} (abs {err:.3e} of "
+                  f"{row['max_plain']:.4e}); kernel {row['ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+                  f"vector_norm {row['library_ms']:.4f} ms [{card}]", flush=True)
+            del x, got, want
+    print(f"[bgl] kernel == plain within {BGL_TOL} relative per row; second calls bitwise "
+          "equal", flush=True)
+    return rows
+
+
+def train_parity(dev, card):
+    """Phase 3c: reduced granite-3-2b, f32, two BSQ train steps from one
+    state on the card and on the CPU, then a requant."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core import BSQConfig
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bgl_sumsq as bgl
+    from repro_torch.optim import SGDM, step_decay
+    from repro_torch.train import init_bsq_state, make_bsq_train_step, make_requant_step
+    from repro_torch.tree import tree_map
+
+    cfg = reduced_config("granite-3-2b")
+    bsq_cfg = BSQConfig(n_init=8, alpha=5e-3, compute_dtype=torch.float32)
+    opt = SGDM()
+    states = {}
+    states["cpu"], ctx = init_bsq_state(torch.Generator().manual_seed(0), cfg, bsq_cfg, opt,
+                                        "cpu")
+    states["cuda"] = tree_map(lambda x: x.clone() if x.ndim == 0 else x.to(dev, copy=True),
+                               states["cpu"])
+    step = make_bsq_train_step(ctx, opt, step_decay(0.2, [100]))
+    task = MarkovLM(vocab=cfg.vocab_size, seed=13)
+    batches = [task.batch(np.random.default_rng(i), 4, 16) for i in range(2)]
+    got = {"cpu": [], "cuda": []}
+    bgl.reset_launches()
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        for b in batches:
+            states[name], m = step(states[name], {k: torch.from_numpy(v).long().to(d)
+                                                  for k, v in b.items()})
+            got[name].append({k: float(m[k]) for k in ("ce", "reg", "total")})
+    check(bgl.launches == 2 * 2 * len(ctx.meta),
+          f"{bgl.launches} bgl_sumsq launches on the card, expected {2 * 2 * len(ctx.meta)}")
+    for i, (a, b) in enumerate(zip(got["cuda"], got["cpu"])):
+        for k in a:
+            check(abs(a[k] - b[k]) <= 1e-5 * abs(b[k]),
+                  f"train step {i} {k}: card {a[k]} vs cpu {b[k]}")
+    rq = make_requant_step(ctx)
+    masks = {n: rq(states[n])["masks"] for n in states}
+    for name in masks["cpu"]:
+        check(torch.equal(masks["cuda"][name].cpu(), masks["cpu"][name]),
+              f"masks after requant differ for {name}")
+    print(f"[train-parity] reduced granite-3-2b f32, 2 BSQ steps: card {got['cuda']} cpu "
+          f"{got['cpu']}; within 1e-5 relative; masks after requant equal; "
+          f"{bgl.launches} bgl_sumsq launches on the card [{card}]", flush=True)
+    return {"card": got["cuda"], "cpu": got["cpu"]}
+
+
+def _host_snapshot(tree):
+    """name -> a host copy of every leaf (a CPU leaf is cloned)."""
+    from repro_torch.tree import flatten_with_path
+
+    return {name: x.detach().cpu() if x.is_cuda else x.detach().clone()
+            for name, x in flatten_with_path(tree)}
+
+
+def profile_train(state, ctx, dev, card, steps=2):
+    """torch.profiler over two more BSQ train steps of the slice: device
+    busy and idle share, the top device ops, bgl_sumsq's share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import MarkovLM, sharded_lm_iterator
+    from repro_torch.optim import SGDM, step_decay
+    from repro_torch.train import make_bsq_train_step
+
+    step = make_bsq_train_step(ctx, SGDM(), step_decay(0.2, [100]))
+    data = sharded_lm_iterator(MarkovLM(vocab=ctx.cfg.vocab_size, seed=13), 8, 64, seed=1,
+                               device=dev)
+    batches = [next(data) for _ in range(steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            state, m = step(state, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_name = device_ms_by_name(prof)
+    if not by_name:
+        print(f"[profile] train step: wall {wall_ms:.2f} ms under the profiler; device time "
+              f"not measured (the profiler saw no device events) [{card}]")
+        return state, {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": None}
+    busy = sum(t for t, _ in by_name.values()) / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    bgl = [(t, n) for k, (t, n) in by_name.items() if "bgl_" in k]
+    bgl_ms = sum(t for t, _ in bgl) / steps
+    print(f"[profile] BSQ train step, 2-layer full-width granite-3-2b, batch 8 x 64: wall "
+          f"{wall_ms:.2f} ms under the profiler, device busy {busy:.2f} ms (idle "
+          f"{1 - busy / wall_ms:.1%}); bgl_sumsq {bgl_ms:.3f} ms per step ({bgl_ms / busy:.1%} "
+          f"of the busy time, {sum(n for _, n in bgl) / steps:.0f} kernels) [{card}]")
+    for name, (t, n) in top:
+        print(f"[profile]   {t / steps:9.3f} ms/step {n / steps:6.0f}x  {name[:90]}")
+    return state, {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
+                   "bgl_ms_per_step": bgl_ms,
+                   "top": [{"name": k, "ms_per_step": t / steps, "count_per_step": n / steps}
+                           for k, (t, n) in top]}
+
+
+def bsq_slice(dev, card):
+    """Phase 6: BSQ-train 2-layer full-width granite-3-2b through the
+    launcher, restore the step-4 checkpoint, export, serve."""
+    import numpy as np
+    import torch
+
+    from repro_torch.ckpt import checkpoint as ckpt_mod
+    from repro_torch.configs import get_config
+    from repro_torch.core import export_packed, merge_params
+    from repro_torch.core.bitrep import total_numel
+    from repro_torch.core.requant import forward_value
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bgl_sumsq as bgl
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import train as launcher
+    from repro_torch.serve import Request
+    from repro_torch.train import state_reps
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    full = get_config("granite-3-2b")
+    cfg = full.scaled(n_layers=2)
+    workdir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    def argv(steps, ckpt_interval):
+        return launcher.build_parser().parse_args([
+            "--full", "--steps", str(steps), "--requant-interval", str(TRAIN_INTERVAL),
+            "--ckpt-interval", str(ckpt_interval), "--workdir", str(workdir)])
+
+    # run 1 saves the step-4 checkpoint; run 2 resumes from it to step 8 with
+    # its next checkpoint at step 12, so the card's disk takes one 32 GB save
+    runs = [argv(TRAIN_INTERVAL, TRAIN_INTERVAL), argv(TRAIN_STEPS, TRAIN_STEPS + TRAIN_INTERVAL)]
+    a = runs[1]
+    print(f"[train] granite-3-2b at its published width (d_model={cfg.d_model}, d_ff="
+          f"{cfg.d_ff}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}->{cfg.padded_vocab}); reduced: "
+          f"n_layers {full.n_layers} -> {cfg.n_layers} so the BSQ state fits one card; "
+          f"BSQ n_init=8 (9 planes), alpha={a.alpha}, static, bf16 weights; SGDM, "
+          f"step_decay({a.lr}) over each run's --steps, batch {a.batch} x seq {a.seq}, grad "
+          f"clip 1.0; {TRAIN_INTERVAL} steps with requant and a checkpoint at step "
+          f"{TRAIN_INTERVAL}, then a resumed run to step {TRAIN_STEPS} (requant at "
+          f"{TRAIN_STEPS}, next checkpoint at {TRAIN_STEPS + TRAIN_INTERVAL})", flush=True)
+
+    # a host copy of the state the trainer checkpoints at step 4, and the
+    # resume's restore held against it before the resumed run's first step
+    saved, resumed = {}, {}
+    orig_save, orig_restore_latest = ckpt_mod.save, ckpt_mod.restore_latest
+
+    def save_and_snapshot(tree, directory, step, **kw):
+        if step == TRAIN_INTERVAL:
+            saved.update(_host_snapshot(tree))
+        return orig_save(tree, directory, step, **kw)
+
+    def restore_and_compare(tree_like, directory):
+        t0 = time.perf_counter()
+        tree, step = orig_restore_latest(tree_like, directory)
+        if tree is None:  # the first run starts from an empty workdir
+            return tree, step
+        torch.cuda.synchronize()
+        resumed["restore_s"] = time.perf_counter() - t0
+        check(step == TRAIN_INTERVAL, f"resumed from step {step}")
+        got = dict(flatten_with_path(tree))
+        check(len(saved) > 0 and sorted(got) == sorted(saved),
+              f"restored leaves {sorted(got)} != saved {sorted(saved)}")
+        nbytes = 0
+        for name, x in got.items():
+            want = saved.pop(name)
+            check(x.dtype == want.dtype and x.shape == want.shape
+                  and x.device.type == ("cpu" if name == "step" else dev.type)
+                  and torch.equal(x.cpu(), want),
+                  f"restored leaf {name} differs from the state saved at step {TRAIN_INTERVAL}")
+            nbytes += x.numel() * x.element_size()
+        resumed.update(leaves=len(got), nbytes=nbytes)
+        return tree, step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for m in (bgl, bsm, pa):
+        m.reset_launches()
+    ckpt_mod.save, ckpt_mod.restore_latest = save_and_snapshot, restore_and_compare
+    t0 = time.perf_counter()
+    try:
+        first = launcher.run(cfg, runs[0], log_interval=1)
+        check(ckpt_mod.available_steps(str(workdir)) == [TRAIN_INTERVAL],
+              f"checkpoints after the first run: {ckpt_mod.available_steps(str(workdir))}")
+        hist = first["history"]
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = launcher.run(cfg, runs[1], log_interval=1)
+    finally:
+        ckpt_mod.save, ckpt_mod.restore_latest = orig_save, orig_restore_latest
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {"bgl_sumsq": bgl.launches, "bitserial_matmul": bsm.launches,
+                "paged_attention": pa.launches}
+    peak = torch.cuda.max_memory_allocated()
+    state, ctx, scheme = out["state"], out["ctx"], out["scheme"]
+    hist = hist + out["history"]
+    check("nbytes" in resumed, "the second run did not resume from the checkpoint")
+    check(ckpt_mod.available_steps(str(workdir)) == [TRAIN_INTERVAL],
+          f"checkpoints after the resumed run: {ckpt_mod.available_steps(str(workdir))}")
+    n_rep = len(ctx.meta)
+    check(n_rep == 8, f"{n_rep} quantised tensors, expected 8")
+    check(launches["bgl_sumsq"] == 2 * n_rep * TRAIN_STEPS,
+          f"{launches['bgl_sumsq']} bgl_sumsq launches, expected 16 x {TRAIN_STEPS}")
+    check(launches["bitserial_matmul"] == 0 and launches["paged_attention"] == 0,
+          f"training launched serving kernels: {launches}")
+    check([h["step"] for h in hist] == list(range(1, TRAIN_STEPS + 1)),
+          f"history steps {[h['step'] for h in hist]}")
+    for h in hist:
+        check(all(np.isfinite(h[k]) for k in ("ce", "reg", "total", "grad_norm")),
+              f"non-finite metrics at step {h['step']}: {h}")
+    dts = [h["dt"] for h in hist]
+    # the first step of each run pays for first-call allocations
+    warm = [dt for i, dt in enumerate(dts) if i not in (0, TRAIN_INTERVAL)]
+    step_ms = 1e3 * float(np.median(warm))
+    nq = ctx.total_quant_params
+    print(f"[train] {TRAIN_STEPS} steps in {train_s:.1f} s (two inits, requants, one "
+          f"checkpoint save, the resume and the final requants included); ms per step "
+          f"{step_ms:.1f} (median of steps 2-4 and 6-8; steps 1 and 5 "
+          f"{1e3 * dts[0]:.1f} and {1e3 * dts[TRAIN_INTERVAL]:.1f}); peak memory "
+          f"{peak / 1e9:.2f} GB; {nq:,} quantised parameters; bgl_sumsq launches "
+          f"{launches['bgl_sumsq']} == 16 x {TRAIN_STEPS} [{card}]", flush=True)
+    for h in hist:
+        print(f"[train]   step {h['step']}: ce {h['ce']:.4f} reg {h['reg']:.2f} total "
+              f"{h['total']:.4f} grad_norm {h['grad_norm']:.4f} lr {h['lr']:.4g} dt "
+              f"{1e3 * h['dt']:.1f} ms")
+    print(f"[ckpt] the resumed run restored the step-{TRAIN_INTERVAL} checkpoint onto the card "
+          f"in {resumed['restore_s']:.1f} s (the files' sha256 check included): "
+          f"{resumed['leaves']} leaves, {resumed['nbytes'] / 1e9:.2f} GB, each bitwise equal "
+          f"to the state the trainer saved at step {TRAIN_INTERVAL} [{card}]", flush=True)
+    print(f"[train] final scheme: {scheme.bits_per_param:.3f} bits/param, compression "
+          f"{scheme.compression:.3f}x vs f32", flush=True)
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    # export, and the serving tree: packed projections, reconstructed
+    # embedding, float norms (cloned: the profiled steps below update them)
+    reps = state_reps(state, ctx)
+    t0 = time.perf_counter()
+    packed = export_packed(reps)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    packed_bytes = sum(pw.hbm_bytes() for pw in packed.values())
+    bf16_bytes = 2 * sum(total_numel(r) for r in reps.values())
+    served = {k: v for k, v in packed.items() if k != "embed"}
+    served["embed"] = forward_value(reps["embed"])
+    floats = {k: v.clone() for k, v in state["trainable"]["float"].items()}
+    params = merge_params(ctx.template, served, floats)
+    print(f"[export] export_packed in {export_s:.2f} s: {packed_bytes / 1e6:.1f} MB packed "
+          f"against {bf16_bytes / 1e6:.1f} MB in bf16 ({bf16_bytes / packed_bytes:.2f}x); "
+          f"bits: " + ", ".join(f"{k.rsplit('/', 1)[-1]}={pw.n_bits}"
+                                for k, pw in packed.items()), flush=True)
+    del reps, packed
+
+    state, prof = profile_train(state, ctx, dev, card)
+
+    del state, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serve the exported weights
+    CheckedEngine = checked_engine_cls()
+    engine = CheckedEngine(params, cfg, max_len=64, device=dev)
+    task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+    n_new, plen = 8, 16
+    reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(50 + i), 1, plen)[0, :plen]
+                    .astype(np.int32), max_new=n_new) for i in range(4)]
+    for m in (bgl, bsm, pa):
+        m.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.generate(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    toks = np.stack([r.tokens for r in sorted(results, key=lambda r: r.uid)])
+    check(toks.shape == (4, n_new), f"served tokens of shape {toks.shape}")
+    check(((toks >= 0) & (toks < cfg.vocab_size)).all(), "served token outside the vocab")
+    check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
+    expected = n_new * cfg.n_layers * 7
+    check(bsm.launches == expected and bgl.launches == 0,
+          f"serving launches: bitserial {bsm.launches} (expected {expected}), bgl "
+          f"{bgl.launches}")
+    print(f"[serve-bsq] 4 requests x {n_new} tokens from the exported packed weights in "
+          f"{serve_s:.3f} s: tokens {toks.tolist()}; bitserial launches {bsm.launches} == "
+          f"{n_new} x {cfg.n_layers} x 7 [{card}]", flush=True)
+    return {"train_s": train_s, "ms_per_step": step_ms, "step_dt_s": dts, "peak_bytes": peak,
+            "launches": launches, "history": hist, "quantised_params": nq,
+            "bits_per_param": scheme.bits_per_param, "compression": scheme.compression,
+            "export_s": export_s, "packed_bytes": packed_bytes, "bf16_bytes": bf16_bytes,
+            "restore_s": resumed["restore_s"], "ckpt_bytes": resumed["nbytes"],
+            "profile": prof,
+            "serve_s": serve_s, "tokens": toks.tolist(), "serve_bitserial_launches": expected}
+
+
 def main() -> int:
     import torch
 
@@ -426,6 +819,7 @@ def main() -> int:
                                           truncate_packed, unpack_to_float)
     from repro_torch.data import MarkovLM
     from repro_torch.kernels import _build
+    from repro_torch.kernels import bgl_sumsq as bgl
     from repro_torch.kernels import bitserial_matmul as bsm
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as pa
@@ -443,9 +837,10 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    libs = _build.build_all(["bitserial_matmul", "paged_attention"])
+    libs = _build.build_all(["bitserial_matmul", "paged_attention", "bgl_sumsq"])
     bsm._lib()
     pa._lib()
+    bgl._lib()
     print(f"[build] {', '.join(f'{n}.cu -> {p.name}' for n, p in libs.items())} in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)", flush=True)
     for name in libs:
@@ -531,6 +926,9 @@ def main() -> int:
 
     # --------------------------------------------------------------- 2b
     report["paged"] = paged_kernel_phase(dev, card, time_ms)
+
+    # --------------------------------------------------------------- 2c
+    report["bgl"] = bgl_kernel_phase(dev, card, time_ms)
     del flush
 
     # ---------------------------------------------------------------- 3
@@ -564,6 +962,9 @@ def main() -> int:
     report["parity"]["continuous_tokens"] = continuous_parity(cfg2, p_gpu, p_cpu, dev, card)
     del p_gpu, p_cpu
 
+    # --------------------------------------------------------------- 3c
+    report["train_parity"] = train_parity(dev, card)
+
     # ---------------------------------------------------------------- 4
     cfg = get_config("granite-3-2b")
     torch.cuda.reset_peak_memory_stats()
@@ -580,15 +981,7 @@ def main() -> int:
           f"{packed_bytes / 1e9:.4f} GB, init peak {init_peak / 1e9:.3f} GB [{card}]",
           flush=True)
 
-    class CheckedEngine(ServeEngine):
-        """Counts non-finite logits without a host sync per step."""
-        bad = None
-
-        def _sample(self, logits, temperatures, any_hot):
-            nonfinite = (~torch.isfinite(logits)).sum()
-            self.bad = nonfinite if self.bad is None else self.bad + nonfinite
-            return super()._sample(logits, temperatures, any_hot)
-
+    CheckedEngine = checked_engine_cls()
     engine = CheckedEngine(params, cfg, max_len=512, device=dev)
     task = MarkovLM(vocab=cfg.vocab_size, seed=3)
     lens = [64] * 4 + [128] * 4
@@ -667,12 +1060,36 @@ def main() -> int:
                 f"lane, {p_row['live_rows']} live rows",
     }
     entry["launches_continuous"] = report["continuous"]["bitserial_launches"]
-    report["kernels"] = [entry, p_entry]
+
+    # ---------------------------------------------------------------- 6
+    del c_engine, c_reqs, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["bsq"] = bsq_slice(dev, card)
+    entry["launches_bsq_serve"] = report["bsq"]["serve_bitserial_launches"]
+    b_rows = {(r["R"], r["C"], r["dtype"]): r for r in report["bgl"]}
+    step_rows = [b_rows[shape + ("float32",)] for shape in BGL_STEP]
+    b_entry = {
+        "name": "bgl_sumsq", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bgl_sumsq.cu",
+        "replaces": "src/repro/kernels/bgl_norm.py:40",
+        "launches": report["bsq"]["launches"]["bgl_sumsq"],
+        "max_abs_err": max(r["max_abs_err"] for r in report["bgl"]),
+        "max_rel_err": max(r["max_rel_err"] for r in report["bgl"]),
+        "ms": sum(r["ms"] for r in step_rows), "plain_ms": sum(r["plain_ms"] for r in step_rows),
+        "bound_ms": sum(r["bound_ms"] for r in step_rows),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in step_rows)
+        else "operations",
+        "library_ms": sum(r["library_ms"] for r in step_rows),
+        "work": "the 16 launches of one BSQ train step of 2-layer full-width granite-3-2b: "
+                "wp and wn of its 8 plane tensors, f32, 16.04 GB",
+    }
+    report["kernels"] = [entry, p_entry, b_entry]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # ---------------------------------------------------------------- 6
+    # ---------------------------------------------------------------- 7
     print(json.dumps({"kernels": report["kernels"]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

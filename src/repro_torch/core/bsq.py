@@ -1,0 +1,208 @@
+"""End-to-end BSQ API: attach bit representations to a model's params.
+PyTorch port of ``repro.core.bsq``.
+
+Usage pattern (what ``train/step.py`` does)::
+
+    qp, fp = partition_params(params, predicate)          # split the tree
+    reps   = init_bitreps(qp, BSQConfig(n_init=8))
+    w      = reconstruct(reps, cfg)                       # STE forward, trainable
+    loss   = task_loss(merge_params(template, w, fp), batch) \\
+             + cfg.alpha * memory_reweighed_bgl(reps, total)
+    reps   = requantize_tree(reps, mode="static")         # every K steps
+    scheme = scheme_from_reps(reps)                       # final scheme
+    packed = export_packed(reps)                          # serving artefact
+
+``reps`` is a flat dict name -> BitRep; names are the "/"-joined tree
+paths of the JAX package, in its flatten order (sorted dict keys).
+The mesh-sharded export comes with the mesh slice of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from .. import tree as tree_util
+from . import packing
+from .bitrep import BitRep, decompose, planes_to_int, total_numel
+from .regularizer import memory_reweighed_bgl
+from .requant import requantize_dynamic, requantize_static
+from .scheme import QuantScheme, scheme_from_reps
+from .ste import bitrep_forward
+
+
+@dataclasses.dataclass(frozen=True)
+class BSQConfig:
+    n_init: int = 8  # initial precision (paper: 8 for CIFAR, 6/8 for ImageNet)
+    n_max: Optional[int] = None  # allocated planes; default n_init + 1 (MSB headroom)
+    alpha: float = 5e-3  # regularisation strength — THE hyperparameter
+    reweigh: bool = True  # memory-aware reweighing (Eq. 5); False = Fig. 2 ablation
+    mode: str = "static"  # "static" (mask) | "dynamic" (paper resize)
+    trainable_scale: bool = True
+    compute_dtype: torch.dtype = torch.bfloat16  # dtype of reconstructed weights
+
+    @property
+    def planes(self) -> int:
+        return self.n_max if self.n_max is not None else self.n_init + 1
+
+
+# --------------------------------------------------------------------------
+# Param-tree partitioning
+# --------------------------------------------------------------------------
+
+
+def default_quant_predicate(path: str, x) -> bool:
+    """Quantise matmul-like weights; keep norms/biases/scalars float
+    (norm scales, RoPE, PACT alphas, SSM recurrence scalars stay float)."""
+    if x.ndim < 2:
+        return False
+    name = path.lower()
+    banned = ("norm", "rope", "pact", "a_log", "dt_bias", "lambda", "pos_emb",
+              # stacking makes 1-D recurrence params 2-D, so the ndim check
+              # alone does not exclude them
+              "conv_w", "conv_b", "d_skip", "bias", "router")
+    return not any(b in name for b in banned)
+
+
+def partition_params(
+    params, predicate: Callable[[str, torch.Tensor], bool] = default_quant_predicate
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Split a param tree into (to-quantise, keep-float) flat dicts keyed by path."""
+    qp, fp = {}, {}
+    for name, leaf in tree_util.flatten_with_path(params):
+        (qp if predicate(name, leaf) else fp)[name] = leaf
+    return qp, fp
+
+
+def merge_params(template, quantized: Dict[str, torch.Tensor], floats: Dict[str, torch.Tensor]):
+    """Rebuild the template's tree structure from the two flat dicts."""
+    return tree_util.unflatten_like(template, {**floats, **quantized})
+
+
+# --------------------------------------------------------------------------
+# BSQ over a dict of tensors
+# --------------------------------------------------------------------------
+
+
+def default_group_axes(name: str, w: torch.Tensor) -> Tuple[int, ...]:
+    """Layer-wise groups: for stacked (L, ...) tensors the leading axis
+    indexes layers (both leading axes for stacked experts): group over
+    all leading axes until <= 2 trailing matmul dims remain."""
+    if w.ndim <= 2:
+        return ()
+    return tuple(range(w.ndim - 2))
+
+
+def init_bitreps(
+    qparams: Dict[str, torch.Tensor],
+    cfg: BSQConfig,
+    group_axes_fn: Callable[[str, torch.Tensor], Tuple[int, ...]] = default_group_axes,
+) -> Dict[str, BitRep]:
+    reps = {}
+    for name, w in qparams.items():
+        n_max = cfg.planes if cfg.mode == "static" else cfg.n_init
+        reps[name] = decompose(w, cfg.n_init, group_axes=group_axes_fn(name, w), n_max=n_max)
+    return reps
+
+
+def reconstruct(reps: Dict[str, BitRep], cfg: BSQConfig) -> Dict[str, torch.Tensor]:
+    """STE forward for every rep -> float weights dict (paper Eq. 3)."""
+    out = {}
+    for name, r in reps.items():
+        scale = r.scale if cfg.trainable_scale else r.scale.detach()
+        w = bitrep_forward(r.wp, r.wn, scale, r.mask, r.n_denom)
+        out[name] = w.to(cfg.compute_dtype)
+    return out
+
+
+def regularizer(reps: Dict[str, BitRep], cfg: BSQConfig, total_params: Optional[int] = None):
+    return memory_reweighed_bgl(reps, total_params=total_params, reweigh=cfg.reweigh)
+
+
+def requantize_tree(reps: Dict[str, BitRep], mode: str = "static") -> Dict[str, BitRep]:
+    fn = requantize_static if mode == "static" else requantize_dynamic
+    return {k: fn(r) for k, r in reps.items()}
+
+
+def extract_scheme(reps: Dict[str, BitRep], float_params: int = 0) -> QuantScheme:
+    return scheme_from_reps(reps, float_params=float_params)
+
+
+def total_quantized_params(reps: Dict[str, BitRep]) -> int:
+    return sum(total_numel(r) for r in reps.values())
+
+
+# --------------------------------------------------------------------------
+# Export for serving
+# --------------------------------------------------------------------------
+
+
+def _export_codes(r: BitRep):
+    """Export arithmetic: ``(q_shift, n_bits, scale)``.
+
+    The integer codes shifted into the whole-tensor ``[lsb, msb]`` window
+    (int32, on the rep's device), the packed precision, and the PER-GROUP
+    scale (group-broadcast shape, f32) updated exactly as in the dynamic
+    precision adjustment, in float64 as the JAX package computes it::
+
+        scale'_g * q' / (2^{n'} - 1)  ==  s_g * q / (2^{n_denom} - 1)
+    """
+    r2 = requantize_static(r)  # binary planes and a fresh mask
+    m = r2.mask.to(r2.wp.dtype)
+    q = planes_to_int(r2.wp, m) - planes_to_int(r2.wn, m)
+    mag = torch.abs(q)
+    nz = [b for b in range(r2.n_bits) if bool(((mag >> b) & 1).any())]
+    lsb, msb = (min(nz), max(nz)) if nz else (0, 0)
+    n_bits = msb - lsb + 1
+    q_shift = ((mag >> lsb) * torch.sign(q)).to(torch.int32)
+    s = r2.scale.to(torch.float64)
+    scale = s * (2.0**lsb) * (2.0**n_bits - 1.0) / (2.0**r2.n_denom - 1.0)
+    if scale.shape[-2] != 1:
+        raise NotImplementedError(
+            f"per-K-row scale groups (shape {tuple(scale.shape)}) have no packed row "
+            "form; regroup over leading/output axes")
+    return q_shift, n_bits, scale.to(torch.float32)
+
+
+def _pack_grouped(q: torch.Tensor, scale: torch.Tensor, n_bits: int) -> packing.PackedWeight:
+    """Pack codes ``q`` (..., K, N) with a per-group ``scale`` (group-
+    broadcast shape, q's ndim) into one PackedWeight.
+
+    2D tensors pack directly; stacked tensors keep their leading axes, the
+    scale broadcast to ``lead + (1, G)``.  Byte-aligned stacks
+    (K % 8 == 0) pack every slice in one pass (slice byte boundaries
+    coincide with stack boundaries); ragged K packs slice by slice."""
+    if q.ndim == 2:
+        return packing.pack_quantized(q, scale, n_bits)
+    lead = tuple(q.shape[:-2])
+    K, N = q.shape[-2:]
+    sc = scale.expand(lead + tuple(scale.shape[-2:])).contiguous()
+    if K % 8 == 0:
+        flat = packing.pack_quantized(q.reshape(-1, N), 1.0, n_bits)
+        planes = torch.movedim(flat.planes.reshape((n_bits,) + lead + (K // 8, N)), 0, -3)
+        return packing.PackedWeight(planes=planes.contiguous(),
+                                    sign=flat.sign.reshape(lead + (K // 8, N)),
+                                    scale=sc, n_bits=n_bits, k=K)
+    sf = sc.reshape((-1,) + tuple(sc.shape[-2:]))
+    qf = q.reshape((-1, K, N))
+    packs = [packing.pack_quantized(qf[i], sf[i], n_bits) for i in range(qf.shape[0])]
+    planes = torch.stack([p.planes for p in packs]).reshape(lead + tuple(packs[0].planes.shape))
+    sign = torch.stack([p.sign for p in packs]).reshape(lead + tuple(packs[0].sign.shape))
+    return packing.PackedWeight(planes=planes, sign=sign, scale=sc, n_bits=n_bits, k=K)
+
+
+def export_packed(reps: Dict[str, BitRep]) -> Dict[str, packing.PackedWeight]:
+    """Freeze each rep to a PackedWeight — exact by construction, and
+    byte-identical to the JAX package's ``export_packed`` on the same reps.
+
+    One static precision per tensor (the whole-tensor ``[lsb, msb]``
+    window); the per-group scales ride along as the PackedWeight's scale
+    (a ``(1, G)`` row for output-axis groups; ``lead + (1, G)`` per-slice
+    rows for stacked tensors).  The layout is ``docs/packed_format.md``.
+    """
+    out = {}
+    for name, r in reps.items():
+        q_shift, n_bits, scale = _export_codes(r)
+        out[name] = _pack_grouped(q_shift, scale, n_bits)
+    return out

@@ -3,7 +3,8 @@ the plain PyTorch version for a tensor on the CPU.
 
 The choice follows the device of ``x`` alone: no switch, and no
 fallback when a kernel fails (it raises).  Ported from
-``repro.kernels.ops``; the mesh-sharded entry comes with the mesh slice.
+``repro.kernels.ops``; the mesh-sharded entry comes with the mesh slice
+and ``flash_attention`` with a later one.
 """
 from __future__ import annotations
 
@@ -59,3 +60,33 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                                     window=window, sm_scale=sm_scale)
     return ref.paged_attention_ref(q, k_pool, v_pool, block_table, pos, window=window,
                                    sm_scale=sm_scale)
+
+
+class _BglSumsq(torch.autograd.Function):
+    """Per-row sum of squares, the kernel on the card and the plain
+    version on the CPU; the backward is ``2 x g[:, None]`` on both (the
+    JAX package differentiates its jnp sum the same way; there is no
+    backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        if x.device.type == "cuda":
+            from .bgl_sumsq import bgl_sumsq_cuda
+
+            return bgl_sumsq_cuda(x)
+        return ref.bgl_sumsq_ref(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        g2 = (2.0 * g)[:, None]
+        if x.dtype == torch.bfloat16:
+            return (x.float() * g2).to(x.dtype)
+        return x * g2.to(x.dtype)
+
+
+def bgl_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """(R, C) -> (R,) f32 per-row sum of squares; rows are (bit, group)
+    pairs of the bit-level group Lasso.  Differentiable."""
+    return _BglSumsq.apply(x)

@@ -85,3 +85,10 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, pos, *, window=None, sm_
     out = torch.einsum("bkgs,bskd->bkgd", p, vals.to(torch.float32))
     out = torch.where((pos >= 0)[:, None, None, None], out, torch.zeros((), device=q.device))
     return out.to(q.dtype)
+
+
+def bgl_sumsq_ref(x: torch.Tensor) -> torch.Tensor:
+    """Per-row sum of squares of an (R, C) matrix, summed in f32 (float64
+    input stays float64, so ``gradcheck`` can hold the gradient)."""
+    x = x if x.dtype == torch.float64 else x.float()
+    return x.pow(2).sum(1)

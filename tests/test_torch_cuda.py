@@ -13,20 +13,28 @@ the largest |output|:
   bf16 before the scale, the kernel scales the f32 sum);
 * paged attention: f32 1e-5 (an online softmax against a one-pass one);
   bf16 2e-2 (the kernel rounds K to q's dtype and p to V's dtype, the
-  plain version computes in f32).
+  plain version computes in f32);
+* bgl_sumsq: 1e-5 of each row's plain value (f32 sums of non-negative
+  terms in another order; bf16 widens exactly to f32 in both).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import reduced_config
+from repro_torch.core import BSQConfig
 from repro_torch.core import packing as tpack
+from repro_torch.data import MarkovLM
+from repro_torch.kernels import bgl_sumsq as tbgl
 from repro_torch.kernels import bitserial_matmul as tkern
 from repro_torch.kernels import paged_attention as tpaged
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import transformer
+from repro_torch.optim import SGDM, step_decay
 from repro_torch.serve import Request, ServeEngine
+from repro_torch.train import init_bsq_state, make_bsq_train_step, make_requant_step
+from repro_torch.tree import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -201,3 +209,67 @@ def test_continuous_paged_kernel_engine_on_card_matches_cpu(cuda):
     assert tpaged.launches == eng.scheduler.decode_steps * cfg.n_layers
     for uid in out["cpu"]:
         np.testing.assert_array_equal(out["cuda"][uid], out["cpu"][uid])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,C", [(1, 1), (1, 33), (7, 1_000_003), (18, 65_536), (3, 262_147),
+                                 (2, 8)])
+def test_bgl_sumsq_kernel_matches_plain_version(cuda, R, C, dtype):
+    """Ragged rows (unaligned 16-byte vectors at chunk starts), rows
+    shorter than one vector, several chunks per row; a second call gives
+    the same bits."""
+    x = torch.randn((R, C), generator=torch.Generator(device=cuda).manual_seed(R + C),
+                    device=cuda).to(dtype)
+    got = tops.bgl_sumsq(x)
+    want = tref.bgl_sumsq_ref(x)
+    assert got.dtype == torch.float32 and got.shape == (R,)
+    assert ((got - want).abs() / want).max().item() <= 1e-5
+    assert torch.equal(got, tops.bgl_sumsq(x))
+
+
+def test_bgl_sumsq_unaligned_view_and_launch_count(cuda):
+    """A contiguous view that starts off a 16-byte boundary, the gradient
+    through the autograd Function, and the checks that raise."""
+    base = torch.randn(1 + 5 * 4099, device=cuda)
+    x = base[1:].view(5, 4099)
+    tbgl.reset_launches()
+    got = tops.bgl_sumsq(x)
+    assert ((got - tref.bgl_sumsq_ref(x)).abs() / got).max().item() <= 1e-5
+    xg = x.detach().clone().requires_grad_(True)
+    g = torch.randn(5, device=cuda)
+    (gx,) = torch.autograd.grad(tops.bgl_sumsq(xg), xg, g)
+    assert torch.equal(gx, xg.detach() * (2.0 * g)[:, None])
+    assert tbgl.launches == 2
+    with pytest.raises(TypeError, match="dtype"):
+        tbgl.bgl_sumsq_cuda(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tbgl.bgl_sumsq_cuda(torch.randn(8, 6, device=cuda).t())
+    assert tbgl.launches == 2
+
+
+def test_bsq_train_steps_on_card_match_cpu(cuda):
+    """Reduced granite-3-2b, f32: two BSQ train steps from one state on
+    the card (the kernel in every regulariser) and on the CPU (the plain
+    version) give the same losses and regs within 1e-5 relative, and the
+    masks after a requant are equal."""
+    cfg = reduced_config("granite-3-2b")
+    bsq_cfg = BSQConfig(n_init=8, alpha=5e-3, compute_dtype=torch.float32)
+    opt = SGDM()
+    state_cpu, ctx = init_bsq_state(torch.Generator().manual_seed(0), cfg, bsq_cfg, opt, "cpu")
+    state_gpu = tree_map(lambda x: x.clone() if x.ndim == 0 else x.to(cuda, copy=True),
+                         state_cpu)
+    step = make_bsq_train_step(ctx, opt, step_decay(0.2, [100]))
+    task = MarkovLM(vocab=cfg.vocab_size, seed=13)
+    batches = [task.batch(np.random.default_rng(i), 4, 16) for i in range(2)]
+    tbgl.reset_launches()
+    for b in batches:
+        state_cpu, m_cpu = step(state_cpu, {k: torch.from_numpy(v).long() for k, v in b.items()})
+        state_gpu, m_gpu = step(state_gpu, {k: torch.from_numpy(v).long().to(cuda)
+                                            for k, v in b.items()})
+        for k in ("ce", "reg", "total"):
+            assert abs(m_gpu[k].item() - m_cpu[k].item()) <= 1e-5 * abs(m_cpu[k].item()), k
+    assert tbgl.launches == 2 * 2 * len(ctx.meta)
+    rq = make_requant_step(ctx)
+    masks_cpu, masks_gpu = rq(state_cpu)["masks"], rq(state_gpu)["masks"]
+    for name in masks_cpu:
+        assert torch.equal(masks_gpu[name].cpu(), masks_cpu[name]), name

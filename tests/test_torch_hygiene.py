@@ -24,7 +24,13 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.kernels.ops", "repro_torch.serve.engine",
             "repro_torch.launch.serve", "repro_torch.bridge",
             "repro_torch.kernels.paged_attention", "repro_torch.serve.slots",
-            "repro_torch.serve.scheduler"} <= set(mods)
+            "repro_torch.serve.scheduler", "repro_torch.kernels.bgl_sumsq",
+            "repro_torch.core.bitrep", "repro_torch.core.ste", "repro_torch.core.regularizer",
+            "repro_torch.core.requant", "repro_torch.core.scheme", "repro_torch.core.bsq",
+            "repro_torch.optim.optimizers", "repro_torch.data.pipeline",
+            "repro_torch.ckpt.checkpoint", "repro_torch.train.step",
+            "repro_torch.train.trainer", "repro_torch.launch.train",
+            "repro_torch.tree"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -41,11 +47,17 @@ def test_every_module_imports_without_jax_or_repro():
     assert proc.returncode == 0 and "IMPORTS_OK" in proc.stdout, proc.stderr[-2000:]
 
 
-@pytest.mark.parametrize("entry", ["init_params", "init_cache", "engine", "launcher"])
+@pytest.mark.parametrize("entry", ["init_params", "init_cache", "engine", "launcher",
+                                   "init_bsq_state", "train_launcher", "lm_iterator"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, monkeypatch):
+    from repro_torch.core import BSQConfig
+    from repro_torch.data import MarkovLM, sharded_lm_iterator
     from repro_torch.launch import serve as launcher
+    from repro_torch.launch import train as train_launcher
     from repro_torch.models import transformer
+    from repro_torch.optim import SGDM
     from repro_torch.serve import ServeEngine
+    from repro_torch.train import init_bsq_state
 
     cfg = reduced_config("granite-3-2b")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -57,6 +69,12 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, monkeypatch)
         "launcher": lambda dev: launcher.main(
             ["--requests", "1", "--prompt-len", "4", "--max-new", "2", "--max-len", "8"]
             + ([] if dev is None else ["--device", dev])),
+        "init_bsq_state": lambda dev: init_bsq_state(torch.Generator(), cfg, BSQConfig(),
+                                                     SGDM(), dev),
+        "train_launcher": lambda dev: train_launcher.main(
+            ["--steps", "1", "--batch", "2", "--seq", "4"]
+            + ([] if dev is None else ["--device", dev])),
+        "lm_iterator": lambda dev: sharded_lm_iterator(MarkovLM(vocab=16), 2, 4, device=dev),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry](None)
