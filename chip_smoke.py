@@ -1,61 +1,79 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, then the result lines
+    python3 chip_smoke.py --only 2d,3d   # those phases alone, no result line
 
 Drives ``repro_torch`` only (never JAX, never ``repro``), in phases; any
 failure exits non-zero and none is caught:
 
-1. build the CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, all started together) and print ptxas's
-   registers and spills;
+1. build the four CUDA kernel libraries from
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all started
+   together) and print ptxas's registers and spills;
 2. hold the bitserial kernel against its plain PyTorch version at the
    main path's shapes (f32 and bf16, per-tensor and per-group scales),
    check ``active=a`` bitwise against ``truncate_packed`` for every a,
    and time the kernel, the plain version and ``torch.matmul`` against
    the dequantised weight (a yardstick only; the port never calls it);
 2b. hold the paged-attention kernel against its plain version at the
-   continuous slice's shapes (f32, bf16, one windowed case; ragged
-   positions with inactive lanes), check that scrambled stale table
-   entries and NaN in never-live blocks leave its output bitwise
+   continuous slices' shapes (granite-3-2b's d 64, G 4: f32, bf16, one
+   windowed case; gemma3-12b's global layers, d 256, G 2: f32, bf16;
+   ragged positions with inactive lanes), check that scrambled stale
+   table entries and NaN in never-live blocks leave its output bitwise
    unchanged, and time the kernel, the plain version and one
    ``scaled_dot_product_attention`` call on K/V already gathered into
-   lane-contiguous form (a yardstick only; the port never calls it);
-3. full-width granite-3-2b cut to 2 layers, f32, 6-bit packed: the card
-   (kernel) against the CPU (plain path) on the same params;
-3b. the same 2-layer model through the continuous paged-kernel engine
-   on the card (2 lanes, reused), the bucketed engine on the card and
-   the continuous engine on the CPU: identical greedy tokens;
-4. full-width 40-layer granite-3-2b, bf16, 6-bit packed, served by the
-   bucketed ServeEngine (8 requests, two buckets, 32 tokens each), with
-   the kernel's launch count checked exactly;
-4b. the continuous slice: the same model through
-   ``ServeEngine(continuous=True, paged=True, paged_kernel=True)`` (8
-   lanes, 64 blocks of 32 rows), 16 requests on Poisson arrivals, with
-   both kernels' launch counts checked exactly and the pool drained;
+   lane-contiguous form (a yardstick only);
 2c. hold the bgl_sumsq kernel (per-row sum of squares, the BSQ
    regulariser's) against its plain version at the training slice's
    shapes and two ragged ones, f32 and bf16, within 1e-5 of each row's
    plain value, check a second call bitwise equal, and time the kernel,
-   the plain version and one ``torch.linalg.vector_norm`` call (a
-   yardstick only; the port never calls it);
+   the plain version and one ``torch.linalg.vector_norm`` call;
+2d. hold the flash-attention kernel against its plain version at the
+   prefill shapes (granite-3-2b's bucket, gemma3-12b's 2 x 4096 tokens
+   causal and with window 1024, a non-causal case, a ragged length),
+   f32 within 1e-5 and bf16 within 2e-2 of max |plain|, a second call
+   bitwise equal, and time the kernel, the plain version and one
+   ``scaled_dot_product_attention`` call (a yardstick only);
+3. full-width granite-3-2b cut to 2 layers, f32, 6-bit packed: the card
+   (kernels) against the CPU (plain path) on the same params;
+3b. the same 2-layer model through the continuous paged-kernel engine
+   on the card (2 lanes, reused), the bucketed engine on the card and
+   the continuous engine on the CPU: identical greedy tokens;
 3c. reduced granite-3-2b, f32: two BSQ train steps from one state on
    the card and on the CPU agree within 1e-5 relative, and the masks
    after a requant are equal;
+3d. full-width gemma3-12b cut to one superblock (5 local + 1 global
+   layers), f32, 6-bit packed, card against CPU through the bucketed
+   engine (a 2048-token prompt wraps every ring in prefill, a 1020-token
+   one wraps it in decode) and the chunked paged-kernel engine: every
+   logit row within the phase-3 tolerance, identical greedy tokens;
+4. full-width 40-layer granite-3-2b, bf16, 6-bit packed, served by the
+   bucketed ServeEngine (8 requests, two buckets, 32 tokens each), with
+   the bitserial and flash launch counts checked exactly;
+4b. the continuous slice: the same model through
+   ``ServeEngine(continuous=True, paged=True, paged_kernel=True)`` (8
+   lanes, 64 blocks of 32 rows), 16 requests on Poisson arrivals, with
+   the kernels' launch counts checked exactly and the pool drained;
 5. ``torch.profiler`` over a few decode steps of one bucket, and over a
    short continuous run: device busy time, idle share and the device
    ops by time;
+4c. full-width 48-layer gemma3-12b, bf16, 6-bit packed: bucketed (2 x
+   4096 and 2 x 1024 prompt tokens, 32 new each; exactly 48 flash
+   launches per prefill call, 40 windowed) and continuous (chunked,
+   paged, the paged kernel; 8 lanes, 16 requests with prompts uniform in
+   [512, 3072] on Poisson arrivals; exactly 8 paged launches per decode
+   step, the pool drained), and a profiled decode step;
 6. the BSQ training slice: full-width granite-3-2b cut to 2 layers,
    trained through ``repro_torch.launch.train.run``: 4 steps with a
    requant and a checkpoint at step 4, then a second run that resumes
    from that checkpoint to step 8 (requant at 8; its next checkpoint
    would be at 12: the card's machine takes at most 45 GiB of disk
    writes, and a checkpoint is 32 GB).  The bgl_sumsq launches are
-   checked exactly, every step's loss finite, the resume's restore held
-   bit for bit against a host copy of the state saved at step 4; then
-   the final scheme, ``export_packed``, a profile of two train steps,
-   and 4 requests served from the exported packed weights through the
-   bitserial kernel;
+   checked exactly (and no serving kernel launches), every step's loss
+   finite, the resume's restore held bit for bit against a host copy of
+   the state saved at step 4; then the final scheme, ``export_packed``,
+   a profile of two train steps, and 4 requests served from the
+   exported packed weights through the bitserial and flash kernels;
 7. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    the final ``{"ok": true, ...}`` line.
 
@@ -84,6 +102,9 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of max |plain|, see phase 2
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the continuous slice (phase 4b): 8 lanes, 64 blocks of 32 rows
 SLOTS, BLOCK, N_BLOCKS, MAX_LEN = 8, 32, 64, 512
+# gemma3-12b's continuous run (phase 4c): 8 lanes, 512 blocks of 32 rows,
+# prompts up to 3072 tokens and 32 new ones
+G_MAX_LEN, G_N_BLOCKS = 3104, 512
 # bgl_sumsq (phase 2c): the (bits x groups, rest) plane views of a BSQ train
 # step of 2-layer full-width granite-3-2b (9 planes; 2 layers per stacked
 # tensor), and two ragged shapes
@@ -202,93 +223,500 @@ def device_ms_by_name(prof):
 
 def paged_kernel_phase(dev, card, time_ms):
     """Phase 2b: the paged-attention kernel against its plain version at
-    the continuous slice's shapes (8 lanes, 8 KV heads of 4 query heads,
-    d = 64, blocks of 32 rows, 16 table entries per lane, a pool of 64
-    blocks), with ragged positions and two inactive lanes."""
+    the continuous slices' shapes, with ragged positions and two inactive
+    lanes: granite-3-2b's (8 lanes, 8 KV heads of 4 query heads, d = 64,
+    blocks of 32 rows, 16 table entries per lane, a pool of 64 blocks;
+    f32, bf16, one windowed case) and gemma3-12b's global layers (8 KV
+    heads of 2 query heads, d = 256, 97 table entries per lane, a pool of
+    512 blocks of which each lane owns 64; f32 and bf16)."""
+    import torch
+
+    rows = []
+    for dt, window in ((torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, 100)):
+        rows.append(paged_case(dev, card, time_ms, dt, window, KV=8, G=4, d=64,
+                               nb_lane=MAX_LEN // BLOCK, n_blocks=N_BLOCKS,
+                               pos=[-1, 0, 31, 100, 255, 200, -1, 63]))
+    for dt in (torch.float32, torch.bfloat16):
+        rows.append(paged_case(dev, card, time_ms, dt, None, KV=8, G=2, d=256,
+                               nb_lane=G_MAX_LEN // BLOCK, n_blocks=G_N_BLOCKS,
+                               pos=[-1, 0, 511, 1000, 2047, 1500, -1, 64]))
+    print("[paged] kernel == plain within tolerance; inactive lanes exact zeros; stale "
+          "entries and NaN never-live blocks leave it bitwise unchanged", flush=True)
+    return rows
+
+
+def paged_case(dev, card, time_ms, dt, window, *, KV, G, d, nb_lane, n_blocks, pos):
+    """One shape of phase 2b: lane-disjoint shuffled tables whose entries
+    past a lane's own blocks name other lanes' blocks (stale ids)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
 
-    B, KV, G, d, nb_lane = SLOTS, 8, 4, 64, MAX_LEN // BLOCK
-    gen = torch.Generator(device=dev).manual_seed(2)
-    # lane-disjoint shuffled tables: lane b owns 8 of the 64 blocks, and its
-    # entries past them name blocks of other lanes (stale ids)
-    own = torch.randperm(N_BLOCKS, generator=gen, device=dev).reshape(B, N_BLOCKS // B)
-    stale = torch.randint(0, N_BLOCKS, (B, nb_lane - N_BLOCKS // B), generator=gen, device=dev)
+    B = len(pos)
+    gen = torch.Generator(device=dev).manual_seed(2 + d)
+    own = torch.randperm(n_blocks, generator=gen, device=dev).reshape(B, n_blocks // B)
+    stale = torch.randint(0, n_blocks, (B, nb_lane - n_blocks // B), generator=gen, device=dev)
     table = torch.cat([own, stale], 1).to(torch.int32).contiguous()
-    pos = torch.tensor([-1, 0, 31, 100, 255, 200, -1, 63], dtype=torch.int32, device=dev)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
     live = [int(p) // BLOCK + 1 if p >= 0 else 0 for p in pos.tolist()]
+    check(max(live) <= n_blocks // B, f"positions {pos.tolist()} outgrow the lanes' blocks")
     scrambled = table.clone()
     for b in range(B):
-        scrambled[b, live[b]:] = (scrambled[b, live[b]:] + 7) % N_BLOCKS
+        scrambled[b, live[b]:] = (scrambled[b, live[b]:] + 7) % n_blocks
     used = {int(table[b, j]) for b in range(B) for j in range(live[b])}
-    dead = torch.tensor(sorted(set(range(N_BLOCKS)) - used), device=dev)
+    dead = torch.tensor(sorted(set(range(n_blocks)) - used), device=dev)
     L = nb_lane * BLOCK
     kpos = torch.arange(L, device=dev)
+    dname = str(dt).split(".")[-1]
+    q = torch.randn((B, KV, G, d), generator=gen, device=dev).to(dt)
+    k = torch.randn((n_blocks, BLOCK, KV, d), generator=gen, device=dev).to(dt)
+    v = torch.randn((n_blocks, BLOCK, KV, d), generator=gen, device=dev).to(dt)
+    got = ops.paged_attention(q, k, v, table, pos, window=window)
+    want = ref.paged_attention_ref(q, k, v, table, pos, window=window)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale_ = want.float().abs().max().item()
+    what = f"paged kernel {dname} d={d} G={G} window={window}"
+    check(bool(torch.isfinite(got).all()) and err <= PAGED_TOL[dname] * scale_,
+          f"{what} vs plain: max err {err} > {PAGED_TOL[dname]} x {scale_}")
+    for b in range(B):
+        if pos[b] < 0:
+            check(torch.equal(got[b], torch.zeros_like(got[b])),
+                  f"{what}: inactive lane {b} is not exact zeros")
+    check(torch.equal(got, ops.paged_attention(q, k, v, table, pos, window=window)),
+          f"{what}: a second call differs")
+    k2, v2 = k.clone(), v.clone()
+    k2[dead] = float("nan")
+    v2[dead] = float("nan")
+    check(torch.equal(got, ops.paged_attention(q, k2, v2, scrambled, pos, window=window)),
+          f"{what}: scrambled stale entries or NaN never-live blocks changed the output")
+    del k2, v2
+    # yardstick: one SDPA call on K/V gathered into (B, KV, L, d) beforehand
+    kc = k[table.long()].reshape(B, L, KV, d).transpose(1, 2).contiguous()
+    vc = v[table.long()].reshape(B, L, KV, d).transpose(1, 2).contiguous()
+    valid = kpos[None, :] <= pos[:, None]
+    if window is not None:
+        valid &= (pos[:, None] - kpos[None, :]) < window
+    mask = valid[:, None, None, :]
+    qs = q.reshape(B, KV * G, 1, d)
+    row = {
+        "dtype": dname, "window": window, "B": B, "KV": KV, "G": G, "d": d,
+        "block_size": BLOCK, "blocks_per_lane": nb_lane, "pos": pos.tolist(),
+        "max_abs_err": err, "max_abs_plain": scale_,
+        "ms": time_ms(lambda: ops.paged_attention(q, k, v, table, pos, window=window)),
+        "plain_ms": time_ms(lambda: ref.paged_attention_ref(q, k, v, table, pos,
+                                                            window=window), iters=5),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kc, vc, attn_mask=mask, enable_gqa=True)),
+    }
+    # the least the card could take: each live K/V row read once, q read
+    # and the output written once; 4 d flops per live row and head
+    live_rows = sum(min(p + 1, window or p + 1, L) for p in pos.tolist() if p >= 0)
+    elt = q.element_size()
+    nbytes = (2 * live_rows * KV * d * elt + 2 * q.numel() * elt
+              + 4 * (table.numel() + pos.numel()))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4.0 * live_rows * KV * G * d / PEAK_FLOPS[dname]
+    row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    row["live_rows"] = live_rows
+    print(f"[paged] {dname} d={d} G={G} window={window} pos={pos.tolist()}: max_err={err:.3e} "
+          f"(max|plain|={scale_:.3e}) kernel {row['ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {live_rows} live rows), plain "
+          f"{row['plain_ms']:.4f} ms, sdpa(gathered) {row['library_ms']:.4f} ms [{card}]",
+          flush=True)
+    return row
+
+
+def flash_bound(BH, BHkv, S, d, window, causal, dname):
+    """The least time the card could take for one flash launch: q, k, v
+    read once and the output written once, against 4 d flops per live
+    (query, key) pair and query head at the dtype's peak."""
+    live = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window else 0
+        hi = i if causal else S - 1
+        live += hi - lo + 1
+    elt = 4 if dname == "float32" else 2
+    t_bytes = (2 * BH + 2 * BHkv) * S * d * elt / HBM_BYTES_PER_S
+    t_ops = 4.0 * d * live * BH / PEAK_FLOPS[dname]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), live
+
+
+def flash_kernel_phase(dev, card, time_ms):
+    """Phase 2d: the flash-attention kernel against its plain version at
+    the prefill shapes of the main paths: granite-3-2b's bucket (4 x 32
+    query heads over 32 K/V rows, d 64, 128 tokens), gemma3-12b's (2 x 16
+    query heads over 16 K/V rows, d 256, 4096 tokens, causal and window
+    1024), a non-causal case and a ragged length; f32 and bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    cases = [  # name, BH, BHkv, S, d, window, causal
+        ("granite-prefill", 4 * 32, 4 * 8, 128, 64, None, True),
+        ("gemma3-global", 2 * 16, 2 * 8, 4096, 256, None, True),
+        ("gemma3-local", 2 * 16, 2 * 8, 4096, 256, 1024, True),
+        ("non-causal", 8, 8, 512, 64, None, False),
+        ("ragged", 16, 8, 1000, 256, 300, True),
+    ]
+    gen = torch.Generator(device=dev).manual_seed(5)
     rows = []
-    for dt, window in ((torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, 100)):
-        dname = str(dt).split(".")[-1]
-        q = torch.randn((B, KV, G, d), generator=gen, device=dev).to(dt)
-        k = torch.randn((N_BLOCKS, BLOCK, KV, d), generator=gen, device=dev).to(dt)
-        v = torch.randn((N_BLOCKS, BLOCK, KV, d), generator=gen, device=dev).to(dt)
-        got = ops.paged_attention(q, k, v, table, pos, window=window)
-        want = ref.paged_attention_ref(q, k, v, table, pos, window=window)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        scale_ = want.float().abs().max().item()
-        what = f"paged kernel {dname} window={window}"
-        check(bool(torch.isfinite(got).all()) and err <= PAGED_TOL[dname] * scale_,
-              f"{what} vs plain: max err {err} > {PAGED_TOL[dname]} x {scale_}")
-        for b in range(B):
-            if pos[b] < 0:
-                check(torch.equal(got[b], torch.zeros_like(got[b])),
-                      f"{what}: inactive lane {b} is not exact zeros")
-        check(torch.equal(got, ops.paged_attention(q, k, v, table, pos, window=window)),
-              f"{what}: a second call differs")
-        k2, v2 = k.clone(), v.clone()
-        k2[dead] = float("nan")
-        v2[dead] = float("nan")
-        check(torch.equal(got, ops.paged_attention(q, k2, v2, scrambled, pos, window=window)),
-              f"{what}: scrambled stale entries or NaN never-live blocks changed the output")
-        # yardstick: one SDPA call on K/V gathered into (B, KV, L, d) beforehand
-        kc = k[table.long()].reshape(B, L, KV, d).transpose(1, 2).contiguous()
-        vc = v[table.long()].reshape(B, L, KV, d).transpose(1, 2).contiguous()
-        valid = kpos[None, :] <= pos[:, None]
-        if window is not None:
-            valid &= (pos[:, None] - kpos[None, :]) < window
-        mask = valid[:, None, None, :]
-        qs = q.reshape(B, KV * G, 1, d)
-        row = {
-            "dtype": dname, "window": window, "B": B, "KV": KV, "G": G, "d": d,
-            "block_size": BLOCK, "blocks_per_lane": nb_lane, "pos": pos.tolist(),
-            "max_abs_err": err, "max_abs_plain": scale_,
-            "ms": time_ms(lambda: ops.paged_attention(q, k, v, table, pos, window=window)),
-            "plain_ms": time_ms(lambda: ref.paged_attention_ref(q, k, v, table, pos,
-                                                                window=window), iters=5),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qs, kc, vc, attn_mask=mask, enable_gqa=True)),
-        }
-        # the least the card could take: each live K/V row read once, q read
-        # and the output written once; 4 d flops per live row and head
-        live_rows = sum(min(p + 1, window or p + 1, L) for p in pos.tolist() if p >= 0)
-        elt = q.element_size()
-        nbytes = (2 * live_rows * KV * d * elt + 2 * q.numel() * elt
-                  + 4 * (table.numel() + pos.numel()))
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = 4.0 * live_rows * KV * G * d / PEAK_FLOPS[dname]
-        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        row["live_rows"] = live_rows
-        rows.append(row)
-        print(f"[paged] {dname} window={window} pos={pos.tolist()}: max_err={err:.3e} "
-              f"(max|plain|={scale_:.3e}) kernel {row['ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {live_rows} live rows), plain "
-              f"{row['plain_ms']:.4f} ms, sdpa(gathered) {row['library_ms']:.4f} ms [{card}]",
-              flush=True)
-    print("[paged] kernel == plain within tolerance; inactive lanes exact zeros; stale "
-          "entries and NaN never-live blocks leave it bitwise unchanged", flush=True)
+    for name, BH, BHkv, S, d, window, causal in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[-1]
+            q = torch.randn((BH, S, d), generator=gen, device=dev).to(dt)
+            k = torch.randn((BHkv, S, d), generator=gen, device=dev).to(dt)
+            v = torch.randn((BHkv, S, d), generator=gen, device=dev).to(dt)
+            kw = dict(causal=causal, window=window)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            scale_ = want.float().abs().max().item()
+            what = f"flash kernel {name} {dname}"
+            check(bool(torch.isfinite(got).all()) and err <= PAGED_TOL[dname] * scale_,
+                  f"{what} vs plain: max err {err} > {PAGED_TOL[dname]} x {scale_}")
+            check(torch.equal(got, ops.flash_attention(q, k, v, **kw)),
+                  f"{what}: a second call differs")
+            del want
+            # yardstick: one SDPA call on (B, H, S, d) views, K/V not broadcast
+            q4, k4, v4 = q[None], k[None], v[None]
+            if window is None:
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q4, k4, v4, is_causal=causal, enable_gqa=True)
+            else:
+                pos = torch.arange(S, device=dev)
+                mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q4, k4, v4, attn_mask=mask, enable_gqa=True)
+            b_ms, b_by, live = flash_bound(BH, BHkv, S, d, window, causal, dname)
+            row = {
+                "case": name, "dtype": dname, "BH": BH, "BHkv": BHkv, "S": S, "d": d,
+                "window": window, "causal": causal, "max_abs_err": err, "max_abs_plain": scale_,
+                "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+                "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), iters=3),
+                "library_ms": time_ms(lib),
+                "bound_ms": b_ms, "bound_by": b_by, "live_pairs": live,
+            }
+            row["tflops"] = 4.0 * d * live * BH / (row["ms"] * 1e-3) / 1e12
+            rows.append(row)
+            print(f"[flash] {name} BH={BH}/{BHkv} S={S} d={d} window={window} causal={causal} "
+                  f"{dname}: max_err={err:.3e} (max|plain|={scale_:.3e}) kernel "
+                  f"{row['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s), bound "
+                  f"{row['bound_ms']:.4f} ms ({b_by}), plain {row['plain_ms']:.4f} ms, sdpa "
+                  f"{row['library_ms']:.4f} ms [{card}]", flush=True)
+            del q, k, v, got
+    print("[flash] kernel == plain within tolerance (f32 1e-5, bf16 2e-2 of max|plain|); "
+          "second calls bitwise equal", flush=True)
     return rows
+
+
+class LogitTap:
+    """Records the logits the serving paths compute, through the module
+    attributes the engines call: every row of ``transformer.prefill``,
+    the active rows of ``decode_step``, and the rows of
+    ``prefill_chunk`` whose lane had real tokens (idle lanes compute
+    garbage by design)."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+
+        self.tf = transformer
+        self.orig = {n: getattr(transformer, n) for n in ("prefill", "decode_step",
+                                                          "prefill_chunk")}
+        self.rows = []
+
+    def __enter__(self):
+        tf, orig, rows = self.tf, self.orig, self.rows
+
+        def prefill(*a, **kw):
+            logits, cache = orig["prefill"](*a, **kw)
+            rows.append(logits.float().cpu())
+            return logits, cache
+
+        def decode_step(params, cache, tokens, pos, cfg, active=None, **kw):
+            logits, cache = orig["decode_step"](params, cache, tokens, pos, cfg, active=active,
+                                                **kw)
+            rows.append(logits.float().cpu() if active is None
+                        else logits[active].float().cpu())
+            return logits, cache
+
+        def prefill_chunk(params, cache, tokens, start, n_valid, cfg, **kw):
+            logits, cache = orig["prefill_chunk"](params, cache, tokens, start, n_valid, cfg,
+                                                  **kw)
+            rows.append(logits[n_valid > 0].float().cpu())
+            return logits, cache
+
+        tf.prefill, tf.decode_step, tf.prefill_chunk = prefill, decode_step, prefill_chunk
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.orig.items():
+            setattr(self.tf, n, f)
+
+
+def gemma3_parity(dev, card):
+    """Phase 3d: full-width gemma3-12b cut to one superblock (5 local + 1
+    global layers), f32, 6-bit packed: the card (kernels) against the CPU
+    (plain versions), through the bucketed engine (a 2048-token prompt
+    that wraps every ring during prefill, and a 1020-token one whose
+    decode crosses the first wrap) and the chunked paged-kernel engine
+    (prompts of 1100 and 1020 tokens in 512-token chunks, 2 lanes).
+    Every computed logit row within the phase-3 tolerance, identical
+    greedy tokens.  The CPU holds the same weights unpacked once to f32
+    (``unpack_to_float``): its plain bitserial version would unpack every
+    weight at every call, some 10 s per step at this width."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import PackedWeight, tree_map_with_path, unpack_to_float
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.scheduler import SchedulerPolicy
+
+    cfg = get_config("gemma3-12b").scaled(n_layers=6, dtype="float32", kv_cache_dtype="float32")
+    t0 = time.perf_counter()
+    p_gpu = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev,
+                                    pack_bits=N_BITS)
+    p_cpu = tree_map_with_path(
+        lambda _, w: (unpack_to_float(w) if isinstance(w, PackedWeight) else w).cpu(), p_gpu)
+    init_s = time.perf_counter() - t0
+    task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+
+    def req(uid, n, max_new):
+        return Request(uid=uid, tokens=task.sample(np.random.default_rng(60 + uid), 1, n)[0, :n]
+                       .astype(np.int32), max_new=max_new)
+
+    runs = {
+        "bucketed": ([req(0, 2048, 4), req(1, 1020, 8)], None, {}),
+        "chunked-paged": ([req(2, 1100, 4), req(1, 1020, 8)], [0, 0], dict(
+            continuous=True, policy=SchedulerPolicy(
+                n_slots=2, chunked_prefill=True, chunk_sizes=(512,), paged=True,
+                block_size=BLOCK, paged_kernel=True))),
+    }
+    rep = {"init_s": init_s}
+    for name, (reqs, arrivals, kw) in runs.items():
+        out, taps, secs = {}, {}, {}
+        for side, params, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, torch.device("cpu"))):
+            eng = ServeEngine(params, cfg, max_len=2048 + 8, device=d, **kw)
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            with LogitTap() as tap:
+                res = eng.generate(reqs, arrival_steps=arrivals)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                flash = (fa.launches, fa.windowed_launches)
+            secs[side] = time.perf_counter() - t0
+            out[side] = {r.uid: r.tokens.tolist() for r in res}
+            taps[side] = tap.rows
+            if eng.scheduler is not None:
+                pool = eng.scheduler.pool
+                check(pool.allocator.free_count == pool.n_blocks,
+                      f"3d {name} {side}: the pool did not drain")
+        check(len(taps["cuda"]) == len(taps["cpu"]),
+              f"3d {name}: {len(taps['cuda'])} logit calls on the card, {len(taps['cpu'])} on "
+              "the CPU")
+        dlog = max((a - b).abs().max().item() for a, b in zip(taps["cuda"], taps["cpu"]))
+        lmax = max(b.abs().max().item() for b in taps["cpu"])
+        n_prefill = len(reqs) if name == "bucketed" else 0
+        check(flash == (n_prefill * cfg.n_layers, n_prefill * cfg.layer_pattern.count("local")),
+              f"3d {name}: flash launches {flash}, expected {n_prefill} prefill calls x 6 "
+              "(5 windowed)")
+        print(f"[parity-gemma3] 6-layer full-width f32 {name}: card {secs['cuda']:.1f} s, cpu "
+              f"{secs['cpu']:.1f} s; {len(taps['cpu'])} logit calls, max|dlogit| {dlog:.3e} "
+              f"(max|logit| {lmax:.3e}); flash launches {flash[0]} ({flash[1]} windowed); "
+              f"tokens {out['cuda']} [{card}]", flush=True)
+        check(out["cuda"] == out["cpu"], f"3d {name}: greedy tokens differ card vs cpu: {out}")
+        check(dlog <= 1e-4 * max(1.0, lmax), f"3d {name}: logits differ by {dlog}")
+        rep[name] = {"tokens": out["cuda"], "max_abs_dlogit": dlog, "max_abs_logit": lmax,
+                     "logit_calls": len(taps["cpu"]), "card_s": secs["cuda"],
+                     "cpu_s": secs["cpu"], "flash_launches": list(flash)}
+    print("[parity-gemma3] card == cpu: greedy tokens identical, logits within 1e-4 of "
+          "max(1, max|logit|), rings wrapped in prefill and in decode", flush=True)
+    return rep
+
+
+def gemma3_slice(dev, card, engine_cls):
+    """Phase 4c: full-width 48-layer gemma3-12b, bf16, 6-bit packed, served
+    bucketed (4 requests: 2 x 4096 and 2 x 1024 prompt tokens, 32 new
+    each) and continuous (chunked, paged, the paged kernel; 8 lanes, 512
+    blocks of 32 rows, 16 requests with prompts uniform in [512, 3072]
+    (seed 0), Poisson arrivals at 0.5 per step, 32 new tokens each), then
+    a profiled decode step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import packed_leaves
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import poisson_arrivals
+    from repro_torch.models import transformer
+    from repro_torch.obs.metrics import percentile
+    from repro_torch.serve import Request
+    from repro_torch.serve.scheduler import SchedulerPolicy
+
+    cfg = get_config("gemma3-12b")
+    n_local = cfg.layer_pattern.count("local") * cfg.n_superblocks
+    n_proj = 7  # packed projections per layer; the tied head is the float embedding
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                     pack_bits=N_BITS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    packed_bytes = sum(pw.hbm_bytes() for pw in packed_leaves(params))
+    n_packed = sum(1 for _ in packed_leaves(params))
+    # the engine serves the embedding in the compute dtype (drawn in f32)
+    embed_bytes = params["embed"].numel() * torch.finfo(cfg.compute_dtype).bits // 8
+    print(f"[gemma3] gemma3-12b {cfg.n_layers} layers ({n_local} local, window {cfg.window}) "
+          f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} of "
+          f"{cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} {cfg.dtype}: "
+          f"init+pack {init_s:.1f} s, packed weights {packed_bytes / 1e9:.4f} GB in {n_packed} "
+          f"stacked leaves, tied embedding {embed_bytes / 1e9:.4f} GB served, init peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]", flush=True)
+    task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+    rep = {"init_s": init_s, "packed_weight_bytes": packed_bytes, "embed_bytes": embed_bytes}
+
+    # ---- bucketed
+    max_new, lens = 32, [4096, 4096, 1024, 1024]
+    reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(70 + i), 1, n)[0, :n]
+                    .astype(np.int32), max_new=max_new) for i, n in enumerate(lens)]
+    engine = engine_cls(params, cfg, max_len=4096 + max_new, device=dev)
+    engine.generate([Request(uid=100, tokens=reqs[0].tokens[:64], max_new=2)])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.bad = None
+    for m in (bsm, fa, pa):
+        m.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gen_toks = np.stack([r.tokens for r in sorted(results, key=lambda r: r.uid)])
+    check(gen_toks.shape == (4, max_new), f"gemma3 bucketed tokens of shape {gen_toks.shape}")
+    check(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all(), "token outside the vocab")
+    check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
+    calls = 2  # prefill calls: one per bucket
+    check(fa.launches == calls * cfg.n_layers and fa.windowed_launches == calls * n_local,
+          f"flash launches {fa.launches} ({fa.windowed_launches} windowed), expected "
+          f"{calls} x {cfg.n_layers} ({calls} x {n_local} windowed)")
+    expected = calls * max_new * cfg.n_layers * n_proj
+    check(bsm.launches == expected and pa.launches == 0,
+          f"bitserial launches {bsm.launches} (expected {expected}), paged {pa.launches}")
+    # one bucket's cache (2 lanes, bf16, K and V): rings of window slots in
+    # the local layers, max_len rows in the global ones
+    row_bytes = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    ring_bytes = n_local * 2 * cfg.window * row_bytes
+    kv_bytes = (cfg.n_layers - n_local) * 2 * (4096 + max_new) * row_bytes
+    buckets = {}
+    for r in results:
+        buckets.setdefault(len(reqs[r.uid].tokens), []).append(r)
+    rep["bucketed"] = {"wall_s": wall, "tokens": int(gen_toks.size),
+                       "tokens_per_s": gen_toks.size / wall, "serve_peak_bytes": peak,
+                       "ring_bytes_per_bucket": ring_bytes, "kv_bytes_per_bucket": kv_bytes,
+                       "flash_launches": fa.launches, "flash_windowed": fa.windowed_launches,
+                       "bitserial_launches": bsm.launches, "buckets": {}}
+    for plen, rs in sorted(buckets.items()):
+        ttft = float(np.mean([r.prefill_ms for r in rs]))
+        dms = float(np.mean([r.decode_ms_per_tok for r in rs]))
+        rep["bucketed"]["buckets"][plen] = {"ttft_ms": ttft, "decode_ms_per_step": dms}
+        print(f"[gemma3] bucket prompt={plen} x{len(rs)}: TTFT {ttft:.2f} ms, decode "
+              f"{dms:.3f} ms per step [{card}]", flush=True)
+    print(f"[gemma3] bucketed: 4 requests, {gen_toks.size} tokens in {wall:.3f} s = "
+          f"{gen_toks.size / wall:.2f} tok/s; serve peak memory {peak / 1e9:.3f} GB; per "
+          f"bucket of 2 at max_len {4096 + max_new}: rings {ring_bytes / 1e6:.1f} MB, global KV "
+          f"{kv_bytes / 1e6:.1f} MB; flash launches {fa.launches} == {calls} x {cfg.n_layers} "
+          f"({fa.windowed_launches} windowed); bitserial launches {bsm.launches} == {calls} x "
+          f"{max_new} x {cfg.n_layers} x {n_proj} [{card}]", flush=True)
+    rep["profile"] = profile_decode(engine, reqs[2:], cfg, card, steps=2)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- continuous
+    n_req = 16
+    lens = np.random.default_rng(0).integers(512, 3073, size=n_req)
+    reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(i), 1, 3072)[0, :n]
+                    .astype(np.int32), max_new=max_new) for i, n in enumerate(lens)]
+    arrivals = poisson_arrivals(n_req, 0.5, seed=0)
+    policy = SchedulerPolicy(n_slots=SLOTS, chunked_prefill=True, chunk_sizes=(256, 128),
+                             paged=True, block_size=BLOCK, n_blocks=G_N_BLOCKS,
+                             paged_kernel=True)
+    engine = engine_cls(params, cfg, max_len=G_MAX_LEN, device=dev, continuous=True,
+                        policy=policy)
+    sched, pool = engine.scheduler, engine.scheduler.pool
+    engine.generate([Request(uid=100, tokens=reqs[0].tokens[:64], max_new=2)])  # warm-up
+    torch.cuda.synchronize()
+    sched.reset_telemetry()
+    torch.cuda.reset_peak_memory_stats()
+    engine.bad = None
+    for m in (bsm, fa, pa):
+        m.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.generate(reqs, arrival_steps=arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps, chunks = sched.decode_steps, sched.prefill_chunks
+    got = {r.uid: r for r in results}
+    check(sorted(got) == list(range(n_req)), f"gemma3 continuous results for {sorted(got)}")
+    for r in results:
+        check(len(r.tokens) == max_new and ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all(),
+              f"uid {r.uid}: {len(r.tokens)} tokens, or a token outside the vocab")
+    check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
+    n_global = cfg.n_layers - n_local
+    check(pa.launches == steps * n_global,
+          f"{pa.launches} paged launches, expected {steps} steps x {n_global}")
+    check(bsm.launches == (steps + chunks) * cfg.n_layers * n_proj and fa.launches == 0,
+          f"{bsm.launches} bitserial launches (expected ({steps} + {chunks}) x {cfg.n_layers} x "
+          f"{n_proj}), {fa.launches} flash (chunked prefill reads the cache)")
+    check(pool.allocator.free_count == pool.n_blocks and pool.allocator.committed == 0,
+          f"blocks leaked: free {pool.allocator.free_count}/{pool.n_blocks}, committed "
+          f"{pool.allocator.committed}")
+    check(engine.obs.recorder.leaked == [], f"leaked spans {engine.obs.recorder.leaked}")
+    ttft = [got[i].prefill_ms for i in range(n_req)]
+    rep["continuous"] = {
+        "requests": n_req, "max_new": max_new, "prompt_lens": lens.tolist(),
+        "arrivals": arrivals, "chunk_sizes": list(policy.chunk_sizes), "wall_s": wall,
+        "tokens": n_req * max_new, "tokens_per_s": n_req * max_new / wall,
+        "ttft_ms_p50": percentile(ttft, 50), "ttft_ms_p90": percentile(ttft, 90),
+        "decode_steps": steps, "prefill_chunks": chunks,
+        "decode_ms_per_step": sched.decode_ms_total / max(steps, 1),
+        "mean_occupancy": sched.mean_occupancy(),
+        "mean_block_occupancy": sched.mean_block_occupancy(),
+        "admit_blocked_total": sched._c_blocked.value,
+        "serve_peak_bytes": peak, "cache_bytes": pool.cache_bytes(),
+        "ring_bytes": pool.ring_bytes(), "paged_launches": pa.launches,
+        "bitserial_launches": bsm.launches,
+    }
+    c = rep["continuous"]
+    print(f"[gemma3] continuous: {n_req} requests x {max_new} tokens, prompts {lens.min()}-"
+          f"{lens.max()} ({lens.sum()} tokens), Poisson arrivals at 0.5/step over "
+          f"{arrivals[-1]} steps, chunks {policy.chunk_sizes}: {c['tokens']} tokens in "
+          f"{wall:.3f} s = {c['tokens_per_s']:.2f} tok/s; TTFT p50 {c['ttft_ms_p50']:.1f} ms, "
+          f"p90 {c['ttft_ms_p90']:.1f} ms; decode {c['decode_ms_per_step']:.3f} ms per step "
+          f"({steps} steps, mean occupancy {c['mean_occupancy']:.2f}), {chunks} prefill chunks, "
+          f"admission blocked {c['admit_blocked_total']:.0f} steps [{card}]", flush=True)
+    print(f"[gemma3] continuous: serve peak memory {peak / 1e9:.3f} GB; cache "
+          f"{c['cache_bytes'] / 1e9:.3f} GB ({c['ring_bytes'] / 1e9:.3f} GB rings of "
+          f"{SLOTS} lanes, the rest {G_N_BLOCKS} + 1 blocks x {BLOCK} rows of {n_global} global "
+          f"layers); mean block occupancy {c['mean_block_occupancy']:.2f}; paged launches "
+          f"{pa.launches} == {steps} x {n_global}; bitserial {bsm.launches} == ({steps} + "
+          f"{chunks}) x {cfg.n_layers} x {n_proj}; pool drained [{card}]", flush=True)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
 
 
 def continuous_parity(cfg2, p_gpu, p_cpu, dev, card):
@@ -619,6 +1047,7 @@ def bsq_slice(dev, card):
     from repro_torch.data import MarkovLM
     from repro_torch.kernels import bgl_sumsq as bgl
     from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch import train as launcher
     from repro_torch.serve import Request
@@ -684,7 +1113,7 @@ def bsq_slice(dev, card):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for m in (bgl, bsm, pa):
+    for m in (bgl, bsm, pa, fa):
         m.reset_launches()
     ckpt_mod.save, ckpt_mod.restore_latest = save_and_snapshot, restore_and_compare
     t0 = time.perf_counter()
@@ -702,7 +1131,7 @@ def bsq_slice(dev, card):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = {"bgl_sumsq": bgl.launches, "bitserial_matmul": bsm.launches,
-                "paged_attention": pa.launches}
+                "paged_attention": pa.launches, "flash_attention": fa.launches}
     peak = torch.cuda.max_memory_allocated()
     state, ctx, scheme = out["state"], out["ctx"], out["scheme"]
     hist = hist + out["history"]
@@ -713,7 +1142,8 @@ def bsq_slice(dev, card):
     check(n_rep == 8, f"{n_rep} quantised tensors, expected 8")
     check(launches["bgl_sumsq"] == 2 * n_rep * TRAIN_STEPS,
           f"{launches['bgl_sumsq']} bgl_sumsq launches, expected 16 x {TRAIN_STEPS}")
-    check(launches["bitserial_matmul"] == 0 and launches["paged_attention"] == 0,
+    check(launches["bitserial_matmul"] == launches["paged_attention"]
+          == launches["flash_attention"] == 0,
           f"training launched serving kernels: {launches}")
     check([h["step"] for h in hist] == list(range(1, TRAIN_STEPS + 1)),
           f"history steps {[h['step'] for h in hist]}")
@@ -775,7 +1205,7 @@ def bsq_slice(dev, card):
     n_new, plen = 8, 16
     reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(50 + i), 1, plen)[0, :plen]
                     .astype(np.int32), max_new=n_new) for i in range(4)]
-    for m in (bgl, bsm, pa):
+    for m in (bgl, bsm, pa, fa):
         m.reset_launches()
     t0 = time.perf_counter()
     results = engine.generate(reqs)
@@ -786,12 +1216,12 @@ def bsq_slice(dev, card):
     check(((toks >= 0) & (toks < cfg.vocab_size)).all(), "served token outside the vocab")
     check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
     expected = n_new * cfg.n_layers * 7
-    check(bsm.launches == expected and bgl.launches == 0,
+    check(bsm.launches == expected and bgl.launches == 0 and fa.launches == cfg.n_layers,
           f"serving launches: bitserial {bsm.launches} (expected {expected}), bgl "
-          f"{bgl.launches}")
+          f"{bgl.launches}, flash {fa.launches} (expected one prefill x {cfg.n_layers})")
     print(f"[serve-bsq] 4 requests x {n_new} tokens from the exported packed weights in "
           f"{serve_s:.3f} s: tokens {toks.tolist()}; bitserial launches {bsm.launches} == "
-          f"{n_new} x {cfg.n_layers} x 7 [{card}]", flush=True)
+          f"{n_new} x {cfg.n_layers} x 7; flash launches {fa.launches} [{card}]", flush=True)
     return {"train_s": train_s, "ms_per_step": step_ms, "step_dt_s": dts, "peak_bytes": peak,
             "launches": launches, "history": hist, "quantised_params": nq,
             "bits_per_param": scheme.bits_per_param, "compression": scheme.compression,
@@ -801,70 +1231,16 @@ def bsq_slice(dev, card):
             "serve_s": serve_s, "tokens": toks.tolist(), "serve_bitserial_launches": expected}
 
 
-def main() -> int:
+def bitserial_kernel_phase(dev, card, time_ms, report):
+    """Phase 2: the bitserial kernel against its plain version at the main
+    path's shapes (f32 and bf16, per-tensor and per-group scales),
+    ``active=a`` bitwise against ``truncate_packed`` for every a, and its
+    time beside the plain version's and ``torch.matmul``'s on the
+    dequantised weight.  Returns the largest error."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke run needs the card",
-              file=sys.stderr)
-        return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    import numpy as np
-
-    from repro_torch.configs import get_config
-    from repro_torch.core.packing import (pack_from_float, packed_leaves, tree_to,
-                                          truncate_packed, unpack_to_float)
-    from repro_torch.data import MarkovLM
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import bgl_sumsq as bgl
-    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.core.packing import pack_from_float, truncate_packed, unpack_to_float
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.models import transformer
-    from repro_torch.serve import Request, ServeEngine
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    dev = torch.device("cuda")
-    card = card_line()
-    print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
-    report = {"card": card, "matmul": []}
-
-    # ---------------------------------------------------------------- 1
-    t0 = time.perf_counter()
-    libs = _build.build_all(["bitserial_matmul", "paged_attention", "bgl_sumsq"])
-    bsm._lib()
-    pa._lib()
-    bgl._lib()
-    print(f"[build] {', '.join(f'{n}.cu -> {p.name}' for n, p in libs.items())} in "
-          f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)", flush=True)
-    for name in libs:
-        for line in _build.build_log[name]["ptxas"].splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"[build] {name}: {line.strip()}")
-
-    # ---------------------------------------------------------------- 2
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
-
-    def time_ms(fn, iters=10):
-        """Median device time of fn with the L2 flushed before each call."""
-        fn()
-        fn()
-        times = []
-        for _ in range(iters):
-            flush.zero_()
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        return float(np.median(times))
 
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = 0.0
@@ -909,6 +1285,9 @@ def main() -> int:
                             x, pw, active_planes=a_dev)),
                         "plain_ms": time_ms(lambda: ref.bitserial_matmul_ref(
                             x, pw.planes, pw.sign, pw.scale, N_BITS), iters=3),
+                        "active_plain_ms": time_ms(lambda: ref.bitserial_matmul_ref(
+                            x, pw.planes, pw.sign, pw.scale, N_BITS, active_planes=a_dev),
+                            iters=3),
                         "library_ms": time_ms(lambda: torch.matmul(x, wl)),
                     }
                     row["bound_ms"], row["bound_by"] = bound_ms(M, K, N, dname,
@@ -924,14 +1303,22 @@ def main() -> int:
     print(f"[kernel] all {len(report['matmul'])} shapes agree; active=a bitwise equal "
           f"to truncate_packed for a in 1..{N_BITS}", flush=True)
 
-    # --------------------------------------------------------------- 2b
-    report["paged"] = paged_kernel_phase(dev, card, time_ms)
+    return max_err
 
-    # --------------------------------------------------------------- 2c
-    report["bgl"] = bgl_kernel_phase(dev, card, time_ms)
-    del flush
 
-    # ---------------------------------------------------------------- 3
+def granite_parity(dev, card, report):
+    """Phase 3: full-width granite-3-2b cut to 2 layers, f32, 6-bit packed:
+    the card (kernels) against the CPU (plain path) on the same params.
+    Returns both param trees for phase 3b."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import tree_to
+    from repro_torch.data import MarkovLM
+    from repro_torch.models import transformer
+    from repro_torch.serve import Request, ServeEngine
+
     cfg2 = get_config("granite-3-2b").scaled(n_layers=2, dtype="float32",
                                              kv_cache_dtype="float32")
     p_gpu = transformer.init_params(cfg2, torch.Generator(device=dev).manual_seed(1), dev,
@@ -958,14 +1345,25 @@ def main() -> int:
     report["parity"] = {"tokens": toks["cuda"].tolist(), "max_abs_dlogit": dlog,
                         "max_abs_logit": lmax}
 
-    # --------------------------------------------------------------- 3b
-    report["parity"]["continuous_tokens"] = continuous_parity(cfg2, p_gpu, p_cpu, dev, card)
-    del p_gpu, p_cpu
+    return cfg2, p_gpu, p_cpu
 
-    # --------------------------------------------------------------- 3c
-    report["train_parity"] = train_parity(dev, card)
 
-    # ---------------------------------------------------------------- 4
+def granite_slice(dev, card, report, engine_cls):
+    """Phase 4: full-width 40-layer granite-3-2b, bf16, 6-bit packed, served
+    by the bucketed engine (8 requests, two buckets, 32 tokens each), the
+    bitserial and flash launch counts checked exactly; then a profiled
+    decode step.  Returns the params for phase 4b."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import packed_leaves
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.serve import Request
+
     cfg = get_config("granite-3-2b")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -981,8 +1379,7 @@ def main() -> int:
           f"{packed_bytes / 1e9:.4f} GB, init peak {init_peak / 1e9:.3f} GB [{card}]",
           flush=True)
 
-    CheckedEngine = checked_engine_cls()
-    engine = CheckedEngine(params, cfg, max_len=512, device=dev)
+    engine = engine_cls(params, cfg, max_len=512, device=dev)
     task = MarkovLM(vocab=cfg.vocab_size, seed=3)
     lens = [64] * 4 + [128] * 4
     reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(i), 1, 128)[0, :n]
@@ -992,6 +1389,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     engine.bad = None
     bsm.reset_launches()
+    fa.reset_launches()
     t0 = time.perf_counter()
     results = engine.generate(reqs)
     torch.cuda.synchronize()
@@ -1004,12 +1402,18 @@ def main() -> int:
     check(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all(), "token outside the vocab")
     check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
     check(launches == expected, f"{launches} bitserial launches, expected {expected}")
+    # one prefill call per bucket, each layer's attention through the flash kernel
+    check(fa.launches == 2 * cfg.n_layers and fa.windowed_launches == 0,
+          f"{fa.launches} flash launches ({fa.windowed_launches} windowed), expected "
+          f"2 x {cfg.n_layers}")
     buckets = {}
     for r in results:
         buckets.setdefault(len(reqs[r.uid].tokens), []).append(r)
     slice_rep = {"packed_weight_bytes": packed_bytes, "serve_peak_bytes": peak,
                  "wall_s": wall, "tokens": int(gen_toks.size),
-                 "tokens_per_s": gen_toks.size / wall, "launches": launches, "buckets": {}}
+                 "tokens_per_s": gen_toks.size / wall, "launches": launches,
+                 "active_launches": bsm.active_launches, "flash_launches": fa.launches,
+                 "buckets": {}}
     for plen, rs in sorted(buckets.items()):
         ttft = float(np.mean([r.prefill_ms for r in rs]))
         dms = float(np.mean([r.decode_ms_per_tok for r in rs]))
@@ -1018,17 +1422,18 @@ def main() -> int:
               f"decode {dms:.3f} ms per step (= per token per request) [{card}]")
     print(f"[slice] 8 requests, {gen_toks.size} tokens in {wall:.3f} s = "
           f"{gen_toks.size / wall:.1f} tok/s; serve peak memory {peak / 1e9:.3f} GB; "
-          f"bitserial launches {launches} == 2 x 32 x {cfg.n_layers} x 7 [{card}]",
+          f"bitserial launches {launches} == 2 x 32 x {cfg.n_layers} x 7; flash launches "
+          f"{fa.launches} == 2 x {cfg.n_layers} [{card}]",
           flush=True)
     report["slice"] = slice_rep
     report["profile"] = profile_decode(engine, reqs[:4], cfg, card)
-    del engine
+    return cfg, params
 
-    # --------------------------------------------------------------- 4b
-    c_engine, c_reqs, report["continuous"] = continuous_slice(params, cfg, dev, card,
-                                                              CheckedEngine)
-    report["profile_continuous"] = profile_continuous(c_engine, c_reqs, card)
 
+def kernel_entries(report, max_err):
+    """The {"kernels": [...]} entries: each kernel's time at its main
+    path's shapes (phases 2-2d) beside its bound, its plain version and
+    the library call, and its launches on the main path (phases 4-6)."""
     # one decode layer's 7 projections at the decode shape (M = 4 lanes, bf16)
     rows = {(r["M"], r["K"], r["N"], r["dtype"], r["scale"]): r for r in report["matmul"]}
     layer = [rows[(4, K, N, "bfloat16", "per-tensor")] for K, N in LAYER_PROJ]
@@ -1037,8 +1442,7 @@ def main() -> int:
         "name": "bitserial_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
         "replaces": "src/repro/kernels/bitserial_matmul.py:139",
-        "also_replaces": "src/repro/kernels/bitserial_matmul.py:183",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": report["slice"]["launches"], "max_abs_err": max_err,
         "ms": sum(r["ms"] for r in layer), "plain_ms": sum(r["plain_ms"] for r in layer),
         "active_ms": sum(r["active_ms"] for r in layer),
         "bound_ms": lb, "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in layer)
@@ -1046,7 +1450,17 @@ def main() -> int:
         "library_ms": sum(r["library_ms"] for r in layer),
         "work": "one decode layer of granite-3-2b: its 7 projections at M=4, bf16, 6 bits",
     }
-    p_row = next(r for r in report["paged"] if r["dtype"] == "bfloat16" and r["window"] is None)
+    # the runtime plane-count path (bitserial_matmul_pallas_dyn): the same
+    # kernel reading `active` from device memory; spec decode and precision
+    # tiers, which launch it, come with a later slice
+    d_entry = dict(entry, name="bitserial_matmul_dyn",
+                   replaces="src/repro/kernels/bitserial_matmul.py:183",
+                   launches=report["slice"]["active_launches"], ms=entry["active_ms"],
+                   plain_ms=sum(r["active_plain_ms"] for r in layer),
+                   work=entry["work"] + f", active={N_BITS - 2} read from the device")
+    d_entry.pop("active_ms")
+    p_row = next(r for r in report["paged"] if r["dtype"] == "bfloat16" and r["window"] is None
+                 and r["d"] == 64)
     p_entry = {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1061,12 +1475,9 @@ def main() -> int:
     }
     entry["launches_continuous"] = report["continuous"]["bitserial_launches"]
 
-    # ---------------------------------------------------------------- 6
-    del c_engine, c_reqs, params
-    gc.collect()
-    torch.cuda.empty_cache()
-    report["bsq"] = bsq_slice(dev, card)
     entry["launches_bsq_serve"] = report["bsq"]["serve_bitserial_launches"]
+    entry["launches_gemma3"] = report["gemma3"]["bucketed"]["bitserial_launches"]
+    p_entry["launches_gemma3"] = report["gemma3"]["continuous"]["paged_launches"]
     b_rows = {(r["R"], r["C"], r["dtype"]): r for r in report["bgl"]}
     step_rows = [b_rows[shape + ("float32",)] for shape in BGL_STEP]
     b_entry = {
@@ -1084,12 +1495,166 @@ def main() -> int:
         "work": "the 16 launches of one BSQ train step of 2-layer full-width granite-3-2b: "
                 "wp and wn of its 8 plane tensors, f32, 16.04 GB",
     }
-    report["kernels"] = [entry, p_entry, b_entry]
+    # one gemma3-12b prefill call's attention: 40 windowed and 8 causal
+    # launches at B = 2, S = 4096 (bf16), the bucketed run's main path
+    f_rows = {(r["case"], r["dtype"]): r for r in report["flash"]}
+    glob, loc = f_rows[("gemma3-global", "bfloat16")], f_rows[("gemma3-local", "bfloat16")]
+    gcfg = report["gemma3"]["bucketed"]
+    n_win = gcfg["flash_windowed"] // 2
+    n_glob = gcfg["flash_launches"] // 2 - n_win
+
+    def per_prefill(key):
+        return n_win * loc[key] + n_glob * glob[key]
+
+    f_entry = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:92",
+        "launches": gcfg["flash_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in report["flash"]),
+        "ms": per_prefill("ms"), "plain_ms": per_prefill("plain_ms"),
+        "bound_ms": per_prefill("bound_ms"),
+        "bound_by": "operations" if glob["bound_by"] == loc["bound_by"] == "operations"
+        else "bytes",
+        "library_ms": per_prefill("library_ms"),
+        "work": f"one gemma3-12b prefill call's attention: {n_win} windowed (1024) and "
+                f"{n_glob} causal launches over 2 x 16 query heads / 2 x 8 K/V rows, S=4096, "
+                "d=256, bf16",
+        "launches_windowed": gcfg["flash_windowed"],
+        "launches_granite": report["slice"]["flash_launches"],
+    }
+    return [entry, d_entry, p_entry, b_entry, f_entry]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs the card",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bgl_sumsq as bgl
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    # ``--only 2d,3d`` runs those phases alone and prints no result line
+    only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv \
+        else None
+
+    def want(phase):
+        return only is None or phase in only
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    report = {"card": card, "matmul": []}
+    t_start = time.perf_counter()
+
+    def phase_done(name):
+        print(f"[time] phase {name} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---------------------------------------------------------------- 1
+    t0 = time.perf_counter()
+    libs = _build.build_all(["bitserial_matmul", "paged_attention", "bgl_sumsq",
+                             "flash_attention"])
+    for m in (bsm, pa, bgl, fa):
+        m._lib()
+    print(f"[build] {', '.join(f'{n}.cu -> {p.name}' for n, p in libs.items())} in "
+          f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)", flush=True)
+    for name in libs:
+        for line in _build.build_log[name]["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+    # ---------------------------------------------------- 2, 2b, 2c, 2d
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+
+    def time_ms(fn, iters=10):
+        """Median device time of fn with the L2 flushed before each call."""
+        fn()
+        fn()
+        times = []
+        for _ in range(iters):
+            flush.zero_()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        return float(np.median(times))
+
+    if want("2"):
+        max_err = bitserial_kernel_phase(dev, card, time_ms, report)
+        phase_done("2")
+    if want("2b"):
+        report["paged"] = paged_kernel_phase(dev, card, time_ms)
+        phase_done("2b")
+    if want("2c"):
+        report["bgl"] = bgl_kernel_phase(dev, card, time_ms)
+        phase_done("2c")
+    if want("2d"):
+        report["flash"] = flash_kernel_phase(dev, card, time_ms)
+        phase_done("2d")
+    del flush
+
+    # ---------------------------------------------------------- 3, 3b-3d
+    if want("3"):
+        cfg2, p_gpu, p_cpu = granite_parity(dev, card, report)
+        report["parity"]["continuous_tokens"] = continuous_parity(cfg2, p_gpu, p_cpu, dev, card)
+        del p_gpu, p_cpu
+        phase_done("3, 3b")
+    if want("3c"):
+        report["train_parity"] = train_parity(dev, card)
+        phase_done("3c")
+    if want("3d"):
+        report["parity_gemma3"] = gemma3_parity(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("3d")
+
+    # ---------------------------------------------------- 4, 4b, 5, 4c
+    CheckedEngine = checked_engine_cls()
+    if want("4"):
+        cfg, params = granite_slice(dev, card, report, CheckedEngine)
+        c_engine, c_reqs, report["continuous"] = continuous_slice(params, cfg, dev, card,
+                                                                  CheckedEngine)
+        report["profile_continuous"] = profile_continuous(c_engine, c_reqs, card)
+        del c_engine, c_reqs, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("4, 4b, 5")
+    if want("4c"):
+        report["gemma3"] = gemma3_slice(dev, card, CheckedEngine)
+        phase_done("4c")
+
+    # ---------------------------------------------------------------- 6
+    if want("6"):
+        report["bsq"] = bsq_slice(dev, card)
+        phase_done("6")
+
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    if only is not None:
+        (out / "chip_smoke_partial.json").write_text(json.dumps(report, indent=1))
+        print(f"chip_smoke: partial run of phases {sorted(only)}; no result line")
+        return 0
 
     # ---------------------------------------------------------------- 7
+    report["kernels"] = kernel_entries(report, max_err)
+    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": report["kernels"]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

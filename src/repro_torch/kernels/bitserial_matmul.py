@@ -6,7 +6,9 @@
 :func:`bitserial_matmul_cuda` checks what it is given and raises on
 anything the kernel does not take; it never copies an operand to make
 it fit.  It allocates the output, launches on the current stream, raises
-on a CUDA error from the launch, and adds one to :data:`launches`.
+on a CUDA error from the launch, and adds one to :data:`launches` (and
+to :data:`active_launches` when it reads a runtime plane count, the
+path of ``bitserial_matmul_pallas_dyn``).
 """
 from __future__ import annotations
 
@@ -20,11 +22,13 @@ MAX_BITS = 8
 
 # kernel launches since the last reset (one per call that reaches the card)
 launches = 0
+active_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, active_launches
     launches = 0
+    active_launches = 0
 
 
 def _lib():
@@ -47,7 +51,7 @@ def bitserial_matmul_cuda(x: torch.Tensor, planes: torch.Tensor, sign: torch.Ten
     divides N, ``active`` an int32 device tensor of one element (None =
     every plane; it is read on the device, never on the host).
     """
-    global launches
+    global launches, active_launches
     if x.device.type != "cuda":
         raise ValueError(f"bitserial_matmul_cuda needs CUDA tensors, got x on {x.device}")
     if x.dtype not in _DTYPE_CODE:
@@ -97,4 +101,6 @@ def bitserial_matmul_cuda(x: torch.Tensor, planes: torch.Tensor, sign: torch.Ten
     if err:
         raise RuntimeError(f"bitserial_matmul kernel launch failed: CUDA error {err}")
     launches += 1
+    if active is not None:
+        active_launches += 1
     return out

@@ -1,10 +1,11 @@
 """Public kernel entry points: the CUDA kernel for a tensor on the card,
 the plain PyTorch version for a tensor on the CPU.
 
-The choice follows the device of ``x`` alone: no switch, and no
-fallback when a kernel fails (it raises).  Ported from
-``repro.kernels.ops``; the mesh-sharded entry comes with the mesh slice
-and ``flash_attention`` with a later one.
+The choice follows the device of the first tensor alone: no switch,
+and no fallback when a kernel fails (it raises).  Ported from
+``repro.kernels.ops``: the bitserial matmul (static and with a runtime
+plane count), paged attention, the bit-group sum of squares and flash
+attention; the mesh-sharded entry comes with the mesh slice.
 """
 from __future__ import annotations
 
@@ -60,6 +61,22 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                                     window=window, sm_scale=sm_scale)
     return ref.paged_attention_ref(q, k_pool, v_pool, block_table, pos, window=window,
                                    sm_scale=sm_scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None, sm_scale=None) -> torch.Tensor:
+    """(BH, S, d) causal, optionally windowed, attention forward.
+
+    ``k``/``v`` may come with ``BH // G`` rows: query row ``r`` reads
+    key/value row ``r // G``, which equals JAX's "broadcast kv
+    beforehand" without the copy.  On the card the kernel skips the
+    tiles the mask empties; it has no backward and raises for inputs
+    that require grad."""
+    if q.device.type == "cuda":
+        from .flash_attention import flash_attention_cuda
+
+        return flash_attention_cuda(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
 
 
 class _BglSumsq(torch.autograd.Function):

@@ -92,3 +92,31 @@ def bgl_sumsq_ref(x: torch.Tensor) -> torch.Tensor:
     input stays float64, so ``gradcheck`` can hold the gradient)."""
     x = x if x.dtype == torch.float64 else x.float()
     return x.pow(2).sum(1)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None, sm_scale=None):
+    """Naive f32 softmax attention over (BH, S, d): scores in f32, the
+    causal and window mask filled with -1e30, softmax, then ``p`` cast to
+    V's dtype before the product with V (the result in V's dtype).
+
+    ``k``/``v`` may hold ``BH // G`` rows: query row ``r`` reads row
+    ``r // G`` (the JAX callers broadcast K/V beforehand; the result is
+    the same)."""
+    BH, S, d = q.shape
+    G = BH // k.shape[0]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=0)
+        v = v.repeat_interleave(G, dim=0)
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32), k.to(torch.float32)) * sm_scale
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask[None], s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p.to(v.dtype), v)

@@ -4,6 +4,8 @@
         --requests 8 --max-new 32 --packed-bits 6 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous --paged \
         --paged-kernel --slots 4 --block-size 16 --arrival-rate 0.5 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
+        --prompt-len 12 --max-new 20 --packed-bits 6 [--device cpu]
 
 The bucketed, continuous, chunked and paged paths of
 ``repro.launch.serve``, with the same flags and print lines (the

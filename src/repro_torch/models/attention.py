@@ -1,5 +1,6 @@
-"""Attention, "attn" kind (full causal GQA): PyTorch port of the prefill,
-decode (contiguous and paged) and chunked-prefill paths of
+"""Attention, "attn" (full causal GQA) and "local" (sliding-window GQA
+over a ring buffer) kinds: PyTorch port of the prefill, decode
+(contiguous, ring and paged) and chunked-prefill paths of
 ``repro.models.attention``.
 
 Scores and softmax run in f32.  Caches are updated IN PLACE (the JAX
@@ -10,8 +11,17 @@ sentinel instead: a paged pool has one spare block past the allocator's
 range) and the slot pool's contiguous cache one spare row past
 ``max_len``.  Writes JAX would drop are redirected there, so every write
 of a call lands on a distinct row except the sentinel's, which nothing
-reads.  Sliding-window ring buffers, the sharded paged path and
-cross-attention come with later slices of the port.
+reads.  Ring buffers need no sentinel: their writes are either masked
+by ``active`` or rebuilt by a gather.
+
+Serving prefill (``attention(flash=True)``) computes its scores,
+softmax and combine through ``kernels.ops.flash_attention``: the Hopper
+kernel on the card, its plain version on the CPU.  This is a choice
+beyond the JAX package, whose prefill never calls its flash kernel; the
+two agree within the kernel's tolerance (the JAX tests pin the kernel
+to this function).  Training keeps the plain q-chunked path: the kernel
+has no backward.  The sharded paged path and cross-attention come with
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -63,6 +73,36 @@ def _softmax_masked(s: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.softmax(s, dim=-1)
 
 
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+    """(Sq, Sk) boolean: causal, optionally sliding-window."""
+    m = q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    return m
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int]) -> torch.Tensor:
+    """Scores, softmax and combine of prefill through the flash kernel.
+
+    ``q`` (B, S, K, G, d) already scaled by ``d**-0.5`` (so the kernel
+    runs at ``sm_scale=1.0`` on the plain path's operands); ``k``/``v``
+    (B, S, K, d).  Rows go to the kernel's (BH, S, d) layout, q as
+    ``(b, kv, g)`` and K/V as ``(b, kv)``, so query row r reads K/V row
+    ``r // G`` with no broadcast copy.  Returns (B, S, K*G*d)."""
+    from ..kernels import ops as kernel_ops
+
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise ValueError("the flash prefill path has no backward; training runs the plain "
+                         "attention (flash=False)")
+    B, S, n_kv, G, d = q.shape
+    qf = q.permute(0, 2, 3, 1, 4).reshape(B * n_kv * G, S, d).contiguous()
+    kf = k.permute(0, 2, 1, 3).reshape(B * n_kv, S, d).contiguous()
+    vf = v.permute(0, 2, 1, 3).reshape(B * n_kv, S, d).contiguous()
+    o = kernel_ops.flash_attention(qf, kf, vf, causal=True, window=window, sm_scale=1.0)
+    return o.reshape(B, n_kv, G, S, d).permute(0, 3, 1, 2, 4).reshape(B, S, n_kv * G * d)
+
+
 def attention(
     p: Params,
     x: torch.Tensor,
@@ -71,12 +111,21 @@ def attention(
     n_kv: int,
     head_dim: int,
     rope_theta: float,
+    window: Optional[int] = None,
     q_chunk: int = 1024,
     active_planes=None,
+    flash: bool = False,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal self-attention for prefill.  q is pre-scaled by
-    ``head_dim**-0.5``; queries run in chunks of ``q_chunk``.  Returns
-    (out, (k, v)) so prefill can seed the decode cache."""
+    """Causal (``window``: sliding-window) self-attention for prefill and
+    training: query ``i`` attends keys ``j <= i`` with ``i - j < window``.
+    q is pre-scaled by ``head_dim**-0.5``.  Returns (out, (k, v)) so
+    prefill can seed the decode cache.
+
+    ``flash=False`` (training, ``forward``) runs queries in chunks of
+    ``q_chunk`` through plain PyTorch; ``flash=True`` (serving prefill,
+    ``transformer.prefill``) runs the whole sequence through
+    ``kernels.ops.flash_attention`` and raises for inputs that require
+    grad.  Both check ``S % q_chunk``, as the JAX function does."""
     B, S, _ = x.shape
     G = n_heads // n_kv
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, active_planes)
@@ -84,15 +133,18 @@ def attention(
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     q = q.reshape(B, S, n_kv, G, head_dim) * (head_dim**-0.5)
-    kpos = torch.arange(S, device=x.device)
     if S > q_chunk and S % q_chunk:
         raise ValueError(f"prefill length {S} is not a multiple of q_chunk={q_chunk}")
+    if flash:
+        out = _flash(q, k, v, window)
+        return dense_apply(out, p["wo"], active_planes), (k, v)
+    kpos = torch.arange(S, device=x.device)
     outs = []
     for q0 in range(0, S, q_chunk):
         qc = q[:, q0:q0 + q_chunk]
         qpos = q0 + torch.arange(qc.shape[1], device=x.device)
         s = _gqa_scores(qc, k)
-        w = _softmax_masked(s, (qpos[:, None] >= kpos[None, :])[None, None, None])
+        w = _softmax_masked(s, _mask(qpos, kpos, window)[None, None, None])
         outs.append(_gqa_combine(w, v, x.dtype))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return dense_apply(out, p["wo"], active_planes), (k, v)
@@ -165,19 +217,30 @@ def decode_attention(
     n_kv: int,
     head_dim: int,
     rope_theta: float,
+    window: Optional[int] = None,
+    ring: bool = False,
     active: Optional[torch.Tensor] = None,
     active_planes=None,
     block_table: Optional[torch.Tensor] = None,
     paged_kernel: bool = False,
 ) -> torch.Tensor:
-    """One-token decode.  x: (B, 1, D); the caches are UPDATED IN PLACE
-    (the JAX version returns new caches); returns the attention output
-    (B, 1, D).
+    """One-token decode (JAX ``decode_attention_cache``).  x: (B, 1, D);
+    the caches are UPDATED IN PLACE (the JAX version returns new caches);
+    returns the attention output (B, 1, D).
 
     ``pos`` is a scalar position shared by every lane (an int or a 0-d
     tensor: the bucketed path) or a (B,) tensor of per-slot positions.
     ``active`` (per-slot only, (B,) bool) keeps inactive lanes' cache
     rows untouched.
+
+    ``ring=True`` (sliding-window layers): the caches are ring buffers of
+    ``Wc = cache_k.shape[1]`` slots, position ``p`` in slot ``p % Wc``;
+    keys are stored post-RoPE, so slot ``s`` stands for the absolute
+    position ``p_s = pos - ((pos - s) mod Wc)``, masked when negative (a
+    slot this lane never wrote, or its last occupant's) or outside
+    ``window``.  Rings are bounded already, never page, and ignore
+    ``block_table``.  Full-length caches serve the full-attention kind,
+    which has no window.
 
     ``block_table`` ((B, blocks_per_lane) int32, per-slot ``pos`` only)
     selects the PAGED layout: the caches are a pool of blocks
@@ -190,6 +253,10 @@ def decode_attention(
     G = n_heads // n_kv
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, active_planes)
     per_slot = isinstance(pos, torch.Tensor) and pos.ndim == 1
+    if window is not None and not ring:
+        raise ValueError("a window needs a ring buffer (ring=True)")
+    if ring:
+        block_table = None
     if block_table is not None and not per_slot:
         raise ValueError("paged decode needs per-slot positions (a slot pool)")
     if per_slot:
@@ -203,9 +270,10 @@ def decode_attention(
                                    posb[:, 0], active, n_kv=n_kv, head_dim=head_dim,
                                    use_kernel=paged_kernel, x_dtype=x.dtype)
         return dense_apply(out.reshape(B, 1, -1), p["wo"], active_planes)
+    Wc = cache_k.shape[1]
     if per_slot:
         bidx = torch.arange(B, device=x.device)
-        lane_pos = posb[:, 0]
+        lane_pos = torch.remainder(posb[:, 0], Wc) if ring else posb[:, 0]
         k_row, v_row = k[:, 0].to(cache_k.dtype), v[:, 0].to(cache_v.dtype)
         if active is not None:
             keep = active[:, None, None]
@@ -214,15 +282,56 @@ def decode_attention(
         cache_k[bidx, lane_pos] = k_row
         cache_v[bidx, lane_pos] = v_row
     else:
-        cache_k[:, int(pos)] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, int(pos)] = v[:, 0].to(cache_v.dtype)
+        row = int(pos) % Wc if ring else int(pos)
+        cache_k[:, row] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, row] = v[:, 0].to(cache_v.dtype)
     q = q.reshape(B, 1, n_kv, G, head_dim) * (head_dim**-0.5)
-    s = _gqa_scores(q, cache_k.to(x.dtype))  # (B, K, G, 1, Smax)
-    kpos = torch.arange(cache_k.shape[1], device=x.device)
-    valid = (kpos[None, :] <= posb)[:, None, None, None, :]
+    s = _gqa_scores(q, cache_k.to(x.dtype))  # (B, K, G, 1, Smax or Wc)
+    kpos = torch.arange(Wc, device=x.device)
+    if ring:
+        kpos = posb - torch.remainder(posb - kpos[None, :], Wc)  # (B, Wc) absolute
+        valid = kpos >= 0
+        if window is not None and window < Wc:
+            valid &= (posb - kpos) < window
+    else:
+        valid = kpos[None, :] <= posb
+    valid = valid[:, None, None, None, :]
     w = torch.softmax(torch.where(valid, s, torch.full((), NEG_INF, device=s.device)), dim=-1)
     out = _gqa_combine(w, cache_v.to(x.dtype), x.dtype)
     return dense_apply(out, p["wo"], active_planes)
+
+
+def _ring_chunk_attend(qs, k, v, cache_k, cache_v, start, qpos, n_valid, window, dtype):
+    """The ring branch of :func:`prefill_chunk_attention`: attend, then
+    rebuild the ring IN PLACE.  ``qs`` (B, C, K, G, d) scaled; ``k``/``v``
+    (B, C, K, d) post-RoPE; returns (B, C, K*G*d)."""
+    B, C = qpos.shape
+    dev = qs.device
+    Wc = cache_k.shape[1]
+    ci = torch.arange(C, device=dev)
+    # intra-chunk keys: causal (+ window) on chunk-relative offsets
+    m1 = _mask(ci, ci, window)[None].expand(B, C, C)
+    # pre-chunk ring keys: slot s holds the absolute position
+    # r_s = (start - 1) - ((start - 1 - s) mod Wc), the latest processed
+    # position congruent to s; r_s < 0: the lane never reached that slot
+    slots = torch.arange(Wc, device=dev)
+    r = (start[:, None] - 1) - torch.remainder(start[:, None] - 1 - slots[None, :], Wc)
+    m2 = (r >= 0)[:, None, :].expand(B, C, Wc)
+    if window is not None:
+        m2 = m2 & ((qpos[:, :, None] - r[:, None, :]) < window)
+    s = torch.cat([_gqa_scores(qs, k), _gqa_scores(qs, cache_k.to(dtype))], dim=-1)
+    w = _softmax_masked(s, torch.cat([m1, m2], dim=-1)[:, None, None])
+    out = _gqa_combine(w, torch.cat([v, cache_v.to(dtype)], dim=1), dtype)
+    # rebuild: slot s's occupant is the latest real chunk position
+    # congruent to it (p_s >= start), else the old content stays
+    last = start + n_valid - 1
+    p_s = last[:, None] - torch.remainder(last[:, None] - slots[None, :], Wc)  # (B, Wc)
+    in_chunk = (p_s >= start[:, None])[..., None, None]
+    i_s = torch.clamp(p_s - start[:, None], 0, C - 1)
+    idx = i_s[..., None, None].expand(B, Wc, *k.shape[2:])
+    cache_k.copy_(torch.where(in_chunk, k.to(cache_k.dtype).gather(1, idx), cache_k))
+    cache_v.copy_(torch.where(in_chunk, v.to(cache_v.dtype).gather(1, idx), cache_v))
+    return out
 
 
 def prefill_chunk_attention(
@@ -237,6 +346,8 @@ def prefill_chunk_attention(
     n_kv: int,
     head_dim: int,
     rope_theta: float,
+    window: Optional[int] = None,
+    ring: bool = False,
     block_table: Optional[torch.Tensor] = None,
     active_planes=None,
 ) -> torch.Tensor:
@@ -257,16 +368,33 @@ def prefill_chunk_attention(
     given) write only real tokens inside the lane's table; pads and idle
     lanes go to the sentinel block, and scores run over the lane-logical
     gather view.  The caller must have granted the blocks of rows
-    ``[start, start + n_valid)``.  Returns the attention output (B, C, D)."""
+    ``[start, start + n_valid)``.
+
+    Ring buffers (``ring=True``, sliding-window layers; ``block_table``
+    ignored): a chunk longer than the ring would overwrite keys its own
+    queries still need, so scores run over ``[chunk K/V ; pre-chunk
+    ring]``, and the ring is then rebuilt by a gather: slot ``s`` takes
+    the latest real chunk position congruent to it, else keeps its
+    content (deterministic where a scatter with duplicate slots is not).
+    Idle lanes (``n_valid = 0``) leave their ring as it is.  Returns the
+    attention output (B, C, D)."""
+    if window is not None and not ring:
+        raise ValueError("a window needs a ring buffer (ring=True)")
     B, C, _ = x.shape
     G = n_heads // n_kv
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, active_planes)
     dev = x.device
     ci = torch.arange(C, device=dev)
-    qpos = start.to(device=dev, dtype=torch.int64)[:, None] + ci[None, :]  # (B, C)
+    start = start.to(device=dev, dtype=torch.int64)
+    qpos = start[:, None] + ci[None, :]  # (B, C)
     q = apply_rope(q, qpos, rope_theta)
     k = apply_rope(k, qpos, rope_theta)
     qs = q.reshape(B, C, n_kv, G, head_dim) * (head_dim**-0.5)
+    if ring:
+        return dense_apply(
+            _ring_chunk_attend(qs, k, v, cache_k, cache_v, start, qpos,
+                               n_valid.to(device=dev, dtype=torch.int64), window, x.dtype),
+            p["wo"], active_planes)
     if block_table is not None:
         nb, bs = cache_k.shape[0] - 1, cache_k.shape[1]
         nb_lane = block_table.shape[1]

@@ -1,13 +1,19 @@
-"""Decoder-only LM over the dense "attn" layer pattern: PyTorch port of
-``repro.models.transformer``.
+"""Decoder-only LM over the dense "attn" and "local" layer kinds:
+PyTorch port of ``repro.models.transformer``.
 
 The param tree keeps the JAX layout: ``embed``, ``blocks/p{i}/...``
 stacked on a leading superblock axis, an optional ``tail`` list for
 depths the pattern does not divide, ``final_norm`` and (untied)
 ``lm_head``.  Layers run one after another in a Python loop where the
-JAX package scans.  Decode caches are updated in place.
+JAX package scans.  Decode caches are updated in place.  "attn" layers
+keep a full-length (or paged) KV cache, "local" layers a ring buffer of
+``min(window, max_len)`` slots per lane.
 
-Other layer kinds ("local", "ssm", "rglru", "+cross"), MoE and modality
+Serving prefill (:func:`prefill`) runs attention through the flash
+kernel (``kernels.ops.flash_attention``); :func:`forward` and
+:func:`loss_fn` (training) keep the plain path.
+
+Other layer kinds ("ssm", "rglru", "+cross"), MoE and modality
 frontends come with later slices of the port and raise here.
 """
 from __future__ import annotations
@@ -37,12 +43,12 @@ Params = Dict[str, Any]
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run."""
-    later = [k for k in cfg.layer_pattern if k != "attn"]
+    later = [k for k in cfg.layer_pattern if k not in ("attn", "local")]
     if later:
         raise NotImplementedError(
             f"layer kinds {sorted(set(later))} of {cfg.name} come with a later "
-            "slice of the port (ring buffers, SSM, RG-LRU, cross-attention); "
-            "this slice runs the dense 'attn' pattern")
+            "slice of the port (SSM, RG-LRU, cross-attention); the port runs the "
+            "'attn' and 'local' kinds")
     if cfg.n_experts:
         raise NotImplementedError(f"MoE ({cfg.name}) comes with a later slice of the port")
     if cfg.frontend:
@@ -122,13 +128,18 @@ def layer_slice(tree, b: int):
 
 
 def _layers(params: Params, cfg: ModelConfig):
-    """(layer params, cache key path) for every layer, in order."""
+    """(layer params, cache key path, kind) for every layer, in order."""
     for b in range(cfg.n_superblocks):
         blk = layer_slice(params["blocks"], b)
-        for i in range(cfg.pattern_len):
-            yield blk[f"p{i}"], ("blocks", b, f"p{i}")
+        for i, kind in enumerate(cfg.layer_pattern):
+            yield blk[f"p{i}"], ("blocks", b, f"p{i}"), kind
     for i in range(cfg.n_tail_layers):
-        yield params["tail"][i], ("tail", i)
+        yield params["tail"][i], ("tail", i), cfg.layer_pattern[i]
+
+
+def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
+    """The attention window of a layer kind: "local" layers slide."""
+    return cfg.window if kind == "local" else None
 
 
 def _head(params: Params, cfg: ModelConfig):
@@ -154,24 +165,27 @@ def _mlp_residual(p: Params, x: torch.Tensor, cfg: ModelConfig, active_planes) -
 # ---------------------------------------------------------------------------
 
 
-def _apply_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, active_planes=None):
-    """Returns (x, (k, v)) for one "attn" layer."""
+def _apply_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                     active_planes=None, flash: bool = False):
+    """Returns (x, (k, v)) for one "attn" or "local" layer; ``flash``
+    routes its attention through the flash kernel (serving prefill)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     out, kv = attn_mod.attention(
         p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-        active_planes=active_planes,
+        window=_window(cfg, kind), active_planes=active_planes, flash=flash,
     )
     return _mlp_residual(p, x + out, cfg, active_planes), kv
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             active_planes=None):
-    """Full-sequence forward.  Returns (logits (B, S, V) f32, aux_loss)."""
+    """Full-sequence forward (training: the plain attention, which has a
+    backward).  Returns (logits (B, S, V) f32, aux_loss)."""
     check_supported(cfg)
     x = _embed(params, batch["tokens"], cfg)
-    for p, _ in _layers(params, cfg):
-        x, _ = _apply_layer_fwd(p, x, cfg, active_planes)
+    for p, _, kind in _layers(params, cfg):
+        x, _ = _apply_layer_fwd(p, x, cfg, kind, active_planes)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_apply(_head(params, cfg), x, cfg.logit_softcap, active_planes)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -189,31 +203,41 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None,
-               paged_blocks: Optional[int] = None, block_size: Optional[int] = None):
-    """Zero decode cache for ``batch`` lanes: ``blocks/p{i}/{k,v}`` of shape
-    (n_superblocks, batch, max_len, n_kv, head_dim), plus the tail list.
+               paged_blocks: Optional[int] = None, block_size: Optional[int] = None,
+               drop_row: bool = False):
+    """Zero decode cache for ``batch`` lanes: per layer kind,
+    ``blocks/p{i}/{k,v}`` of shape (n_superblocks, batch, rows, n_kv,
+    head_dim), plus the tail list.  "attn" layers hold ``max_len`` rows
+    (``drop_row``: one more, the spare row of ``models.attention``);
+    "local" layers hold a ring of ``Wc = min(window, max_len)`` slots, as
+    JAX's ``_init_layer_cache`` does.
 
-    With ``paged_blocks``/``block_size`` each K/V leaf is instead a pool
-    of ``paged_blocks + 1`` blocks of ``block_size`` rows shared by every
-    lane: (n_superblocks, paged_blocks + 1, block_size, n_kv, head_dim).
-    The last block is the drop sentinel of ``models.attention`` (JAX's
-    pool has ``paged_blocks`` blocks; the first ``paged_blocks`` match it)."""
+    With ``paged_blocks``/``block_size`` each "attn" K/V leaf is instead a
+    pool of ``paged_blocks + 1`` blocks of ``block_size`` rows shared by
+    every lane: (n_superblocks, paged_blocks + 1, block_size, n_kv,
+    head_dim).  The last block is the drop sentinel of
+    ``models.attention`` (JAX's pool has ``paged_blocks`` blocks; the
+    first ``paged_blocks`` match it).  Rings stay per lane: they are
+    bounded already."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = cfg.cache_dtype if dtype is None else dtype
-    if paged_blocks is not None:
-        shape = (paged_blocks + 1, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
-    else:
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    heads = (cfg.n_kv_heads, cfg.resolved_head_dim)
 
-    def layer(lead=()):
+    def layer(kind, lead=()):
+        if kind == "local":
+            shape = (batch, min(cfg.window, max_len)) + heads
+        elif paged_blocks is not None:
+            shape = (paged_blocks + 1, block_size) + heads
+        else:
+            shape = (batch, max_len + int(drop_row)) + heads
         return {"k": torch.zeros(lead + shape, dtype=dtype, device=device),
                 "v": torch.zeros(lead + shape, dtype=dtype, device=device)}
 
-    cache = {"blocks": {f"p{i}": layer((cfg.n_superblocks,))
-                        for i in range(cfg.pattern_len)}}
+    cache = {"blocks": {f"p{i}": layer(kind, (cfg.n_superblocks,))
+                        for i, kind in enumerate(cfg.layer_pattern)}}
     if cfg.n_tail_layers:
-        cache["tail"] = [layer() for _ in range(cfg.n_tail_layers)]
+        cache["tail"] = [layer(cfg.layer_pattern[i]) for i in range(cfg.n_tail_layers)]
     return cache
 
 
@@ -238,14 +262,16 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConf
     selects the paged pool layout of :func:`init_cache`;
     ``paged_kernel=True`` reads it through the paged-attention kernel.
     The step's tensor shapes depend only on B and the table's width, and
-    nothing here syncs the host."""
+    nothing here syncs the host.  "local" layers write and read their
+    ring buffer (slot ``pos % Wc``) and ignore the table."""
     x = _embed(params, tokens, cfg)
-    for p, key in _layers(params, cfg):
+    for p, key, kind in _layers(params, cfg):
         ck, cv = _layer_cache(cache, key)
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
         out = attn_mod.decode_attention(
             p["mixer"], h, ck, cv, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, active=active,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            window=_window(cfg, kind), ring=kind == "local", active=active,
             active_planes=active_planes, block_table=block_table, paged_kernel=paged_kernel,
         )
         x = _mlp_residual(p, x + out, cfg, active_planes)
@@ -259,27 +285,37 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConf
 # ---------------------------------------------------------------------------
 
 
-def _seed_layer_cache(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor) -> None:
-    """Write the prompt's K/V into rows [0, S) of an "attn" layer cache."""
+def _seed_layer_cache(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kind: str) -> None:
+    """Write the prompt's K/V into a fresh layer cache: rows [0, S) of an
+    "attn" cache; the last ``min(Wc, S)`` positions into their slots
+    ``pos % Wc`` of a "local" ring."""
     S = k.shape[1]
+    if kind == "local":
+        wc = ck.shape[1]
+        take = min(wc, S)
+        slots = torch.arange(S - take, S, device=ck.device) % wc
+        ck[:, slots] = k[:, S - take:].to(ck.dtype)
+        cv[:, slots] = v[:, S - take:].to(cv.dtype)
+        return
     ck[:, :S] = k.to(ck.dtype)
     cv[:, :S] = v.to(cv.dtype)
 
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, max_len: int,
             cache_dtype=None, active_planes=None):
-    """Full-sequence prefill that also fills a fresh decode cache.
-    Returns (last-token logits (B, V) f32, cache)."""
+    """Full-sequence prefill that also fills a fresh decode cache, with
+    every layer's attention through the flash kernel (one launch per
+    layer on the card).  Returns (last-token logits (B, V) f32, cache)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"prompt length {S} exceeds max_len={max_len}")
     cache = init_cache(cfg, B, max_len, cache_dtype, device=tokens.device)
     x = _embed(params, tokens, cfg)
-    for p, key in _layers(params, cfg):
-        x, (k, v) = _apply_layer_fwd(p, x, cfg, active_planes)
-        _seed_layer_cache(*_layer_cache(cache, key), k, v)
+    for p, key, kind in _layers(params, cfg):
+        x, (k, v) = _apply_layer_fwd(p, x, cfg, kind, active_planes, flash=True)
+        _seed_layer_cache(*_layer_cache(cache, key), k, v, kind)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_apply(_head(params, cfg), x[:, -1:], cfg.logit_softcap, active_planes)
     return logits[:, 0], cache
@@ -305,15 +341,17 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tens
 
     Returns (last_logits (B, V) f32, cache): ``last_logits[b]`` is the
     logits at lane b's last real token of the chunk (garbage for lanes
-    that did not finish their prompt)."""
+    that did not finish their prompt).  "local" layers stream the chunk
+    through their ring buffer and ignore the table."""
     x = _embed(params, tokens, cfg)
-    for p, key in _layers(params, cfg):
+    for p, key, kind in _layers(params, cfg):
         ck, cv = _layer_cache(cache, key)
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
         out = attn_mod.prefill_chunk_attention(
             p["mixer"], h, ck, cv, start, n_valid, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-            block_table=block_table, active_planes=active_planes,
+            window=_window(cfg, kind), ring=kind == "local",
+            block_table=None if kind == "local" else block_table, active_planes=active_planes,
         )
         x = _mlp_residual(p, x + out, cfg, active_planes)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

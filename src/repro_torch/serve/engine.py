@@ -10,6 +10,9 @@ decode reads run through the paged-attention kernel when
 ``paged_kernel=True``.  Packed weights are dequantised inside the
 bitserial kernel at every projection (``kernels.ops.bitserial_matmul``),
 so device-memory reads per decode step scale with the packed bit count.
+Whole-prompt prefill (the bucketed path and legacy admission) runs its
+attention through the flash kernel; models with sliding-window layers
+(gemma3) keep a ring buffer per lane for them.
 
 The engine emits the ``serve_ttft_ms`` histogram, the
 ``serve_requests_total`` counter and the ``admitted -> first_token``

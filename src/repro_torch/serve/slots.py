@@ -28,7 +28,10 @@ reserves each request's worst-case need up front
 (:meth:`BlockAllocator.reserve`), which makes on-demand growth
 infallible.  The device pool holds one block more than the allocator
 grants: the drop sentinel of ``models.attention``.  Likewise the unpaged
-pool's cache holds one row more than ``max_len``.
+pool's "attn" caches hold one row more than ``max_len``.  Sliding-window
+("local") layers keep a ring buffer of ``min(window, max_len)`` slots per
+lane in both layouts: it never pages, and its rows need no reset (the
+ring mask hides the last occupant's slots).
 
 Caches and control vectors are updated in place.  Eviction is free: a
 finished lane is marked inactive on the host and its stale rows are
@@ -324,9 +327,11 @@ class SlotPool:
         else:
             self.n_blocks = None
             self.allocator = None
-            # one spare row past max_len: the drop row of prefill_chunk
-            self.cache = transformer.init_cache(cfg, n_slots, max_len + 1, self.cache_dtype,
-                                                self.device)
+            # "attn" leaves get one spare row past max_len, the drop row of
+            # prefill_chunk; "local" rings keep JAX's min(window, max_len)
+            # slots, so the spare row stays outside the ring's modulus
+            self.cache = transformer.init_cache(cfg, n_slots, max_len, self.cache_dtype,
+                                                self.device, drop_row=True)
         dev = self.device
         self.pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         self.temps = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
@@ -340,8 +345,19 @@ class SlotPool:
         self.slots = [SlotState() for _ in range(n_slots)]
 
     def cache_bytes(self) -> int:
-        """Device bytes of the attention cache (pool or contiguous)."""
+        """Device bytes of the attention cache (pool or contiguous, rings
+        included)."""
         return sum(t.numel() * t.element_size() for _, t in _leaves(self.cache))
+
+    def ring_bytes(self) -> int:
+        """Device bytes of the sliding-window ring buffers alone."""
+        total = 0
+        for path, t in _leaves(self.cache):
+            # ("blocks", "p{i}", leaf) or ("tail", i, leaf)
+            i = int(path[1][1:]) if path[0] == "blocks" else path[1]
+            if self.cfg.layer_pattern[i] == "local":
+                total += t.numel() * t.element_size()
+        return total
 
     # -- host-side lane management ----------------------------------------
     def free_slots(self) -> List[int]:

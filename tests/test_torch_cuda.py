@@ -15,7 +15,10 @@ the largest |output|:
   bf16 2e-2 (the kernel rounds K to q's dtype and p to V's dtype, the
   plain version computes in f32);
 * bgl_sumsq: 1e-5 of each row's plain value (f32 sums of non-negative
-  terms in another order; bf16 widens exactly to f32 in both).
+  terms in another order; bf16 widens exactly to f32 in both);
+* flash attention: f32 1e-5 (an online softmax over key tiles against a
+  one-pass one); bf16 2e-2 (the kernel rounds the unnormalised p to V's
+  dtype, the plain version the normalised one).
 """
 import numpy as np
 import pytest
@@ -27,6 +30,7 @@ from repro_torch.core import packing as tpack
 from repro_torch.data import MarkovLM
 from repro_torch.kernels import bgl_sumsq as tbgl
 from repro_torch.kernels import bitserial_matmul as tkern
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import paged_attention as tpaged
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -273,3 +277,77 @@ def test_bsq_train_steps_on_card_match_cpu(cuda):
     masks_cpu, masks_gpu = rq(state_cpu)["masks"], rq(state_gpu)["masks"]
     for name in masks_cpu:
         assert torch.equal(masks_gpu[name].cpu(), masks_cpu[name]), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,d,window,causal,G", [
+    (8, 256, 64, None, True, 4),    # granite-3-2b's heads: d 64, GQA 4
+    (4, 300, 256, 128, True, 2),    # gemma3-12b's: d 256, GQA 2, windowed, ragged
+    (2, 77, 16, None, False, 1),    # non-causal, ragged, the reduced configs' d
+    (3, 1000, 64, 100, True, 1),
+    (2, 64, 8, 1, True, 1),         # window 1: each query sees itself
+])
+def test_flash_kernel_matches_plain_version(cuda, BH, S, d, window, causal, G, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(S + d)
+    q = torch.randn((BH, S, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((BH // G, S, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((BH // G, S, d), generator=gen, device=cuda).to(dtype)
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol * want.float().abs().max().item()
+    assert torch.equal(got, tops.flash_attention(q, k, v, causal=causal, window=window))
+
+
+def test_flash_wrapper_checks_and_launch_counts(cuda):
+    q = torch.randn((4, 64, 32), device=cuda)
+    tflash.reset_launches()
+    tops.flash_attention(q, q[:2].contiguous(), q[:2].contiguous())
+    tops.flash_attention(q, q, q, window=8, sm_scale=0.5)
+    assert (tflash.launches, tflash.windowed_launches) == (2, 1)
+    with pytest.raises(ValueError, match="no backward"):
+        tflash.flash_attention_cuda(q.clone().requires_grad_(True), q, q)
+    with pytest.raises(TypeError, match="dtypes"):
+        tflash.flash_attention_cuda(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tflash.flash_attention_cuda(q[..., :12].contiguous(), q[..., :12].contiguous(),
+                                    q[..., :12].contiguous())
+    with pytest.raises(ValueError, match="divid"):
+        tflash.flash_attention_cuda(q, q[:3].contiguous(), q[:3].contiguous())
+    assert (tflash.launches, tflash.windowed_launches) == (2, 1)
+
+
+def test_ring_engines_on_card_match_cpu(cuda):
+    """Reduced gemma3-12b (window 16) at f32, 6-bit packed: the bucketed
+    engine (prefill through the flash kernel, one launch per layer, the
+    local ones windowed) and the paged-kernel continuous engine (rings
+    beside paged global layers) give the CPU's greedy tokens, decoding
+    past every ring's wrap."""
+    cfg = reduced_config("gemma3-12b")
+    params = transformer.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda,
+                                     pack_bits=6)
+    rng = np.random.default_rng(2)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new=cfg.window + 4) for i, n in enumerate((5, 23, 23, 9))]
+    arrivals = [0, 0, 2, 3]
+    kw = dict(continuous=True, n_slots=2, paged=True, block_size=8, paged_kernel=True)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tpack.tree_to(params, dev)
+        tflash.reset_launches()
+        bucketed = ServeEngine(p, cfg, max_len=64, device=dev).generate(reqs)
+        if dev.type == "cuda":
+            # three buckets (5, 23, 9 tokens): one prefill call each
+            assert tflash.launches == 3 * cfg.n_layers
+            assert tflash.windowed_launches == 3 * cfg.layer_pattern.count("local") * 2
+        eng = ServeEngine(p, cfg, max_len=64, device=dev, **kw)
+        out[dev.type] = ({r.uid: r.tokens for r in bucketed},
+                         {r.uid: r.tokens for r in eng.generate(reqs, arrival_steps=arrivals)})
+        assert eng.scheduler.pool.allocator.free_count == eng.scheduler.pool.n_blocks
+    for uid in range(len(reqs)):
+        for i in range(2):
+            np.testing.assert_array_equal(out["cuda"][i][uid], out["cpu"][i][uid])
+        np.testing.assert_array_equal(out["cuda"][0][uid], out["cuda"][1][uid])

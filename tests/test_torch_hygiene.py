@@ -30,7 +30,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.optim.optimizers", "repro_torch.data.pipeline",
             "repro_torch.ckpt.checkpoint", "repro_torch.train.step",
             "repro_torch.train.trainer", "repro_torch.launch.train",
-            "repro_torch.tree"} <= set(mods)
+            "repro_torch.tree", "repro_torch.kernels.flash_attention"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -47,8 +47,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert proc.returncode == 0 and "IMPORTS_OK" in proc.stdout, proc.stderr[-2000:]
 
 
-@pytest.mark.parametrize("entry", ["init_params", "init_cache", "engine", "launcher",
-                                   "init_bsq_state", "train_launcher", "lm_iterator"])
+@pytest.mark.parametrize("entry", ["init_params", "init_cache", "init_cache_gemma3", "engine",
+                                   "launcher", "init_bsq_state", "train_launcher",
+                                   "lm_iterator"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, monkeypatch):
     from repro_torch.core import BSQConfig
     from repro_torch.data import MarkovLM, sharded_lm_iterator
@@ -64,6 +65,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, monkeypatch)
     calls = {
         "init_params": lambda dev: transformer.init_params(cfg, torch.Generator(), dev),
         "init_cache": lambda dev: transformer.init_cache(cfg, 1, 8, device=dev),
+        "init_cache_gemma3": lambda dev: transformer.init_cache(
+            reduced_config("gemma3-12b"), 1, 8, device=dev),
         "engine": lambda dev: ServeEngine(
             transformer.init_params(cfg, torch.Generator(), "cpu"), cfg, max_len=8, device=dev),
         "launcher": lambda dev: launcher.main(
@@ -90,7 +93,7 @@ def test_unported_paths_say_so():
         with pytest.raises(SystemExit, match="not yet ported"):
             launcher.main(argv + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="later slice"):
-        transformer.init_params(reduced_config("gemma3-12b"), torch.Generator(), "cpu")
+        transformer.init_params(reduced_config("recurrentgemma-9b"), torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         SchedulerPolicy(chunked_prefill=True, paged=True, spec_decode=True)
 
