@@ -9,7 +9,8 @@ failure exits non-zero and none is caught:
 
 1. build the four CUDA kernel libraries from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all started
-   together) and print ptxas's registers and spills;
+   together), print ptxas's registers and spills, and check that the
+   flash and paged kernels spill nothing;
 2. hold the bitserial kernel against its plain PyTorch version at the
    main path's shapes (f32 and bf16, per-tensor and per-group scales),
    check ``active=a`` bitwise against ``truncate_packed`` for every a,
@@ -22,7 +23,8 @@ failure exits non-zero and none is caught:
    table entries and NaN in never-live blocks leave its output bitwise
    unchanged, and time the kernel, the plain version and one
    ``scaled_dot_product_attention`` call on K/V already gathered into
-   lane-contiguous form (a yardstick only);
+   lane-contiguous form (a yardstick only; kernel and SDPA as the median
+   of 5 timings, since calls of tens of microseconds swing up to 2x);
 2c. hold the bgl_sumsq kernel (per-row sum of squares, the BSQ
    regulariser's) against its plain version at the training slice's
    shapes and two ragged ones, f32 and bf16, within 1e-5 of each row's
@@ -33,7 +35,8 @@ failure exits non-zero and none is caught:
    causal and with window 1024, a non-causal case, a ragged length),
    f32 within 1e-5 and bf16 within 2e-2 of max |plain|, a second call
    bitwise equal, and time the kernel, the plain version and one
-   ``scaled_dot_product_attention`` call (a yardstick only);
+   ``scaled_dot_product_attention`` call (a yardstick only); 2b and 2d
+   print each row's rate, its share of the bound and kernel / SDPA;
 3. full-width granite-3-2b cut to 2 layers, f32, 6-bit packed: the card
    (kernels) against the CPU (plain path) on the same params;
 3b. the same 2-layer model through the continuous paged-kernel engine
@@ -74,14 +77,17 @@ failure exits non-zero and none is caught:
    the state saved at step 4; then the final scheme, ``export_packed``,
    a profile of two train steps, and 4 requests served from the
    exported packed weights through the bitserial and flash kernels;
-7. a ``{"kernels": [...]}`` line, the card's name and power limit, and
-   the final ``{"ok": true, ...}`` line.
+7. a ``{"kernels": [...]}`` line (flash and paged also carry
+   ``vs_library``, their time over the library call's: below 1 beats
+   it), the card's name and power limit, and the final
+   ``{"ok": true, ...}`` line.
 
 Exits non-zero without a CUDA device, and when the repo's ``src`` is not
 beside it.  The per-shape table goes to ``chiprun_out/chip_smoke.json``.
 """
 import gc
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -100,6 +106,7 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of max |plain|, see phase 2
 # paged attention, of max |plain|: f32, an online softmax against a
 # one-pass one; bf16, the kernel rounds K to q's dtype and p to V's dtype
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+PAGED_REPEATS = 5  # time_ms runs whose median times a paged call
 # the continuous slice (phase 4b): 8 lanes, 64 blocks of 32 rows
 SLOTS, BLOCK, N_BLOCKS, MAX_LEN = 8, 32, 64, 512
 # gemma3-12b's continuous run (phase 4c): 8 lanes, 512 blocks of 32 rows,
@@ -221,7 +228,7 @@ def device_ms_by_name(prof):
     return by_name
 
 
-def paged_kernel_phase(dev, card, time_ms):
+def paged_kernel_phase(dev, card, time_ms, median_ms):
     """Phase 2b: the paged-attention kernel against its plain version at
     the continuous slices' shapes, with ragged positions and two inactive
     lanes: granite-3-2b's (8 lanes, 8 KV heads of 4 query heads, d = 64,
@@ -233,11 +240,11 @@ def paged_kernel_phase(dev, card, time_ms):
 
     rows = []
     for dt, window in ((torch.float32, None), (torch.bfloat16, None), (torch.bfloat16, 100)):
-        rows.append(paged_case(dev, card, time_ms, dt, window, KV=8, G=4, d=64,
+        rows.append(paged_case(dev, card, time_ms, median_ms, dt, window, KV=8, G=4, d=64,
                                nb_lane=MAX_LEN // BLOCK, n_blocks=N_BLOCKS,
                                pos=[-1, 0, 31, 100, 255, 200, -1, 63]))
     for dt in (torch.float32, torch.bfloat16):
-        rows.append(paged_case(dev, card, time_ms, dt, None, KV=8, G=2, d=256,
+        rows.append(paged_case(dev, card, time_ms, median_ms, dt, None, KV=8, G=2, d=256,
                                nb_lane=G_MAX_LEN // BLOCK, n_blocks=G_N_BLOCKS,
                                pos=[-1, 0, 511, 1000, 2047, 1500, -1, 64]))
     print("[paged] kernel == plain within tolerance; inactive lanes exact zeros; stale "
@@ -245,7 +252,8 @@ def paged_kernel_phase(dev, card, time_ms):
     return rows
 
 
-def paged_case(dev, card, time_ms, dt, window, *, KV, G, d, nb_lane, n_blocks, pos):
+def paged_case(dev, card, time_ms, median_ms, dt, window, *, KV, G, d, nb_lane, n_blocks,
+               pos):
     """One shape of phase 2b: lane-disjoint shuffled tables whose entries
     past a lane's own blocks name other lanes' blocks (stale ids)."""
     import torch
@@ -300,14 +308,16 @@ def paged_case(dev, card, time_ms, dt, window, *, KV, G, d, nb_lane, n_blocks, p
         valid &= (pos[:, None] - kpos[None, :]) < window
     mask = valid[:, None, None, :]
     qs = q.reshape(B, KV * G, 1, d)
+    # the kernel and SDPA take tens of microseconds and swing up to 2x from
+    # one time_ms to the next: the median of PAGED_REPEATS of them
     row = {
         "dtype": dname, "window": window, "B": B, "KV": KV, "G": G, "d": d,
         "block_size": BLOCK, "blocks_per_lane": nb_lane, "pos": pos.tolist(),
         "max_abs_err": err, "max_abs_plain": scale_,
-        "ms": time_ms(lambda: ops.paged_attention(q, k, v, table, pos, window=window)),
+        "ms": median_ms(lambda: ops.paged_attention(q, k, v, table, pos, window=window)),
         "plain_ms": time_ms(lambda: ref.paged_attention_ref(q, k, v, table, pos,
                                                             window=window), iters=5),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
             qs, kc, vc, attn_mask=mask, enable_gqa=True)),
     }
     # the least the card could take: each live K/V row read once, q read
@@ -321,11 +331,25 @@ def paged_case(dev, card, time_ms, dt, window, *, KV, G, d, nb_lane, n_blocks, p
     row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     row["live_rows"] = live_rows
+    # device time of each of the call's two kernels (split walk, merge),
+    # warm L2, from the profiler: the part of the call each one takes
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.paged_attention(q, k, v, table, pos, window=window)
+        torch.cuda.synchronize()
+    row["kernel_us_warm"] = {
+        ("merge" if "paged_attention_merge" in n else "split" if "paged_attention_split" in n
+         else n[:40]):
+        1e3 * t / c for n, (t, c) in device_ms_by_name(prof).items()}
+    row["gb_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+    row["of_bound"] = row["bound_ms"] / row["ms"]
+    row["vs_library"] = row["ms"] / row["library_ms"]
     print(f"[paged] {dname} d={d} G={G} window={window} pos={pos.tolist()}: max_err={err:.3e} "
-          f"(max|plain|={scale_:.3e}) kernel {row['ms']:.4f} ms, bound "
-          f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {live_rows} live rows), plain "
-          f"{row['plain_ms']:.4f} ms, sdpa(gathered) {row['library_ms']:.4f} ms [{card}]",
-          flush=True)
+          f"(max|plain|={scale_:.3e}) kernel {row['ms']:.4f} ms ({row['gb_per_s']:.1f} GB/s, "
+          f"{100 * row['of_bound']:.1f} % of bound), bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}, {live_rows} live rows), plain {row['plain_ms']:.4f} ms, "
+          f"sdpa(gathered) {row['library_ms']:.4f} ms (kernel/sdpa {row['vs_library']:.2f}); "
+          f"warm us by kernel {row['kernel_us_warm']} [{card}]", flush=True)
     return row
 
 
@@ -402,12 +426,15 @@ def flash_kernel_phase(dev, card, time_ms):
                 "bound_ms": b_ms, "bound_by": b_by, "live_pairs": live,
             }
             row["tflops"] = 4.0 * d * live * BH / (row["ms"] * 1e-3) / 1e12
+            row["of_bound"] = b_ms / row["ms"]
+            row["vs_library"] = row["ms"] / row["library_ms"]
             rows.append(row)
             print(f"[flash] {name} BH={BH}/{BHkv} S={S} d={d} window={window} causal={causal} "
                   f"{dname}: max_err={err:.3e} (max|plain|={scale_:.3e}) kernel "
-                  f"{row['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s), bound "
-                  f"{row['bound_ms']:.4f} ms ({b_by}), plain {row['plain_ms']:.4f} ms, sdpa "
-                  f"{row['library_ms']:.4f} ms [{card}]", flush=True)
+                  f"{row['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s, "
+                  f"{100 * row['of_bound']:.1f} % of bound), bound {row['bound_ms']:.4f} ms "
+                  f"({b_by}), plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
+                  f"(kernel/sdpa {row['vs_library']:.2f}) [{card}]", flush=True)
             del q, k, v, got
     print("[flash] kernel == plain within tolerance (f32 1e-5, bf16 2e-2 of max|plain|); "
           "second calls bitwise equal", flush=True)
@@ -872,16 +899,17 @@ def profile_continuous(engine, reqs, card):
         return {"wall_ms": wall_ms, "device_busy_ms": None}
     busy = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    paged = [(t, n) for k, (t, n) in by_name.items() if "paged_attention" in k]
+    paged = {k: tn for k, tn in by_name.items() if "paged_attention" in k}
     print(f"[profile] continuous run, 8 requests x (128 prompt + 8 new), {sched.decode_steps} "
           f"decode steps, {sched.prefill_chunks} prefill chunks: wall {wall_ms:.2f} ms under the "
           f"profiler, device busy {busy:.2f} ms (idle {1 - busy / wall_ms:.1%}) [{card}]")
     for name, (t, n) in top:
         print(f"[profile]   {t:9.3f} ms {n:6d}x  {name[:90]}")
-    if paged:
-        t, n = map(sum, zip(*paged))
-        print(f"[profile]   paged_attention: {t:.3f} ms in {n} launches, "
-              f"{1e3 * t / max(n, 1):.2f} us each [{card}]")
+    if paged:  # a call is two kernels, the split walk and the merge
+        t = sum(t for t, _ in paged.values())
+        calls = sum(n for k, (_, n) in paged.items() if "merge" not in k)
+        print(f"[profile]   paged_attention: {t:.3f} ms in {calls} calls (split walk and "
+              f"merge), {1e3 * t / max(calls, 1):.2f} us each [{card}]")
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "decode_steps": sched.decode_steps, "prefill_chunks": sched.prefill_chunks,
             "top": [{"name": k, "ms": t, "count": n} for k, (t, n) in top]}
@@ -1469,10 +1497,16 @@ def kernel_entries(report, max_err):
         "max_abs_err": max(r["max_abs_err"] for r in report["paged"]),
         "ms": p_row["ms"], "plain_ms": p_row["plain_ms"], "bound_ms": p_row["bound_ms"],
         "bound_by": p_row["bound_by"], "library_ms": p_row["library_ms"],
+        "vs_library": p_row["ms"] / p_row["library_ms"],
         "work": "one paged decode layer of the continuous slice: 8 lanes (2 inactive), 8 KV "
                 "heads x 4 query heads, d=64, bf16, blocks of 32 rows, 16 table entries per "
                 f"lane, {p_row['live_rows']} live rows",
     }
+    # gemma3-12b's global layer (phase 4c's paged launches), beside it
+    g_row = next(r for r in report["paged"] if r["dtype"] == "bfloat16" and r["d"] == 256)
+    p_entry.update({"ms_gemma3": g_row["ms"], "bound_ms_gemma3": g_row["bound_ms"],
+                    "library_ms_gemma3": g_row["library_ms"],
+                    "vs_library_gemma3": g_row["ms"] / g_row["library_ms"]})
     entry["launches_continuous"] = report["continuous"]["bitserial_launches"]
 
     entry["launches_bsq_serve"] = report["bsq"]["serve_bitserial_launches"]
@@ -1517,6 +1551,8 @@ def kernel_entries(report, max_err):
         "bound_by": "operations" if glob["bound_by"] == loc["bound_by"] == "operations"
         else "bytes",
         "library_ms": per_prefill("library_ms"),
+        "vs_library": per_prefill("ms") / per_prefill("library_ms"),
+        "tflops_causal": glob["tflops"],
         "work": f"one gemma3-12b prefill call's attention: {n_win} windowed (1024) and "
                 f"{n_glob} causal launches over 2 x 16 query heads / 2 x 8 K/V rows, S=4096, "
                 "d=256, bf16",
@@ -1577,17 +1613,31 @@ def main() -> int:
         for line in _build.build_log[name]["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {name}: {line.strip()}")
+    # the redesigned attention kernels keep every register array in registers
+    for name in ("flash_attention", "paged_attention"):
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                            _build.build_log[name]["ptxas"])
+        check(spills and all(s == ("0", "0") for s in spills),
+              f"{name}.cu: ptxas reports spills (or nothing): {spills}")
+    print("[build] flash_attention, paged_attention: no spills in any kernel", flush=True)
 
     # ---------------------------------------------------- 2, 2b, 2c, 2d
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
 
     def time_ms(fn, iters=10):
-        """Median device time of fn with the L2 flushed before each call."""
+        """Median device time of fn with the L2 flushed before each call.
+
+        A spin of the card (about 0.25 ms) after the flush keeps the
+        device busy until the host has queued the whole call, so the
+        start event never waits on the host: a call of a few microseconds
+        whose Python wrapper takes longer than the flush would otherwise
+        time the host."""
         fn()
         fn()
         times = []
         for _ in range(iters):
             flush.zero_()
+            torch.cuda._sleep(500_000)
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
             fn()
@@ -1599,8 +1649,13 @@ def main() -> int:
     if want("2"):
         max_err = bitserial_kernel_phase(dev, card, time_ms, report)
         phase_done("2")
+
+    def median_ms(fn, repeats=PAGED_REPEATS):
+        """The median of ``repeats`` time_ms runs, for calls of tens of us."""
+        return float(np.median([time_ms(fn) for _ in range(repeats)]))
+
     if want("2b"):
-        report["paged"] = paged_kernel_phase(dev, card, time_ms)
+        report["paged"] = paged_kernel_phase(dev, card, time_ms, median_ms)
         phase_done("2b")
     if want("2c"):
         report["bgl"] = bgl_kernel_phase(dev, card, time_ms)

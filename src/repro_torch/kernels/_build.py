@@ -31,7 +31,8 @@ NVCC_FLAGS = [
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # per source: seconds the build took (0.0 when the library was already
-# built) and what ptxas said about registers and shared memory
+# built) and what ptxas said about registers, spills and shared memory
+# (kept beside the library, so a library built earlier reports it too)
 build_log: Dict[str, dict] = {}
 
 
@@ -64,8 +65,10 @@ def _lib_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
     out = _lib_path(name)
+    report = out.with_suffix(".ptxas.txt")
     if out.exists():
-        build_log.setdefault(name, {"seconds": 0.0, "ptxas": ""})
+        build_log.setdefault(name, {"seconds": 0.0, "ptxas": report.read_text()
+                                    if report.exists() else ""})
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -75,6 +78,7 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed to build {name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
+    report.write_text(proc.stderr)
     os.replace(tmp, out)
     build_log[name] = {"seconds": time.perf_counter() - t0, "ptxas": proc.stderr}
     return out

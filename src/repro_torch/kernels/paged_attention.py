@@ -8,17 +8,23 @@ it fit.  The block table and the positions are read on the device, so
 a call never syncs the host.  It allocates the output, launches on the
 current stream, raises on a CUDA error from the launch, and adds one to
 :data:`launches`.
+
+The kernel splits each lane's rows over several blocks (flash-decoding)
+and merges the splits in a second kernel.  How many splits, and how many
+rows each, is :func:`split_plan` of the table's shape alone, so the
+grid and the scratch never depend on ``pos``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-MAX_GROUP_ELEMS = 4096  # G * d: 32 accumulators in each of 128 threads
+MAX_GROUP_ELEMS = 4096  # G * d of one call (the kernel serves 8 heads a block)
+SPLIT_ROWS = 128  # lane-logical rows per split (rounded to whole table blocks)
 
 # kernel launches since the last reset (one per call that reaches the card)
 launches = 0
@@ -29,13 +35,22 @@ def reset_launches() -> None:
     launches = 0
 
 
+def split_plan(blocks_per_lane: int, block_size: int) -> Tuple[int, int]:
+    """``(n_split, rows_per_split)`` for a table of ``blocks_per_lane``
+    entries of ``block_size`` rows: split ``s`` covers the lane-logical
+    rows ``[s * rows_per_split, (s + 1) * rows_per_split)``, whole table
+    blocks, and the splits tile ``[0, blocks_per_lane * block_size)``."""
+    per_split = max(1, SPLIT_ROWS // block_size)  # table blocks per split
+    return -(-blocks_per_lane // per_split), per_split * block_size
+
+
 def _lib():
     from . import _build
 
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.load("paged_attention", {
-        "paged_attention_launch": [i, i, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                   ctypes.c_float, p],
+        "paged_attention_launch": [i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                   ctypes.c_float, i, i, p],
     })
 
 
@@ -49,6 +64,10 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Te
     (n_blocks, block_size, KV, d) of one dtype (float32 or bfloat16);
     ``block_table`` (B, blocks_per_lane) int32; ``pos`` (B,) int32, < 0
     for an inactive lane.  Returns (B, KV, G, d) in q's dtype.
+
+    One call runs two kernels, the split walk and the merge, on f32
+    scratch of :func:`split_plan`'s shape, and adds one to
+    :data:`launches`.
     """
     global launches
     if q.device.type != "cuda":
@@ -92,15 +111,21 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Te
     window = 0 if window is None else int(window)  # 0: no window, in the C entry
     sm_scale = d**-0.5 if sm_scale is None else float(sm_scale)
     out = torch.empty_like(q)
+    nb_lane = block_table.shape[1]
     if B == 0 or KV == 0 or G == 0:
         return out
+    n_split, rows_per_split = split_plan(nb_lane, bs)
+    # per (lane, KV head, split, query head): acc (d), then (m, l)
+    part_acc = torch.empty((B, KV, n_split, G, d), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, KV, n_split, G, 2), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.paged_attention_launch(
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            B, KV, G, d, bs, block_table.shape[1], window, sm_scale, stream)
+            part_acc.data_ptr(), part_ml.data_ptr(), B, KV, G, d, bs, nb_lane, window,
+            sm_scale, n_split, rows_per_split, stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {err}")
     launches += 1

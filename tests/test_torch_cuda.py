@@ -136,29 +136,54 @@ def _paged_case(B, KV, G, d, bs, nb_lane, dtype, seed, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,bs,G,window", [(16, 4, 2, None), (64, 32, 4, None),
-                                           (64, 16, 4, 21), (16, 8, 1, 3)])
-def test_paged_kernel_matches_plain_version(cuda, d, bs, G, window, dtype):
-    B, KV, nb_lane = 5, 2, 6
+@pytest.mark.parametrize("d,bs,G,window,nb_lane,pos", [
+    (16, 4, 2, None, 6, [-1, 0, 3, 23, 14]),
+    (64, 32, 4, None, 6, [-1, 0, 31, 191, 98]),
+    (64, 16, 4, 21, 6, [-1, 0, 15, 95, 50]),
+    (16, 8, 1, 3, 6, [-1, 0, 7, 47, 26]),
+    # 384 rows in three splits of 128: live ranges ending on a split edge
+    # (127), one row past it (128), straddling two (300), at the table's end
+    (64, 32, 1, None, 12, [-1, 127, 128, 300, 383]),
+    (64, 32, 2, None, 12, [383, 0, 255, 256, -1]),
+    (256, 32, 1, None, 12, [127, 128, 300, 383, 0]),
+    (256, 32, 2, None, 12, [255, -1, 129, 383, 64]),
+    # windows starting mid-split (100 rows at 300: 201..300), and wholly
+    # inside the last split (50 rows at 383: 334..383)
+    (64, 32, 8, 100, 12, [300, 383, 150, -1, 99]),
+    (256, 32, 4, 50, 12, [383, 340, 129, 10, -1]),
+    (256, 32, 8, 100, 12, [300, 0, 383, 200, 127]),
+    (64, 16, 4, 200, 12, [191, 100, 129, -1, 5]),
+    # a group of 12 heads: two blocks of 8 heads per (lane, KV head)
+    (64, 32, 12, None, 12, [383, 127, -1, 200, 5]),
+    # every lane inactive
+    (64, 32, 4, None, 12, [-1, -1, -1, -1, -1]),
+])
+def test_paged_kernel_matches_plain_version(cuda, d, bs, G, window, nb_lane, pos, dtype):
+    B, KV = len(pos), 2
     q, k, v, tbl = _paged_case(B, KV, G, d, bs, nb_lane, dtype, seed=d + bs, dev=cuda)
-    pos = torch.tensor([-1, 0, bs - 1, bs * nb_lane - 1, bs * 3 + 2], dtype=torch.int32,
-                       device=cuda)
-    got = tops.paged_attention(q, k, v, tbl, pos, window=window)
-    want = tref.paged_attention_ref(q, k, v, tbl, pos, window=window)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    got = tops.paged_attention(q, k, v, tbl, pos_t, window=window)
+    want = tref.paged_attention_ref(q, k, v, tbl, pos_t, window=window)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     err = (got.float() - want.float()).abs().max().item()
     assert got.dtype == dtype and err <= tol * want.float().abs().max().item(), err
-    assert torch.equal(got[0], torch.zeros_like(got[0]))  # pos < 0: exact zeros
+    for b, p in enumerate(pos):
+        if p < 0:  # an inactive lane: exact zeros
+            assert torch.equal(got[b], torch.zeros_like(got[b])), b
     # a fixed sum order: the same bits again
-    assert torch.equal(got, tops.paged_attention(q, k, v, tbl, pos, window=window))
+    assert torch.equal(got, tops.paged_attention(q, k, v, tbl, pos_t, window=window))
 
 
-def test_paged_kernel_never_reads_stale_entries_or_dead_rows(cuda):
+@pytest.mark.parametrize("d,bs,nb_lane,pos", [
+    (64, 8, 6, [3, 17, -1, 40]),
+    (256, 32, 12, [3, 200, -1, 383]),  # several splits, a lane in its last
+])
+def test_paged_kernel_never_reads_stale_entries_or_dead_rows(cuda, d, bs, nb_lane, pos):
     """Entries past a lane's last live block are scrambled and the blocks
     no lane reaches are NaN: the kernel's output keeps its bits."""
-    B, KV, G, d, bs, nb_lane = 4, 2, 4, 64, 8, 6
+    B, KV, G = len(pos), 2, 4
     q, k, v, tbl = _paged_case(B, KV, G, d, bs, nb_lane, torch.bfloat16, seed=7, dev=cuda)
-    pos = torch.tensor([3, 17, -1, 40], dtype=torch.int32, device=cuda)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
     base = tops.paged_attention(q, k, v, tbl, pos)
     live = {b: (int(pos[b]) // bs + 1 if pos[b] >= 0 else 0) for b in range(B)}
     used = {int(tbl[b, j]) for b in range(B) for j in range(live[b])}
@@ -286,6 +311,18 @@ def test_bsq_train_steps_on_card_match_cpu(cuda):
     (2, 77, 16, None, False, 1),    # non-causal, ragged, the reduced configs' d
     (3, 1000, 64, 100, True, 1),
     (2, 64, 8, 1, True, 1),         # window 1: each query sees itself
+    # lengths that are no multiple of the 64-key tile, windows one key
+    # either side of it, d 128, and the prefill shapes' S 4096
+    (4, 1, 64, None, True, 2),
+    (4, 63, 128, None, True, 4),
+    (4, 65, 256, 17, True, 2),
+    (2, 1000, 128, 63, True, 1),
+    (2, 1000, 256, 65, True, 2),
+    (2, 63, 256, 1, True, 1),
+    (4, 1000, 128, None, False, 4),
+    (2, 65, 64, 17, False, 2),
+    (8, 4096, 64, 1024, True, 4),
+    (2, 4096, 256, None, True, 2),
 ])
 def test_flash_kernel_matches_plain_version(cuda, BH, S, d, window, causal, G, dtype):
     gen = torch.Generator(device=cuda).manual_seed(S + d)

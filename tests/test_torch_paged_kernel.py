@@ -8,6 +8,8 @@ Tolerances: against the JAX reference 2e-5 (both gather and take an f32
 softmax; the sums run in another order); against the Pallas kernel 2e-5
 in f32 (the JAX suite's own) and 2e-2 with a bf16 pool (the kernel's
 online softmax rounds p to bf16 before p.V)."""
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,3 +153,33 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         tkern.paged_attention_cuda(_torch(q), _torch(k), _torch(v), torch.from_numpy(tbl),
                                    torch.zeros(3, dtype=torch.int32))
     assert tkern.launches == 0
+
+
+@pytest.mark.parametrize("nb_lane,bs", [(1, 1), (6, 4), (16, 32), (97, 32), (3, 256),
+                                        (12, 48), (5, 1000), (0, 16)])
+def test_split_plan_tiles_the_table(nb_lane, bs):
+    """The kernel's grid and scratch follow ``split_plan``: whole table
+    blocks per split, and splits that tile the lane's rows [0, nb_lane *
+    bs) with no gap and no overlap."""
+    n_split, rows = tkern.split_plan(nb_lane, bs)
+    assert rows >= bs and rows % bs == 0
+    L = nb_lane * bs
+    spans = [(s * rows, min((s + 1) * rows, L)) for s in range(n_split)]
+    assert all(lo < hi for lo, hi in spans)  # no empty split
+    starts = [lo for lo, _ in spans]
+    ends = [hi for _, hi in spans]
+    assert starts == [0] + ends[:-1] if spans else L == 0  # contiguous, from row 0
+    assert ends[-1:] == ([L] if L else [])
+
+
+def test_split_plan_depends_on_the_table_shape_alone():
+    """No decode-step argument reaches the plan: its inputs are the
+    table's width and the block size, and the wrapper reads no position
+    on the host (a CUDA graph can capture the decode step)."""
+    assert list(inspect.signature(tkern.split_plan).parameters) == ["blocks_per_lane",
+                                                                   "block_size"]
+    assert tkern.split_plan(97, 32) == (25, 128)  # gemma3-12b's continuous table
+    assert tkern.split_plan(16, 32) == (4, 128)   # granite-3-2b's
+    body = inspect.getsource(tkern.paged_attention_cuda)
+    for host_read in (".item(", ".tolist(", ".cpu(", "int(pos", ".numpy("):
+        assert host_read not in body, host_read
