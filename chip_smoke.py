@@ -10,12 +10,18 @@ failure exits non-zero and none is caught:
 1. build the four CUDA kernel libraries from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all started
    together), print ptxas's registers and spills, and check that the
-   flash and paged kernels spill nothing;
+   bitserial, flash and paged kernels spill nothing;
 2. hold the bitserial kernel against its plain PyTorch version at the
-   main path's shapes (f32 and bf16, per-tensor and per-group scales),
-   check ``active=a`` bitwise against ``truncate_packed`` for every a,
+   main path's shapes (granite-3-2b's projections at M 4 and 512, f32 and
+   bf16, per-tensor and per-group scales; gemma3-12b's 7 projections in
+   bf16 at decode, M 2, and at its 2 x 4096-token prefill, M 8192), check
+   a second call bitwise equal, ``active=a`` bitwise against
+   ``truncate_packed`` for every a, and that decode runs the split-K
+   kernel and bf16 prefill the wgmma tile (the profiler names both once),
    and time the kernel, the plain version and ``torch.matmul`` against
-   the dequantised weight (a yardstick only; the port never calls it);
+   the dequantised weight (a yardstick only; the port never calls it),
+   with each prefill row's TFLOP/s and share of the bf16 peak, and each
+   layer's 7 projections summed;
 2b. hold the paged-attention kernel against its plain version at the
    continuous slices' shapes (granite-3-2b's d 64, G 4: f32, bf16, one
    windowed case; gemma3-12b's global layers, d 256, G 2: f32, bf16;
@@ -77,10 +83,10 @@ failure exits non-zero and none is caught:
    the state saved at step 4; then the final scheme, ``export_packed``,
    a profile of two train steps, and 4 requests served from the
    exported packed weights through the bitserial and flash kernels;
-7. a ``{"kernels": [...]}`` line (flash and paged also carry
-   ``vs_library``, their time over the library call's: below 1 beats
-   it), the card's name and power limit, and the final
-   ``{"ok": true, ...}`` line.
+7. a ``{"kernels": [...]}`` line (the bitserial decode and prefill
+   entries, flash and paged also carry ``vs_library``, their time over
+   the library call's: below 1 beats it), the card's name and power
+   limit, and the final ``{"ok": true, ...}`` line.
 
 Exits non-zero without a CUDA device, and when the repo's ``src`` is not
 beside it.  The per-shape table goes to ``chiprun_out/chip_smoke.json``.
@@ -102,6 +108,11 @@ MATMUL_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
 # the 7 projections of one granite-3-2b layer, as (K, N)
 LAYER_PROJ = [(2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
               (2048, 8192), (2048, 8192), (8192, 2048)]
+# ... and of one gemma3-12b layer (q, k, v, o, gate, up, down), timed in
+# bf16 at decode (M 2, a bucket of 2) and at its 2 x 4096-token prefill
+GEMMA3_PROJ = [(3840, 4096), (3840, 2048), (3840, 2048), (4096, 3840),
+               (3840, 15360), (3840, 15360), (15360, 3840)]
+GEMMA3_M = (2, 8192)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of max |plain|, see phase 2
 # paged attention, of max |plain|: f32, an online softmax against a
 # one-pass one; bf16, the kernel rounds K to q's dtype and p to V's dtype
@@ -640,6 +651,9 @@ def gemma3_slice(dev, card, engine_cls):
     expected = calls * max_new * cfg.n_layers * n_proj
     check(bsm.launches == expected and pa.launches == 0,
           f"bitserial launches {bsm.launches} (expected {expected}), paged {pa.launches}")
+    check(bsm.prefill_launches == calls * cfg.n_layers * n_proj,
+          f"{bsm.prefill_launches} bitserial prefill launches, expected {calls} x "
+          f"{cfg.n_layers} x {n_proj}")
     # one bucket's cache (2 lanes, bf16, K and V): rings of window slots in
     # the local layers, max_len rows in the global ones
     row_bytes = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
@@ -652,7 +666,8 @@ def gemma3_slice(dev, card, engine_cls):
                        "tokens_per_s": gen_toks.size / wall, "serve_peak_bytes": peak,
                        "ring_bytes_per_bucket": ring_bytes, "kv_bytes_per_bucket": kv_bytes,
                        "flash_launches": fa.launches, "flash_windowed": fa.windowed_launches,
-                       "bitserial_launches": bsm.launches, "buckets": {}}
+                       "bitserial_launches": bsm.launches,
+                       "bitserial_prefill_launches": bsm.prefill_launches, "buckets": {}}
     for plen, rs in sorted(buckets.items()):
         ttft = float(np.mean([r.prefill_ms for r in rs]))
         dms = float(np.mean([r.decode_ms_per_tok for r in rs]))
@@ -1259,79 +1274,132 @@ def bsq_slice(dev, card):
             "serve_s": serve_s, "tokens": toks.tolist(), "serve_bitserial_launches": expected}
 
 
-def bitserial_kernel_phase(dev, card, time_ms, report):
-    """Phase 2: the bitserial kernel against its plain version at the main
-    path's shapes (f32 and bf16, per-tensor and per-group scales),
-    ``active=a`` bitwise against ``truncate_packed`` for every a, and its
-    time beside the plain version's and ``torch.matmul``'s on the
-    dequantised weight.  Returns the largest error."""
+def bitserial_case(dev, gen, card, time_ms, M, K, N, groups, dt, profile=False):
+    """One shape of phase 2: the kernel against its plain version,
+    ``active=a`` bitwise against ``truncate_packed`` for every a, and the
+    kernel, its ``active`` path, the plain version and ``torch.matmul`` on
+    the dequantised weight timed.  ``profile`` also names the device
+    kernels of one call from the profiler."""
     import torch
 
     from repro_torch.core.packing import pack_from_float, truncate_packed, unpack_to_float
+    from repro_torch.kernels import bitserial_matmul as bsm
     from repro_torch.kernels import ops, ref
 
+    dname = str(dt).split(".")[-1]
+    w = torch.randn((K, N), generator=gen, device=dev) / K**0.5
+    pw = pack_from_float(w, N_BITS, group_cols=groups)
+    del w
+    x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+    got = ops.bitserial_matmul(x, pw)
+    want = ref.bitserial_matmul_ref(x, pw.planes, pw.sign, pw.scale, N_BITS)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale_ = want.float().abs().max().item()
+    del want
+    what = f"M={M} K={K} N={N} groups={groups} {dname}"
+    # f32: the two differ only by the order of the sums and the epilogue's
+    # rounding; bf16: the plain version rounds x @ w to bf16 before the
+    # scale, the kernel scales the f32 sum
+    check(bool(torch.isfinite(got).all()) and err <= TOL[dname] * scale_,
+          f"kernel vs plain at {what}: max err {err} > {TOL[dname]} x {scale_}")
+    check(torch.equal(got, ops.bitserial_matmul(x, pw)), f"{what}: a second call differs")
+    iview = torch.int32 if dt == torch.float32 else torch.int16
+    for a in range(1, N_BITS + 1):
+        dyn = ops.bitserial_matmul(x, pw, active_planes=a)
+        static = ops.bitserial_matmul(x, truncate_packed(pw, a))
+        check(torch.equal(dyn.view(iview), static.view(iview)),
+              f"active={a} != truncate_packed at {what}")
+    del got, dyn, static
+    path = bsm.kernel_path(x, pw.planes, pw.sign)
+    check(path == ("splitk" if M <= bsm.DECODE_MAX_M else
+                   "wgmma" if dt == torch.bfloat16 else "tiled"),
+          f"{what}: the {path} kernel, not the one the main path wants")
+    wl = unpack_to_float(pw).to(dt)
+    a_dev = torch.tensor([N_BITS - 2], dtype=torch.int32, device=dev)
+    row = {
+        "M": M, "K": K, "N": N, "dtype": dname,
+        "scale": "per-tensor" if groups is None else f"{groups} groups", "path": path,
+        "max_abs_err": err, "max_abs_plain": scale_,
+        "ms": time_ms(lambda: ops.bitserial_matmul(x, pw)),
+        # the same kernel reading its active-plane count from the device
+        # (the dyn Pallas kernel's path)
+        "active_ms": time_ms(lambda: ops.bitserial_matmul(x, pw, active_planes=a_dev)),
+        "plain_ms": time_ms(lambda: ref.bitserial_matmul_ref(
+            x, pw.planes, pw.sign, pw.scale, N_BITS), iters=3),
+        "active_plain_ms": time_ms(lambda: ref.bitserial_matmul_ref(
+            x, pw.planes, pw.sign, pw.scale, N_BITS, active_planes=a_dev), iters=3),
+        "library_ms": time_ms(lambda: torch.matmul(x, wl)),
+    }
+    row["bound_ms"], row["bound_by"] = bound_ms(M, K, N, dname, groups=groups or 1)
+    row["vs_library"] = row["ms"] / row["library_ms"]
+    row["of_bound"] = row["bound_ms"] / row["ms"]
+    row["tflops"] = 2.0 * M * K * N / (row["ms"] * 1e-3) / 1e12
+    if profile:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            ops.bitserial_matmul(x, pw)
+            torch.cuda.synchronize()
+        row["device_kernels"] = sorted(device_ms_by_name(prof))
+        check(any(f"{path}_kernel" in n for n in row["device_kernels"]),
+              f"{what}: the profiler saw {row['device_kernels']}, no {path}_kernel")
+    rate = (f"{row['tflops']:.1f} TFLOP/s, {100 * row['tflops'] * 1e12 / PEAK_FLOPS[dname]:.1f} % "
+            f"of the {dname} peak" if M > bsm.DECODE_MAX_M else
+            f"{(N_BITS + 1) * (K // 8) * N / (row['ms'] * 1e-3) / 1e9:.0f} GB/s of packed weight")
+    print(f"[kernel] {what} ({path}): max_err={err:.3e} (max|plain|={scale_:.3e}) "
+          f"kernel {row['ms']:.4f} ms ({rate}; active={N_BITS - 2} from the device "
+          f"{row['active_ms']:.4f} ms), bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+          f"{100 * row['of_bound']:.1f} %), plain {row['plain_ms']:.4f} ms, "
+          f"torch.matmul(dequantised) {row['library_ms']:.4f} ms (kernel/library "
+          f"{row['vs_library']:.2f}) [{card}]", flush=True)
+    return row
+
+
+def bitserial_kernel_phase(dev, card, time_ms, report):
+    """Phase 2: the bitserial kernel against its plain version at the main
+    path's shapes: granite-3-2b's projections at decode (M 4) and prefill
+    (M 512), f32 and bf16, per-tensor and per-group scales; gemma3-12b's 7
+    projections in bf16 at decode (M 2) and at its 2 x 4096-token prefill
+    (M 8192).  Each shape through :func:`bitserial_case`; the decode and
+    prefill kernels named once each by the profiler.  Returns the largest
+    error."""
+    import torch
+
     gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = 0.0
     for M in (4, 512):
         for K, N in MATMUL_SHAPES:
-            w = torch.randn((K, N), generator=gen, device=dev) / K**0.5
             for groups in (None, 16):
-                pw = pack_from_float(w, N_BITS, group_cols=groups)
-                w_deq = unpack_to_float(pw)
                 for dt in (torch.float32, torch.bfloat16):
-                    dname = str(dt).split(".")[-1]
-                    x = torch.randn((M, K), generator=gen, device=dev).to(dt)
-                    got = ops.bitserial_matmul(x, pw)
-                    want = ref.bitserial_matmul_ref(x, pw.planes, pw.sign, pw.scale, N_BITS)
-                    torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
-                    scale_ = want.float().abs().max().item()
-                    # f32: the two differ only by the order of the sums and the
-                    # epilogue's rounding; bf16: the plain version rounds x @ w
-                    # to bf16 before the scale, the kernel scales the f32 sum
-                    check(bool(torch.isfinite(got).all()) and err <= TOL[dname] * scale_,
-                          f"kernel vs plain at M={M} K={K} N={N} groups={groups} {dname}: "
-                          f"max err {err} > {TOL[dname]} x {scale_}")
-                    max_err = max(max_err, err)
-                    for a in range(1, N_BITS + 1):
-                        dyn = ops.bitserial_matmul(x, pw, active_planes=a)
-                        static = ops.bitserial_matmul(x, truncate_packed(pw, a))
-                        iview = torch.int32 if dt == torch.float32 else torch.int16
-                        check(torch.equal(dyn.view(iview), static.view(iview)),
-                              f"active={a} != truncate_packed at M={M} K={K} N={N} "
-                              f"groups={groups} {dname}")
-                    wl = w_deq.to(dt)
-                    a_dev = torch.tensor([N_BITS - 2], dtype=torch.int32, device=dev)
-                    row = {
-                        "M": M, "K": K, "N": N, "dtype": dname,
-                        "scale": "per-tensor" if groups is None else f"{groups} groups",
-                        "max_abs_err": err, "max_abs_plain": scale_,
-                        "ms": time_ms(lambda: ops.bitserial_matmul(x, pw)),
-                        # the same kernel reading its active-plane count from
-                        # the device (the dyn Pallas kernel's path)
-                        "active_ms": time_ms(lambda: ops.bitserial_matmul(
-                            x, pw, active_planes=a_dev)),
-                        "plain_ms": time_ms(lambda: ref.bitserial_matmul_ref(
-                            x, pw.planes, pw.sign, pw.scale, N_BITS), iters=3),
-                        "active_plain_ms": time_ms(lambda: ref.bitserial_matmul_ref(
-                            x, pw.planes, pw.sign, pw.scale, N_BITS, active_planes=a_dev),
-                            iters=3),
-                        "library_ms": time_ms(lambda: torch.matmul(x, wl)),
-                    }
-                    row["bound_ms"], row["bound_by"] = bound_ms(M, K, N, dname,
-                                                                groups=groups or 1)
-                    report["matmul"].append(row)
-                    print(f"[kernel] M={M} K={K} N={N} {dname} {row['scale']}: "
-                          f"max_err={err:.3e} (max|plain|={scale_:.3e}) "
-                          f"kernel {row['ms']:.4f} ms (active={N_BITS - 2} from the "
-                          f"device {row['active_ms']:.4f} ms), bound {row['bound_ms']:.4f} ms "
-                          f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-                          f"torch.matmul(dequantised) {row['library_ms']:.4f} ms "
-                          f"[{card}]", flush=True)
-    print(f"[kernel] all {len(report['matmul'])} shapes agree; active=a bitwise equal "
-          f"to truncate_packed for a in 1..{N_BITS}", flush=True)
-
+                    report["matmul"].append(bitserial_case(dev, gen, card, time_ms, M, K, N,
+                                                           groups, dt))
+    for M in GEMMA3_M:
+        for i, (K, N) in enumerate(GEMMA3_PROJ):
+            report["matmul"].append(bitserial_case(dev, gen, card, time_ms, M, K, N, None,
+                                                   torch.bfloat16, profile=i == 4))
+            torch.cuda.empty_cache()
+    # one layer's 7 projections at each main-path shape, in bf16
+    for name, M, proj in (("granite-3-2b decode", 4, LAYER_PROJ),
+                          ("gemma3-12b decode", 2, GEMMA3_PROJ),
+                          ("gemma3-12b prefill", 8192, GEMMA3_PROJ)):
+        rows = layer_rows(report, M, proj)
+        ms, lib = sum(r["ms"] for r in rows), sum(r["library_ms"] for r in rows)
+        flop = sum(2.0 * r["M"] * r["K"] * r["N"] for r in rows)
+        report.setdefault("layers", {})[name] = {
+            "ms": ms, "library_ms": lib, "bound_ms": sum(r["bound_ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows), "tflops": flop / (ms * 1e-3) / 1e12}
+        print(f"[kernel] one {name} layer (7 projections, M={M}, bf16): kernel {ms:.4f} ms, "
+              f"bound {report['layers'][name]['bound_ms']:.4f} ms, torch.matmul(dequantised) "
+              f"{lib:.4f} ms (kernel/library {ms / lib:.2f}), "
+              f"{report['layers'][name]['tflops']:.1f} TFLOP/s [{card}]", flush=True)
+    max_err = max(r["max_abs_err"] for r in report["matmul"])
+    print(f"[kernel] all {len(report['matmul'])} shapes agree; second calls bitwise equal; "
+          f"active=a bitwise equal to truncate_packed for a in 1..{N_BITS}", flush=True)
     return max_err
+
+
+def layer_rows(report, M, proj):
+    """Phase 2's bf16 per-tensor rows of one layer's projections at M."""
+    rows = {(r["M"], r["K"], r["N"], r["dtype"], r["scale"]): r for r in report["matmul"]}
+    return [rows[(M, K, N, "bfloat16", "per-tensor")] for K, N in proj]
 
 
 def granite_parity(dev, card, report):
@@ -1463,8 +1531,7 @@ def kernel_entries(report, max_err):
     path's shapes (phases 2-2d) beside its bound, its plain version and
     the library call, and its launches on the main path (phases 4-6)."""
     # one decode layer's 7 projections at the decode shape (M = 4 lanes, bf16)
-    rows = {(r["M"], r["K"], r["N"], r["dtype"], r["scale"]): r for r in report["matmul"]}
-    layer = [rows[(4, K, N, "bfloat16", "per-tensor")] for K, N in LAYER_PROJ]
+    layer = layer_rows(report, 4, LAYER_PROJ)
     lb = sum(r["bound_ms"] for r in layer)
     entry = {
         "name": "bitserial_matmul", "route": "cuda",
@@ -1478,6 +1545,7 @@ def kernel_entries(report, max_err):
         "library_ms": sum(r["library_ms"] for r in layer),
         "work": "one decode layer of granite-3-2b: its 7 projections at M=4, bf16, 6 bits",
     }
+    entry["vs_library"] = entry["ms"] / entry["library_ms"]
     # the runtime plane-count path (bitserial_matmul_pallas_dyn): the same
     # kernel reading `active` from device memory; spec decode and precision
     # tiers, which launch it, come with a later slice
@@ -1485,8 +1553,29 @@ def kernel_entries(report, max_err):
                    replaces="src/repro/kernels/bitserial_matmul.py:183",
                    launches=report["slice"]["active_launches"], ms=entry["active_ms"],
                    plain_ms=sum(r["active_plain_ms"] for r in layer),
+                   vs_library=entry["active_ms"] / entry["library_ms"],
                    work=entry["work"] + f", active={N_BITS - 2} read from the device")
     d_entry.pop("active_ms")
+    # the prefill tile (wgmma) at gemma3-12b's 2 x 4096-token bucket; its
+    # launches are the bucketed run's prefill calls (phase 4c)
+    pre = layer_rows(report, 8192, GEMMA3_PROJ)
+    pre_ms = sum(r["ms"] for r in pre)
+    pre_entry = {
+        "name": "bitserial_matmul_prefill", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
+        "replaces": "src/repro/kernels/bitserial_matmul.py:139",
+        "launches": report["gemma3"]["bucketed"]["bitserial_prefill_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in pre),
+        "ms": pre_ms, "plain_ms": sum(r["plain_ms"] for r in pre),
+        "bound_ms": sum(r["bound_ms"] for r in pre),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in pre)
+        else "bytes",
+        "library_ms": sum(r["library_ms"] for r in pre),
+        "vs_library": pre_ms / sum(r["library_ms"] for r in pre),
+        "tflops": sum(2.0 * r["M"] * r["K"] * r["N"] for r in pre) / (pre_ms * 1e-3) / 1e12,
+        "work": "one gemma3-12b layer's 7 projections at its 2 x 4096-token prefill: M=8192, "
+                "bf16, 6 bits, the wgmma tile",
+    }
     p_row = next(r for r in report["paged"] if r["dtype"] == "bfloat16" and r["window"] is None
                  and r["d"] == 64)
     p_entry = {
@@ -1559,7 +1648,7 @@ def kernel_entries(report, max_err):
         "launches_windowed": gcfg["flash_windowed"],
         "launches_granite": report["slice"]["flash_launches"],
     }
-    return [entry, d_entry, p_entry, b_entry, f_entry]
+    return [entry, d_entry, pre_entry, p_entry, b_entry, f_entry]
 
 
 def main() -> int:
@@ -1613,13 +1702,14 @@ def main() -> int:
         for line in _build.build_log[name]["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {name}: {line.strip()}")
-    # the redesigned attention kernels keep every register array in registers
-    for name in ("flash_attention", "paged_attention"):
+    # the redesigned kernels keep every register array in registers
+    for name in ("bitserial_matmul", "flash_attention", "paged_attention"):
         spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                             _build.build_log[name]["ptxas"])
         check(spills and all(s == ("0", "0") for s in spills),
               f"{name}.cu: ptxas reports spills (or nothing): {spills}")
-    print("[build] flash_attention, paged_attention: no spills in any kernel", flush=True)
+    print("[build] bitserial_matmul, flash_attention, paged_attention: no spills in any kernel",
+          flush=True)
 
     # ---------------------------------------------------- 2, 2b, 2c, 2d
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2

@@ -3,7 +3,14 @@ over a ring buffer) kinds: PyTorch port of the prefill, decode
 (contiguous, ring and paged) and chunked-prefill paths of
 ``repro.models.attention``.
 
-Scores and softmax run in f32.  Caches are updated IN PLACE (the JAX
+Scores and softmax run in f32 unless ``scores_dtype`` (the config's
+``attn_scores_dtype``) asks for bfloat16: then whole-sequence and
+chunked prefill on the plain path round the f32-summed scores to bf16
+and take the mask constant and the softmax in bf16, as JAX does.  The
+flash kernel keeps f32 scores, so ``attention(flash=True)`` raises for
+bfloat16.  Decode computes f32 scores whatever the setting, as JAX's
+decode functions do (they take no scores dtype), so the paged kernel
+agrees with the reference there.  Caches are updated IN PLACE (the JAX
 functions return new ones).  JAX drops out-of-range scatter writes
 (``mode="drop"``); PyTorch has no such mode, so the pool layouts carry a
 sentinel instead: a paged pool has one spare block past the allocator's
@@ -34,6 +41,14 @@ from .common import apply_rope, dense_apply, dense_init
 Params = Dict[str, torch.Tensor]
 
 NEG_INF = -1e30
+SCORES_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _scores_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``attn_scores_dtype``."""
+    if name not in SCORES_DTYPES:
+        raise ValueError(f"attn_scores_dtype={name!r}: want one of {sorted(SCORES_DTYPES)}")
+    return SCORES_DTYPES[name]
 
 
 def attn_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int, head_dim: int,
@@ -55,10 +70,11 @@ def _qkv(p: Params, x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int,
     return q, k, v
 
 
-def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q: (B, Sq, K, G, d); k: (B, Sk, K, d) -> (B, K, G, Sq, Sk) in f32
-    (products of the inputs summed in f32, as preferred_element_type=f32)."""
-    return torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32), k.to(torch.float32))
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """q: (B, Sq, K, G, d); k: (B, Sk, K, d) -> (B, K, G, Sq, Sk) in
+    ``dtype``: products of the inputs summed in f32, then rounded to
+    ``dtype``, as JAX's ``preferred_element_type=dtype``."""
+    return torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32), k.to(torch.float32)).to(dtype)
 
 
 def _gqa_combine(w: torch.Tensor, v: torch.Tensor, dtype) -> torch.Tensor:
@@ -68,9 +84,15 @@ def _gqa_combine(w: torch.Tensor, v: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _softmax_masked(s: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Masked softmax over the last axis in the dtype of ``s``.  Below f32
+    it runs op by op as ``jax.nn.softmax`` does, each op rounded to that
+    dtype: exp of the max-shifted scores, their sum, the quotient."""
     s = torch.where(valid, s, torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
     s = s - torch.amax(s, dim=-1, keepdim=True)
-    return torch.softmax(s, dim=-1)
+    if s.dtype == torch.float32:
+        return torch.softmax(s, dim=-1)
+    e = torch.exp(s)
+    return e / e.sum(dim=-1, keepdim=True)
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
@@ -115,6 +137,7 @@ def attention(
     q_chunk: int = 1024,
     active_planes=None,
     flash: bool = False,
+    scores_dtype="float32",
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Causal (``window``: sliding-window) self-attention for prefill and
     training: query ``i`` attends keys ``j <= i`` with ``i - j < window``.
@@ -125,7 +148,17 @@ def attention(
     ``q_chunk`` through plain PyTorch; ``flash=True`` (serving prefill,
     ``transformer.prefill``) runs the whole sequence through
     ``kernels.ops.flash_attention`` and raises for inputs that require
-    grad.  Both check ``S % q_chunk``, as the JAX function does."""
+    grad.  Both check ``S % q_chunk``, as the JAX function does.
+
+    ``scores_dtype`` (``cfg.attn_scores_dtype``) sets the dtype of
+    the plain path's scores, mask constant and softmax; the flash kernel
+    keeps f32 scores and so raises for ``"bfloat16"``."""
+    sdt = _scores_dtype(scores_dtype)
+    if flash and sdt != torch.float32:
+        raise ValueError(
+            f"attn_scores_dtype={scores_dtype!r}: the flash kernel computes its scores "
+            "and softmax in float32; serve with attn_scores_dtype='float32', or run this "
+            "prefill on the plain path (flash=False, or chunked prefill)")
     B, S, _ = x.shape
     G = n_heads // n_kv
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, active_planes)
@@ -143,7 +176,7 @@ def attention(
     for q0 in range(0, S, q_chunk):
         qc = q[:, q0:q0 + q_chunk]
         qpos = q0 + torch.arange(qc.shape[1], device=x.device)
-        s = _gqa_scores(qc, k)
+        s = _gqa_scores(qc, k, sdt)
         w = _softmax_masked(s, _mask(qpos, kpos, window)[None, None, None])
         outs.append(_gqa_combine(w, v, x.dtype))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
@@ -301,7 +334,8 @@ def decode_attention(
     return dense_apply(out, p["wo"], active_planes)
 
 
-def _ring_chunk_attend(qs, k, v, cache_k, cache_v, start, qpos, n_valid, window, dtype):
+def _ring_chunk_attend(qs, k, v, cache_k, cache_v, start, qpos, n_valid, window, dtype,
+                       sdt=torch.float32):
     """The ring branch of :func:`prefill_chunk_attention`: attend, then
     rebuild the ring IN PLACE.  ``qs`` (B, C, K, G, d) scaled; ``k``/``v``
     (B, C, K, d) post-RoPE; returns (B, C, K*G*d)."""
@@ -319,7 +353,7 @@ def _ring_chunk_attend(qs, k, v, cache_k, cache_v, start, qpos, n_valid, window,
     m2 = (r >= 0)[:, None, :].expand(B, C, Wc)
     if window is not None:
         m2 = m2 & ((qpos[:, :, None] - r[:, None, :]) < window)
-    s = torch.cat([_gqa_scores(qs, k), _gqa_scores(qs, cache_k.to(dtype))], dim=-1)
+    s = torch.cat([_gqa_scores(qs, k, sdt), _gqa_scores(qs, cache_k.to(dtype), sdt)], dim=-1)
     w = _softmax_masked(s, torch.cat([m1, m2], dim=-1)[:, None, None])
     out = _gqa_combine(w, torch.cat([v, cache_v.to(dtype)], dim=1), dtype)
     # rebuild: slot s's occupant is the latest real chunk position
@@ -350,6 +384,7 @@ def prefill_chunk_attention(
     ring: bool = False,
     block_table: Optional[torch.Tensor] = None,
     active_planes=None,
+    scores_dtype="float32",
 ) -> torch.Tensor:
     """Chunked prefill: C prompt-token queries per lane against the lane's
     own rows of the pooled cache, which is UPDATED IN PLACE.
@@ -377,9 +412,11 @@ def prefill_chunk_attention(
     the latest real chunk position congruent to it, else keeps its
     content (deterministic where a scatter with duplicate slots is not).
     Idle lanes (``n_valid = 0``) leave their ring as it is.  Returns the
-    attention output (B, C, D)."""
+    attention output (B, C, D).  ``scores_dtype`` sets the dtype of
+    the scores, mask constant and softmax, as in :func:`attention`."""
     if window is not None and not ring:
         raise ValueError("a window needs a ring buffer (ring=True)")
+    sdt = _scores_dtype(scores_dtype)
     B, C, _ = x.shape
     G = n_heads // n_kv
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, active_planes)
@@ -393,7 +430,8 @@ def prefill_chunk_attention(
     if ring:
         return dense_apply(
             _ring_chunk_attend(qs, k, v, cache_k, cache_v, start, qpos,
-                               n_valid.to(device=dev, dtype=torch.int64), window, x.dtype),
+                               n_valid.to(device=dev, dtype=torch.int64), window, x.dtype,
+                               sdt),
             p["wo"], active_planes)
     if block_table is not None:
         nb, bs = cache_k.shape[0] - 1, cache_k.shape[1]
@@ -412,7 +450,7 @@ def prefill_chunk_attention(
         cache_k[bidx, rows] = k.to(cache_k.dtype)
         cache_v[bidx, rows] = v.to(cache_v.dtype)
         keys, vals = cache_k, cache_v
-    s = _gqa_scores(qs, keys.to(x.dtype))  # (B, K, G, C, Smax)
+    s = _gqa_scores(qs, keys.to(x.dtype), sdt)  # (B, K, G, C, Smax)
     kpos = torch.arange(keys.shape[1], device=dev)
     valid = kpos[None, None, :] <= qpos[:, :, None]  # (B, C, Smax)
     w = _softmax_masked(s, valid[:, None, None])

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.packing import PackedWeight
+from ..core.ste import relu6_act_quantize
 from ..kernels import ops
 
 Params = Dict[str, torch.Tensor]
@@ -106,10 +107,9 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, kind: str, device) -> Para
 
 def mlp_apply(p: Params, x: torch.Tensor, kind: str, act_bits: int = 32,
               active_planes=None) -> torch.Tensor:
-    if act_bits < 32:
-        raise NotImplementedError(
-            "activation quantisation (act_bits < 32) comes with the BSQ "
-            "training slice of the port")
+    """``act_bits < 32`` quantises the hidden activation (ReLU6, then
+    ``act_bits`` uniform levels) before ``w_down``, as JAX does."""
+    dt = x.dtype
     if kind in ("swiglu", "geglu"):
         g = dense_apply(x, p["w_gate"], active_planes)
         u = dense_apply(x, p["w_up"], active_planes)
@@ -118,6 +118,8 @@ def mlp_apply(p: Params, x: torch.Tensor, kind: str, act_bits: int = 32,
         h = F.gelu(dense_apply(x, p["w_up"], active_planes), approximate="tanh")
     else:
         h = F.relu(dense_apply(x, p["w_up"], active_planes))
+    if act_bits < 32:
+        h = relu6_act_quantize(h, act_bits).to(dt)
     return dense_apply(h, p["w_down"], active_planes)
 
 

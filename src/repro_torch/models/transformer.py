@@ -174,6 +174,7 @@ def _apply_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
         p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
         window=_window(cfg, kind), active_planes=active_planes, flash=flash,
+        scores_dtype=cfg.attn_scores_dtype,
     )
     return _mlp_residual(p, x + out, cfg, active_planes), kv
 
@@ -352,6 +353,7 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tens
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             window=_window(cfg, kind), ring=kind == "local",
             block_table=None if kind == "local" else block_table, active_planes=active_planes,
+            scores_dtype=cfg.attn_scores_dtype,
         )
         x = _mlp_residual(p, x + out, cfg, active_planes)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

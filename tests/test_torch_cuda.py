@@ -63,6 +63,15 @@ def _packed(M, K, N, n_bits, groups, seed, dev):
 @pytest.mark.parametrize("M,K,N,n_bits,groups", [
     (4, 256, 384, 6, 4), (1, 64, 128, 8, None), (72, 512, 256, 3, None),
     (130, 200, 132, 1, 33), (8, 2048, 512, 6, None),
+    # decode (split K over blocks) at M 1 and 2; the large-M tiles at M 9,
+    # 64, 129 (8 planes: the wide unpacking) and 1024
+    (1, 2048, 2048, 6, None), (2, 2048, 8192, 6, 16), (9, 512, 384, 6, None),
+    (64, 1024, 2048, 6, None), (129, 512, 256, 8, None), (1024, 2048, 2048, 6, 16),
+    # gemma3-12b's projections at decode (M 2) and one at prefill
+    (2, 3840, 4096, 6, None), (2, 3840, 2048, 6, None), (2, 4096, 3840, 6, None),
+    (2, 3840, 15360, 6, None), (2, 15360, 3840, 6, None), (1024, 3840, 15360, 6, None),
+    # K 200 (25 byte-rows: a partial K step) with ragged N
+    (4, 200, 136, 6, None), (64, 200, 144, 6, None),
 ])
 def test_kernel_matches_plain_version_and_active_is_truncate(cuda, M, K, N, n_bits, groups,
                                                              dtype):
@@ -78,6 +87,19 @@ def test_kernel_matches_plain_version_and_active_is_truncate(cuda, M, K, N, n_bi
         static = tops.bitserial_matmul(x, tpack.truncate_packed(pw, a))
         assert torch.equal(dyn.view(iview), static.view(iview)), a
     assert torch.equal(tops.bitserial_matmul(x, pw), tops.bitserial_matmul(x, pw))
+
+
+def test_kernel_paths(cuda):
+    """Decode takes the split-K kernel, bf16 at large M the wgmma tile;
+    f32, and shapes the wgmma tile does not take, the SIMT tile."""
+    for M, K, N, dtype, path in [(4, 2048, 2048, torch.bfloat16, "splitk"),
+                                 (8, 256, 132, torch.float32, "splitk"),
+                                 (512, 2048, 2048, torch.bfloat16, "wgmma"),
+                                 (130, 200, 144, torch.bfloat16, "wgmma"),
+                                 (512, 2048, 2048, torch.float32, "tiled"),
+                                 (130, 200, 132, torch.bfloat16, "tiled")]:
+        pw, x = _packed(M, K, N, 6, None, seed=1, dev=cuda)
+        assert tkern.kernel_path(x.to(dtype), pw.planes, pw.sign) == path, (M, K, N, dtype)
 
 
 def test_stacked_layer_slices_and_launch_count(cuda):

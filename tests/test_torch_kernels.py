@@ -2,6 +2,8 @@
 package's (jnp reference and interpret-mode Pallas), the active-plane
 invariant and the wrapper's checks.  The CUDA kernel itself is tested
 on the card by tests/test_torch_cuda.py."""
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,3 +82,46 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         tkern.bitserial_matmul_cuda(torch.from_numpy(x), pw.planes, pw.sign, pw.scale, 6, 64)
     assert tkern.launches == 0
+
+
+# (M, K, N): granite-3-2b's and gemma3-12b's projections at decode, and
+# ragged shapes
+SPLIT_SHAPES = [(4, 2048, 2048), (4, 2048, 512), (4, 2048, 8192), (4, 8192, 2048),
+                (2, 3840, 4096), (2, 3840, 2048), (2, 4096, 3840), (2, 3840, 15360),
+                (2, 15360, 3840), (8, 15360, 3840), (1, 64, 128), (3, 200, 132), (8, 8, 4)]
+
+
+@pytest.mark.parametrize("M,K,N", SPLIT_SHAPES)
+def test_split_plan_tiles_k(M, K, N):
+    """The decode kernel's grid follows ``split_plan``: the splits tile the
+    byte-rows [0, K8) with no gap, no overlap and no empty split, and are
+    few enough to form one thread block cluster."""
+    K8 = -(-K // 8)
+    n_split, rows = tkern.split_plan(M, K8, N)
+    spans = [(s * rows, min((s + 1) * rows, K8)) for s in range(n_split)]
+    assert all(lo < hi for lo, hi in spans)
+    starts, ends = [lo for lo, _ in spans], [hi for _, hi in spans]
+    assert starts == [0] + ends[:-1] and ends[-1] == K8
+    assert 1 <= n_split <= tkern.MAX_SPLITS
+
+
+def test_split_plan_depends_on_the_shape_alone():
+    """No runtime operand reaches the plan (so a call with ``active`` sums
+    in the order of the static call of the same shape): its inputs are M,
+    K8 and N.  On the main path's projections the grid of column blocks
+    (128 columns, 64 at M > 4) stays within one wave of 264 blocks (two
+    per SM) and every thread of a split gets the same whole number of
+    byte-rows."""
+    assert list(inspect.signature(tkern.split_plan).parameters) == ["M", "K8", "N"]
+    for M, K, N in SPLIT_SHAPES[:10]:
+        n_split, rows = tkern.split_plan(M, K // 8, N)
+        cols = tkern.SPLIT_COLS if M <= 4 else tkern.SPLIT_COLS // 2
+        assert n_split * -(-N // cols) <= tkern.SPLIT_TARGET_BLOCKS, (M, K, N)
+        assert rows % tkern.SPLIT_K_THREADS == 0, (M, K, N)
+    assert tkern.split_plan(4, 256, 2048) == (16, 16)  # granite-3-2b's q and o
+    assert tkern.split_plan(4, 256, 8192) == (4, 64)  # granite-3-2b's gate and up
+    assert tkern.split_plan(8, 256, 8192) == (2, 128)  # ... at 8 lanes
+    assert tkern.split_plan(2, 1920, 3840) == (8, 240)  # gemma3-12b's down projection
+    body = inspect.getsource(tkern.bitserial_matmul_cuda)
+    for host_read in (".item(", ".tolist(", ".cpu(", "int(active", ".numpy("):
+        assert host_read not in body, host_read
