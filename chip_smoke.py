@@ -17,11 +17,16 @@ failure exits non-zero and none is caught:
    bf16 at decode, M 2, and at its 2 x 4096-token prefill, M 8192), check
    a second call bitwise equal, ``active=a`` bitwise against
    ``truncate_packed`` for every a, and that decode runs the split-K
-   kernel and bf16 prefill the wgmma tile (the profiler names both once),
+   kernel and bf16 prefill the wgmma tile (the profiler names both; a
+   profiler session whose trace holds no device event is taken again),
    and time the kernel, the plain version and ``torch.matmul`` against
    the dequantised weight (a yardstick only; the port never calls it),
    with each prefill row's TFLOP/s and share of the bf16 peak, and each
-   layer's 7 projections summed;
+   layer's 7 projections summed; then the runtime plane count (a device
+   tensor) at the M of the policies' serving path (8 lanes, the verify's
+   8 x 4 rows, and 40) on granite-3-2b's projections, f32 and bf16,
+   bitwise against the static kernel over ``truncate_packed`` at the same
+   M for every a, timed beside it;
 2b. hold the paged-attention kernel against its plain version at the
    continuous slices' shapes (granite-3-2b's d 64, G 4: f32, bf16, one
    windowed case; gemma3-12b's global layers, d 256, G 2: f32, bf16;
@@ -56,6 +61,12 @@ failure exits non-zero and none is caught:
    engine (a 2048-token prompt wraps every ring in prefill, a 1020-token
    one wraps it in decode) and the chunked paged-kernel engine: every
    logit row within the phase-3 tolerance, identical greedy tokens;
+3e. the phase-3 model (2 layers, f32) through the continuous paged-kernel
+   engine with the scheduler policies, card against CPU: precision tiers
+   with a forced degrade schedule, spec decode, and overcommit that
+   preempts; identical tokens, plane logs and counts, the card's replay
+   of each plane log equal to its tokens, spec tokens equal to a
+   non-speculative run's, the host syncs of each spec round counted;
 4. full-width 40-layer granite-3-2b, bf16, 6-bit packed, served by the
    bucketed ServeEngine (8 requests, two buckets, 32 tokens each), with
    the bitserial and flash launch counts checked exactly;
@@ -63,6 +74,14 @@ failure exits non-zero and none is caught:
    ``ServeEngine(continuous=True, paged=True, paged_kernel=True)`` (8
    lanes, 64 blocks of 32 rows), 16 requests on Poisson arrivals, with
    the kernels' launch counts checked exactly and the pool drained;
+4d. the policies' slice: the same model, traffic and engine on 40 blocks
+   overcommitted 1.5x: the quality probe at 1..6 planes and its tier
+   table, then half the requests "economy" with the degrade loop (it
+   must preempt and shed or restore), then spec decode (3 draft planes,
+   gamma 4; it must accept a draft), the runtime-plane launches checked
+   exactly against the scheduler's own count of calls that passed a
+   plane count, TTFT, decode ms per step, tokens/s and the bf16
+   agreement of the replay and of spec with phase 4b's tokens printed;
 5. ``torch.profiler`` over a few decode steps of one bucket, and over a
    short continuous run: device busy time, idle share and the device
    ops by time;
@@ -84,9 +103,10 @@ failure exits non-zero and none is caught:
    a profile of two train steps, and 4 requests served from the
    exported packed weights through the bitserial and flash kernels;
 7. a ``{"kernels": [...]}`` line (the bitserial decode and prefill
-   entries, flash and paged also carry ``vs_library``, their time over
-   the library call's: below 1 beats it), the card's name and power
-   limit, and the final ``{"ok": true, ...}`` line.
+   entries, the runtime-plane entry with phase 4d's launches, flash and
+   paged also carry ``vs_library``, their time over the library call's:
+   below 1 beats it), the card's name and power limit, and the final
+   ``{"ok": true, ...}`` line.
 
 Exits non-zero without a CUDA device, and when the repo's ``src`` is not
 beside it.  The per-shape table goes to ``chiprun_out/chip_smoke.json``.
@@ -120,6 +140,11 @@ PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PAGED_REPEATS = 5  # time_ms runs whose median times a paged call
 # the continuous slice (phase 4b): 8 lanes, 64 blocks of 32 rows
 SLOTS, BLOCK, N_BLOCKS, MAX_LEN = 8, 32, 64, 512
+# the policies' slice (phase 4d): 40 blocks overcommitted 1.5x; draft
+# steps at 3 of 6 planes, up to 4 a round; the runtime-plane kernel's M
+# values on that path (phase 2): 8 lanes, the verify chunk 8 x 4, and 40
+P_BLOCKS, P_OVERCOMMIT, DRAFT_PLANES, GAMMA = 40, 1.5, 3, 4
+ACTIVE_M = (SLOTS, SLOTS * GAMMA, 40)
 # gemma3-12b's continuous run (phase 4c): 8 lanes, 512 blocks of 32 rows,
 # prompts up to 3072 tokens and 32 new ones
 G_MAX_LEN, G_N_BLOCKS = 3104, 512
@@ -237,6 +262,28 @@ def device_ms_by_name(prof):
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
     return by_name
+
+
+def profiled_kernel_names(fn, calls=3, sessions=4):
+    """The names of the device kernels that ``calls`` calls of ``fn`` run,
+    from torch.profiler, and the number of profiler sessions it took.  A
+    session whose trace holds no device event at all (CUPTI delivered
+    none; the calls ran, since the synchronize inside raised nothing) is
+    taken again, up to ``sessions`` times; a trace with device events is
+    final, whatever kernels it names."""
+    import torch
+
+    for n in range(1, sessions + 1):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted(device_ms_by_name(prof))
+        if names:
+            break
+        print(f"[profile] session {n} of {sessions} saw no device events; profiling again",
+              flush=True)
+    return names, n
 
 
 def paged_kernel_phase(dev, card, time_ms, median_ms):
@@ -870,6 +917,7 @@ def continuous_slice(params, cfg, dev, card, engine_cls):
         "kv_unpaged_bytes": unpaged,
         "admit_blocked_total": sched._c_blocked.value,
         "paged_launches": pa.launches, "bitserial_launches": bsm.launches,
+        "result_tokens": {r.uid: r.tokens.tolist() for r in results},
     }
     print(f"[continuous] {n_req} requests x {max_new} tokens, prompts {lens.min()}-"
           f"{lens.max()}, Poisson arrivals at 0.5/step over {arrivals[-1]} steps: "
@@ -885,6 +933,297 @@ def continuous_slice(params, cfg, dev, card, engine_cls):
           f"{cfg.n_layers}; bitserial launches {bsm.launches} == ({steps} + {chunks}) x "
           f"{cfg.n_layers} x 7; pool drained [{card}]", flush=True)
     return engine, reqs, rep
+
+
+def _count_syncs_per_round(sched):
+    """Wrap ``sched._spec_round`` so that each round counts the host syncs
+    it makes (``torch.cuda.set_sync_debug_mode`` warns at every one: a
+    device-to-host read, a blocking host-to-device copy).  A measurement
+    hook of this script; returns the list the counts land in."""
+    import warnings
+
+    import torch
+
+    counts = []
+    inner = sched._spec_round
+
+    def counted(queue, now):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                inner(queue, now)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts.append(sum("synchroniz" in str(w.message) for w in seen))
+
+    sched._spec_round = counted
+    return counts
+
+
+def policies_parity(dev, card):
+    """Phase 3e: full-width granite-3-2b cut to 2 layers, f32, 6-bit
+    packed, through the continuous paged-kernel engine on the card
+    (kernels) and on the CPU (plain path), 3 lanes, 3 requests of 12
+    prompt tokens and 6 new ones, in three runs: (a) tiers {"economy": 4}
+    (uid 1 economy) with degrade on a forced shed-and-restore schedule;
+    (b) spec decode (3 draft planes, gamma 4) on a tiered engine, every
+    request "full", so its verify passes the plane count too; (c)
+    overcommit 2.0 on 5 blocks of 8 rows, tiers {"economy": 5} (uid 2
+    economy), which must preempt.  Each run: identical tokens, plane
+    logs, preemptions, spec and degrade counts on the card and the CPU,
+    the pool drained on both, the card's static-truncation replay of
+    each plane log equal to its tokens, and one runtime-plane launch per
+    packed projection of each call that passed a plane count; (b)'s
+    tokens equal a non-speculative run's on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import tree_to
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.models import transformer
+    from repro_torch.obs.quality import replay_plane_log
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.scheduler import SchedulerPolicy
+
+    cfg2 = get_config("granite-3-2b").scaled(n_layers=2, dtype="float32",
+                                             kv_cache_dtype="float32")
+    p_gpu = transformer.init_params(cfg2, torch.Generator(device=dev).manual_seed(1), dev,
+                                    pack_bits=N_BITS)
+    p_cpu = tree_to(p_gpu, "cpu")
+    task = MarkovLM(vocab=cfg2.vocab_size, seed=3)
+    prompts = [task.sample(np.random.default_rng(20 + i), 1, 12)[0].astype(np.int32)
+               for i in range(3)]
+    max_len = 32
+
+    def reqs(precision):
+        return [Request(uid=i, tokens=p, max_new=6, tier="latency" if i == 0 else "throughput",
+                        precision=precision(i)) for i, p in enumerate(prompts)]
+
+    base = dict(n_slots=3, chunked_prefill=True, chunk_sizes=(16,), paged=True, block_size=8,
+                paged_kernel=True)
+    runs = {
+        "a-tiers-degrade": (dict(precision_tiers={"economy": 4}, degrade=True),
+                            lambda i: "economy" if i == 1 else "full",
+                            lambda step: step % 3),
+        "b-spec": (dict(spec_decode=True, draft_planes=DRAFT_PLANES, gamma=GAMMA,
+                        precision_tiers={"economy": 4}), lambda i: "full", None),
+        "c-overcommit": (dict(n_blocks=5, overcommit=2.0, precision_tiers={"economy": 5}),
+                         lambda i: "economy" if i == 2 else "full", None),
+    }
+    rep = {}
+    for name, (kw, precision, force) in runs.items():
+        got = {}
+        for side, params, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, torch.device("cpu"))):
+            eng = ServeEngine(params, cfg2, max_len=max_len, device=d, continuous=True,
+                              policy=SchedulerPolicy(**base, **kw))
+            sched = eng.scheduler
+            sched.force_shed = force
+            syncs = (_count_syncs_per_round(sched) if side == "cuda" and kw.get("spec_decode")
+                     else None)
+            bsm.reset_launches()
+            t0 = time.perf_counter()
+            res = {r.uid: r for r in eng.generate(reqs(precision))}
+            if side == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            pool = sched.pool
+            check(sorted(res) == [0, 1, 2], f"3e {name} {side}: results {sorted(res)}")
+            check(pool.allocator.free_count == pool.n_blocks and pool.allocator.committed == 0
+                  and eng.obs.recorder.leaked == [], f"3e {name} {side}: the pool did not drain")
+            got[side] = {
+                "tokens": {u: r.tokens.tolist() for u, r in res.items()},
+                "plane_log": {u: r.plane_log.tolist() for u, r in res.items()},
+                "preemptions": sched.preemptions_total(),
+                "spec": [sched.spec_rounds, sched.spec_drafted, sched.spec_accepted],
+                "degrade": [sched.degrade_sheds, sched.degrade_restores],
+                "plane_dispatches": sched.plane_dispatches()}
+            if side == "cuda":
+                check(bsm.active_launches == 7 * cfg2.n_layers * sched.plane_dispatches() > 0,
+                      f"3e {name}: {bsm.active_launches} runtime-plane launches, expected 7 x "
+                      f"{cfg2.n_layers} x {sched.plane_dispatches()}")
+                got["cuda_s"], got["active_launches"] = secs, bsm.active_launches
+                if syncs is not None:
+                    got["syncs_per_round"] = syncs
+                for u, r in res.items():
+                    replay = replay_plane_log(p_gpu, cfg2, prompts[u], r.plane_log, max_len)
+                    check(replay.tolist() == r.tokens.tolist(),
+                          f"3e {name}: the card's replay of uid {u}'s plane log "
+                          f"{r.plane_log.tolist()} gives {replay.tolist()}, served "
+                          f"{r.tokens.tolist()}")
+            else:
+                got["cpu_s"] = secs
+        check(got["cuda"] == got["cpu"], f"3e {name}: card {got['cuda']} != cpu {got['cpu']}")
+        rep[name] = got
+        print(f"[policies-parity] {name}: card == cpu (tokens, plane logs, preemptions "
+              f"{got['cuda']['preemptions']}, spec rounds/drafted/accepted "
+              f"{got['cuda']['spec']}, sheds/restores {got['cuda']['degrade']}); replay == "
+              f"served on the card; {got['active_launches']} runtime-plane launches == 7 x "
+              f"{cfg2.n_layers} x {got['cuda']['plane_dispatches']}; card {got['cuda_s']:.1f} "
+              f"s, cpu {got['cpu_s']:.1f} s [{card}]", flush=True)
+    check(rep["a-tiers-degrade"]["cuda"]["degrade"][0] > 0
+          and rep["a-tiers-degrade"]["cuda"]["degrade"][1] > 0, "3e (a): no shed and restore")
+    check(rep["b-spec"]["cuda"]["spec"][2] > 0, "3e (b): no draft accepted")
+    check(rep["c-overcommit"]["cuda"]["preemptions"] > 0, "3e (c): never preempted")
+    plain = ServeEngine(p_gpu, cfg2, max_len=max_len, device=dev, continuous=True,
+                        policy=SchedulerPolicy(**base))
+    plain_toks = {r.uid: r.tokens.tolist() for r in plain.generate(reqs(lambda i: "full"))}
+    check(plain_toks == rep["b-spec"]["cuda"]["tokens"],
+          f"3e (b): spec tokens {rep['b-spec']['cuda']['tokens']} != non-spec {plain_toks}")
+    syncs = rep["b-spec"]["syncs_per_round"]
+    print(f"[policies-parity] (b) spec tokens == non-speculative tokens on the card; host "
+          f"syncs per spec round {syncs} (min {min(syncs)}, max {max(syncs)}) [{card}]",
+          flush=True)
+    return rep
+
+
+def policies_slice(params, cfg, dev, card, engine_cls, ref_tokens):
+    """Phase 4d: full-width 40-layer granite-3-2b, bf16, 6-bit packed,
+    through the continuous paged-kernel engine (8 lanes, 40 blocks of 32
+    rows overcommitted 1.5x) on phase 4b's traffic: 16 requests, prompts
+    uniform in [16, 300], Poisson arrivals at 0.5 per step, 32 new tokens
+    each.  First ``quality_probe`` at 1..6 planes on a 4 x 128-token batch
+    and ``precision_tiers_from_probe({"economy": 0.9})``; then the odd
+    uids served as "economy" with that table and the degrade loop; then
+    every request again with spec decode (3 draft planes, gamma 4).
+    Launch counts checked exactly; bf16 agreement shares reported."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import poisson_arrivals
+    from repro_torch.obs.metrics import percentile
+    from repro_torch.obs.quality import precision_tiers_from_probe, quality_probe, \
+        replay_plane_log
+    from repro_torch.serve import Request
+
+    n_req, max_new = 16, 32
+    lens = np.random.default_rng(0).integers(16, 301, size=n_req)
+    task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+    toks = [task.sample(np.random.default_rng(i), 1, 300)[0, :n].astype(np.int32)
+            for i, n in enumerate(lens)]
+    arrivals = poisson_arrivals(n_req, 0.5, seed=0)
+    probe_toks = task.sample(np.random.default_rng(99), 4, 128)[:, :128].astype(np.int32)
+    t0 = time.perf_counter()
+    rows = quality_probe(params, cfg, probe_toks, plane_counts=range(1, N_BITS + 1))
+    tiers = precision_tiers_from_probe(rows, {"economy": 0.9})
+    probe_s = time.perf_counter() - t0
+    for r in rows:
+        print(f"[policies] quality probe, {r.planes} planes: logit MSE {r.logit_mse:.6e}, "
+              f"top-1 agreement {r.top1_agreement:.4f} (4 x 128 tokens) [{card}]")
+    print(f"[policies] precision_tiers_from_probe({{'economy': 0.9}}) = {tiers}; probe "
+          f"{probe_s:.1f} s", flush=True)
+    rep = {"probe": [r.to_dict() for r in rows], "tiers": tiers, "probe_s": probe_s}
+    runs = {
+        "tiers": (dict(precision_tiers=tiers, degrade=True),
+                  lambda i: "economy" if i % 2 else "full"),
+        "spec": (dict(spec_decode=True, draft_planes=DRAFT_PLANES, gamma=GAMMA),
+                 lambda i: "full"),
+    }
+    for name, (kw, precision) in runs.items():
+        reqs = [Request(uid=i, tokens=t, max_new=max_new, precision=precision(i))
+                for i, t in enumerate(toks)]
+        engine = engine_cls(params, cfg, max_len=MAX_LEN, device=dev, continuous=True,
+                            n_slots=SLOTS, paged=True, block_size=BLOCK, n_blocks=P_BLOCKS,
+                            paged_kernel=True, overcommit=P_OVERCOMMIT, **kw)
+        sched, pool = engine.scheduler, engine.scheduler.pool
+        engine.generate([Request(uid=100, tokens=toks[0][:16], max_new=6)])  # warm-up
+        torch.cuda.synchronize()
+        sched.reset_telemetry()
+        torch.cuda.reset_peak_memory_stats()
+        engine.bad = None
+        bsm.reset_launches()
+        pa.reset_launches()
+        t0 = time.perf_counter()
+        results = engine.generate(reqs, arrival_steps=arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = {r.uid: r for r in results}
+        check(sorted(got) == list(range(n_req)), f"4d {name}: results for {sorted(got)}")
+        for r in results:
+            check(len(r.tokens) == max_new
+                  and ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all(),
+                  f"4d {name} uid {r.uid}: {len(r.tokens)} tokens, or one outside the vocab")
+        check(int(engine.bad.item()) == 0, f"4d {name}: {int(engine.bad.item())} non-finite "
+                                          "logits")
+        check(pool.allocator.free_count == pool.n_blocks and pool.allocator.committed == 0,
+              f"4d {name}: blocks leaked")
+        check(engine.obs.recorder.leaked == [], f"4d {name}: leaked spans")
+        per = 7 * cfg.n_layers  # packed projections per model call (the head is float)
+        planes = sched.plane_dispatches()
+        check(bsm.active_launches == per * planes > 0,
+              f"4d {name}: {bsm.active_launches} runtime-plane launches, expected {per} x "
+              f"{planes} (tiered dispatches {sched.tier_dispatches}, draft steps "
+              f"{sched.draft_steps}, tiered verifies {sched.tier_verifies})")
+        # every model call: tiered decode dispatches or draft steps (paged
+        # decode), untiered verify chunks and prefill chunks (static)
+        decode_calls = sched.tier_dispatches + sched.draft_steps
+        static_calls = sched.prefill_chunks + (sched.spec_rounds - sched.tier_verifies)
+        check(pa.launches == decode_calls * cfg.n_layers,
+              f"4d {name}: {pa.launches} paged launches, expected {decode_calls} x "
+              f"{cfg.n_layers}")
+        check(bsm.launches == per * (planes + static_calls),
+              f"4d {name}: {bsm.launches} bitserial launches, expected {per} x ({planes} + "
+              f"{static_calls})")
+        ttft = [got[i].prefill_ms for i in range(n_req)]
+        steps = sched.decode_steps
+        r = {"wall_s": wall, "tokens_per_s": n_req * max_new / wall,
+             "ttft_ms_p50": percentile(ttft, 50), "ttft_ms_p90": percentile(ttft, 90),
+             "decode_steps": steps, "decode_ms_per_step": sched.decode_ms_total / max(steps, 1),
+             "prefill_chunks": sched.prefill_chunks, "preemptions": sched.preemptions_total(),
+             "peak_bytes": peak, "bitserial_launches": bsm.launches,
+             "active_launches": bsm.active_launches, "paged_launches": pa.launches,
+             "tier_dispatches": sched.tier_dispatches, "draft_steps": sched.draft_steps,
+             "spec_rounds": sched.spec_rounds, "spec_drafted": sched.spec_drafted,
+             "spec_accepted": sched.spec_accepted, "sheds": sched.degrade_sheds,
+             "restores": sched.degrade_restores}
+        if name == "tiers":
+            check(r["preemptions"] > 0, "4d tiers: never preempted")
+            check(sched.degrade_events_total() > 0, "4d tiers: no degrade transition")
+            by_tier = {}
+            for u, res in got.items():
+                by_tier.setdefault(precision(u), []).extend(res.plane_log[1:].tolist())
+            r["mean_decode_planes"] = {t: float(np.mean(v)) for t, v in by_tier.items()}
+            # the bf16 replay (M 1, contiguous cache) of four lanes' plane logs
+            agree = total = 0
+            for u in range(4):
+                replay = replay_plane_log(params, cfg, toks[u], got[u].plane_log, MAX_LEN)
+                agree += int((replay == got[u].tokens).sum())
+                total += len(replay)
+            r["replay_agreement"] = agree / total
+            extra = (f"degrade sheds {r['sheds']} restores {r['restores']}; mean decode planes "
+                     f"per tier {r['mean_decode_planes']}; tiered dispatches "
+                     f"{r['tier_dispatches']}; bf16 replay agreement (uids 0-3) "
+                     f"{agree}/{total} = {r['replay_agreement']:.4f}")
+        else:
+            check(r["spec_accepted"] > 0, "4d spec: no draft accepted")
+            same = sum(int((got[u].tokens == np.asarray(ref_tokens[u])).sum())
+                       for u in range(n_req))
+            r["spec_vs_plain_agreement"] = same / (n_req * max_new)
+            r["accept_rate"] = sched.spec_accept_rate()
+            extra = (f"spec rounds {r['spec_rounds']}, draft steps {r['draft_steps']}, "
+                     f"drafted {r['spec_drafted']}, accepted {r['spec_accepted']} (rate "
+                     f"{r['accept_rate']:.4f}); bf16 agreement with phase 4b's non-spec tokens "
+                     f"{same}/{n_req * max_new} = {r['spec_vs_plain_agreement']:.4f}")
+        rep[name] = r
+        print(f"[policies] {name}: {n_req} requests x {max_new} tokens in {wall:.3f} s = "
+              f"{r['tokens_per_s']:.1f} tok/s; TTFT p50 {r['ttft_ms_p50']:.2f} ms, p90 "
+              f"{r['ttft_ms_p90']:.2f} ms; decode {r['decode_ms_per_step']:.3f} ms per step "
+              f"({steps} steps), {r['prefill_chunks']} prefill chunks; preemptions "
+              f"{r['preemptions']}; peak memory {peak / 1e9:.3f} GB; runtime-plane launches "
+              f"{r['active_launches']} == {per} x {planes}; paged launches "
+              f"{r['paged_launches']} == {decode_calls} x {cfg.n_layers}; bitserial launches "
+              f"{r['bitserial_launches']} == {per} x ({planes} + {static_calls}); {extra} "
+              f"[{card}]", flush=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rep
 
 
 def profile_continuous(engine, reqs, card):
@@ -1306,7 +1645,8 @@ def bitserial_case(dev, gen, card, time_ms, M, K, N, groups, dt, profile=False):
     check(torch.equal(got, ops.bitserial_matmul(x, pw)), f"{what}: a second call differs")
     iview = torch.int32 if dt == torch.float32 else torch.int16
     for a in range(1, N_BITS + 1):
-        dyn = ops.bitserial_matmul(x, pw, active_planes=a)
+        dyn = ops.bitserial_matmul(x, pw, active_planes=torch.tensor([a], dtype=torch.int32,
+                                                                     device=dev))
         static = ops.bitserial_matmul(x, truncate_packed(pw, a))
         check(torch.equal(dyn.view(iview), static.view(iview)),
               f"active={a} != truncate_packed at {what}")
@@ -1336,12 +1676,11 @@ def bitserial_case(dev, gen, card, time_ms, M, K, N, groups, dt, profile=False):
     row["of_bound"] = row["bound_ms"] / row["ms"]
     row["tflops"] = 2.0 * M * K * N / (row["ms"] * 1e-3) / 1e12
     if profile:
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            ops.bitserial_matmul(x, pw)
-            torch.cuda.synchronize()
-        row["device_kernels"] = sorted(device_ms_by_name(prof))
+        row["device_kernels"], row["profiler_sessions"] = profiled_kernel_names(
+            lambda: ops.bitserial_matmul(x, pw))
         check(any(f"{path}_kernel" in n for n in row["device_kernels"]),
-              f"{what}: the profiler saw {row['device_kernels']}, no {path}_kernel")
+              f"{what}: the profiler saw {row['device_kernels']} in "
+              f"{row['profiler_sessions']} sessions, no {path}_kernel")
     rate = (f"{row['tflops']:.1f} TFLOP/s, {100 * row['tflops'] * 1e12 / PEAK_FLOPS[dname]:.1f} % "
             f"of the {dname} peak" if M > bsm.DECODE_MAX_M else
             f"{(N_BITS + 1) * (K // 8) * N / (row['ms'] * 1e-3) / 1e9:.0f} GB/s of packed weight")
@@ -1352,6 +1691,91 @@ def bitserial_case(dev, gen, card, time_ms, M, K, N, groups, dt, profile=False):
           f"torch.matmul(dequantised) {row['library_ms']:.4f} ms (kernel/library "
           f"{row['vs_library']:.2f}) [{card}]", flush=True)
     return row
+
+
+def active_case(dev, gen, card, time_ms, M, K, N, dt):
+    """One shape of phase 2's runtime-plane rows, at an M the policies'
+    serving path launches: for every a in 1..6 the kernel reading ``a``
+    from a device tensor, bitwise against the static kernel over
+    ``truncate_packed(pw, a)`` at the same M; then the ``active`` call at
+    a = 3 (the draft) and 6 (a full lane of a tiered step) timed beside
+    the static calls, the plain version and ``torch.matmul``."""
+    import torch
+
+    from repro_torch.core.packing import pack_from_float, truncate_packed, unpack_to_float
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import ops, ref
+
+    dname = str(dt).split(".")[-1]
+    w = torch.randn((K, N), generator=gen, device=dev) / K**0.5
+    pw = pack_from_float(w, N_BITS)
+    del w
+    x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+    iview = torch.int32 if dt == torch.float32 else torch.int16
+    act = {a: torch.tensor([a], dtype=torch.int32, device=dev) for a in range(1, N_BITS + 1)}
+    what = f"M={M} K={K} N={N} {dname}"
+    err = 0.0
+    for a in range(1, N_BITS + 1):
+        bsm.reset_launches()
+        dyn = ops.bitserial_matmul(x, pw, active_planes=act[a])
+        check(bsm.active_launches == 1, f"{what}: active={a} was not a runtime-plane launch")
+        static = ops.bitserial_matmul(x, truncate_packed(pw, a))
+        check(torch.equal(dyn.view(iview), static.view(iview)),
+              f"active={a} (device tensor) != truncate_packed at {what}")
+        if a == N_BITS:
+            want = ref.bitserial_matmul_ref(x, pw.planes, pw.sign, pw.scale, N_BITS)
+            err = (dyn.float() - want.float()).abs().max().item()
+            check(err <= TOL[dname] * want.float().abs().max().item(),
+                  f"{what}: active={a} vs plain, max err {err}")
+    wl = unpack_to_float(pw).to(dt)
+    t3 = truncate_packed(pw, 3)
+    row = {
+        "M": M, "K": K, "N": N, "dtype": dname, "path": bsm.kernel_path(x, pw.planes, pw.sign),
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.bitserial_matmul(x, pw)),
+        "active_ms": time_ms(lambda: ops.bitserial_matmul(x, pw, active_planes=act[N_BITS])),
+        "active3_ms": time_ms(lambda: ops.bitserial_matmul(x, pw, active_planes=act[3])),
+        "static3_ms": time_ms(lambda: ops.bitserial_matmul(x, t3)),
+        "plain_ms": time_ms(lambda: ref.bitserial_matmul_ref(
+            x, pw.planes, pw.sign, pw.scale, N_BITS, active_planes=act[N_BITS]), iters=3),
+        "library_ms": time_ms(lambda: torch.matmul(x, wl)),
+    }
+    row["bound_ms"], row["bound_by"] = bound_ms(M, K, N, dname)
+    print(f"[kernel-active] {what} ({row['path']}): active=a bitwise == truncate_packed for a "
+          f"in 1..{N_BITS}; static {row['ms']:.4f} ms, active=6 {row['active_ms']:.4f} ms, "
+          f"active=3 {row['active3_ms']:.4f} ms (static over 3 planes {row['static3_ms']:.4f}), "
+          f"bound {row['bound_ms']:.4f} ms, torch.matmul(dequantised) {row['library_ms']:.4f} "
+          f"ms, plain {row['plain_ms']:.4f} ms [{card}]", flush=True)
+    return row
+
+
+def active_kernel_phase(dev, card, time_ms, report):
+    """Phase 2's runtime-plane rows: granite-3-2b's four projection shapes
+    at M 8 (a grouped decode or a draft step at 8 lanes), 32 (the verify
+    chunk, 8 lanes x gamma 4) and 40, f32 and bf16; then one layer's 7
+    projections summed at each M in bf16."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = report.setdefault("active", [])
+    for M in ACTIVE_M:
+        for K, N in MATMUL_SHAPES:
+            for dt in (torch.float32, torch.bfloat16):
+                rows.append(active_case(dev, gen, card, time_ms, M, K, N, dt))
+    by = {(r["M"], r["K"], r["N"], r["dtype"]): r for r in rows}
+    for M in ACTIVE_M:
+        layer = [by[(M, K, N, "bfloat16")] for K, N in LAYER_PROJ]
+        sums = {k: sum(r[k] for r in layer) for k in ("ms", "active_ms", "active3_ms",
+                                                       "static3_ms", "plain_ms", "library_ms",
+                                                       "bound_ms")}
+        sums["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in layer)
+                            else "operations")
+        report.setdefault("active_layers", {})[M] = sums
+        print(f"[kernel-active] one granite-3-2b layer (7 projections, M={M}, bf16): static "
+              f"{sums['ms']:.4f} ms, active=6 {sums['active_ms']:.4f} ms, active=3 "
+              f"{sums['active3_ms']:.4f} ms (static 3 planes {sums['static3_ms']:.4f}), bound "
+              f"{sums['bound_ms']:.4f} ms, torch.matmul(dequantised) {sums['library_ms']:.4f} "
+              f"ms [{card}]", flush=True)
 
 
 def bitserial_kernel_phase(dev, card, time_ms, report):
@@ -1547,15 +1971,30 @@ def kernel_entries(report, max_err):
     }
     entry["vs_library"] = entry["ms"] / entry["library_ms"]
     # the runtime plane-count path (bitserial_matmul_pallas_dyn): the same
-    # kernel reading `active` from device memory; spec decode and precision
-    # tiers, which launch it, come with a later slice
-    d_entry = dict(entry, name="bitserial_matmul_dyn",
-                   replaces="src/repro/kernels/bitserial_matmul.py:183",
-                   launches=report["slice"]["active_launches"], ms=entry["active_ms"],
-                   plain_ms=sum(r["active_plain_ms"] for r in layer),
-                   vs_library=entry["active_ms"] / entry["library_ms"],
-                   work=entry["work"] + f", active={N_BITS - 2} read from the device")
-    d_entry.pop("active_ms")
+    # kernel reading `active` from device memory, launched on phase 4d's
+    # tiered decode dispatches and draft steps; timed per layer at the M
+    # of those calls (8 lanes) in bf16, beside the static kernel, and at
+    # the verify chunk's M 32 and at M 40
+    al = report["active_layers"]
+    m8 = al[SLOTS]
+    d_entry = {
+        "name": "bitserial_matmul_dyn", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
+        "replaces": "src/repro/kernels/bitserial_matmul.py:183",
+        "launches": report["policies"]["tiers"]["active_launches"]
+        + report["policies"]["spec"]["active_launches"],
+        "launches_tiers": report["policies"]["tiers"]["active_launches"],
+        "launches_spec": report["policies"]["spec"]["active_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in report["active"]),
+        "ms": m8["active_ms"], "static_ms": m8["ms"], "active3_ms": m8["active3_ms"],
+        "static3_ms": m8["static3_ms"], "plain_ms": m8["plain_ms"],
+        "bound_ms": m8["bound_ms"], "bound_by": m8["bound_by"], "library_ms": m8["library_ms"],
+        "vs_library": m8["active_ms"] / m8["library_ms"],
+        "by_M": {str(M): al[M] for M in ACTIVE_M},
+        "work": f"one granite-3-2b layer's 7 projections at M={SLOTS} (8 lanes), bf16, 6 bits, "
+                f"active={N_BITS} read from the device (static: the same calls without it)",
+    }
+
     # the prefill tile (wgmma) at gemma3-12b's 2 x 4096-token bucket; its
     # launches are the bucketed run's prefill calls (phase 4c)
     pre = layer_rows(report, 8192, GEMMA3_PROJ)
@@ -1738,6 +2177,7 @@ def main() -> int:
 
     if want("2"):
         max_err = bitserial_kernel_phase(dev, card, time_ms, report)
+        active_kernel_phase(dev, card, time_ms, report)
         phase_done("2")
 
     def median_ms(fn, repeats=PAGED_REPEATS):
@@ -1769,18 +2209,29 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_done("3d")
+    if want("3e"):
+        report["policies_parity"] = policies_parity(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("3e")
 
-    # ---------------------------------------------------- 4, 4b, 5, 4c
+    # ------------------------------------------------ 4, 4b, 5, 4d, 4c
     CheckedEngine = checked_engine_cls()
     if want("4"):
         cfg, params = granite_slice(dev, card, report, CheckedEngine)
         c_engine, c_reqs, report["continuous"] = continuous_slice(params, cfg, dev, card,
                                                                   CheckedEngine)
         report["profile_continuous"] = profile_continuous(c_engine, c_reqs, card)
-        del c_engine, c_reqs, params
+        del c_engine, c_reqs
         gc.collect()
         torch.cuda.empty_cache()
         phase_done("4, 4b, 5")
+        report["policies"] = policies_slice(params, cfg, dev, card, CheckedEngine,
+                                            report["continuous"]["result_tokens"])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("4d")
     if want("4c"):
         report["gemma3"] = gemma3_slice(dev, card, CheckedEngine)
         phase_done("4c")

@@ -16,17 +16,25 @@ from . import ref
 
 
 def _active_tensor(active_planes, device) -> torch.Tensor:
-    if isinstance(active_planes, torch.Tensor):
-        return active_planes.to(device=device, dtype=torch.int32).reshape(1)
-    return torch.tensor([int(active_planes)], dtype=torch.int32, device=device)
+    """The kernel's one-element int32 ``active`` operand.  On the card it
+    must already be a device tensor: a Python int would cost a host to
+    device copy at every launch (callers make one tensor per plane count
+    once), so it raises."""
+    if not isinstance(active_planes, torch.Tensor):
+        raise TypeError(
+            f"active_planes={active_planes!r} on {device}: pass an int32 tensor on the "
+            "device (made once per plane count), not a Python int")
+    return active_planes.to(device=device, dtype=torch.int32).reshape(1)
 
 
 def bitserial_matmul(x: torch.Tensor, pw: PackedWeight, active_planes=None) -> torch.Tensor:
     """x (..., K) @ packed weight (K, N) with on-the-fly dequantisation.
 
-    ``active_planes`` (an int or an int32 tensor; None = every plane)
-    keeps the ``a`` most significant planes, bitwise equal to the static
-    path over ``core.packing.truncate_packed(pw, a)``.
+    ``active_planes`` (None = every plane) keeps the ``a`` most
+    significant planes, bitwise equal to the static path over
+    ``core.packing.truncate_packed(pw, a)``.  On the card it is an int32
+    device tensor, read by the kernel on the device; on the CPU an int
+    or a tensor.
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])

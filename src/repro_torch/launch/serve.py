@@ -6,25 +6,31 @@
         --paged-kernel --slots 4 --block-size 16 --arrival-rate 0.5 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
         --prompt-len 12 --max-new 20 --packed-bits 6 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --paged \
+        --paged-kernel --slots 4 --block-size 16 --blocks 6 --overcommit 2 \
+        --packed-bits 6 --spec-decode --draft-planes 3 --gamma 4 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --paged \
+        --packed-bits 6 --precision-tier mixed --economy-planes 3 --degrade \
+        --requests 12 --slots 4 --smoke [--device cpu]
 
 The bucketed, continuous, chunked and paged paths of
 ``repro.launch.serve``, with the same flags and print lines (the
-``[continuous]`` line has no compiled-program counts: eager PyTorch
-compiles nothing).  It serves the reduced config, as the JAX launcher
-does, and runs on the card unless ``--device cpu`` is given.
-
-The JAX launcher's speculative, overcommit, SLO-tier, precision-tier,
-degrade and mesh flags are accepted and exit with a one-line "not yet
-ported" message.
+``[continuous]`` and ``[spec]`` lines have no compiled-program counts:
+eager PyTorch compiles nothing): ``--overcommit`` (recompute-swap
+preemption), ``--tier`` (SLO classes), ``--spec-decode`` /
+``--draft-planes`` / ``--gamma`` (bit-plane speculative decoding),
+``--precision-tier`` / ``--economy-planes`` (precision classes) and
+``--degrade`` / ``--degrade-queue-depth`` / ``--degrade-hysteresis``
+(load-triggered plane shedding).  It serves the reduced config, as the
+JAX launcher does, and runs on the card unless ``--device cpu`` is
+given.  The mesh flags (``--data-parallel``, ``--model-parallel``) exit
+with a one-line "not yet ported" message.
 """
 import argparse
 
 import numpy as np
 
-_UNPORTED_SWITCHES = ("--spec-decode", "--degrade")
-_UNPORTED_VALUES = ("--data-parallel", "--model-parallel", "--overcommit", "--draft-planes",
-                    "--gamma", "--tier", "--precision-tier", "--economy-planes",
-                    "--degrade-queue-depth", "--degrade-hysteresis")
+_UNPORTED_VALUES = ("--data-parallel", "--model-parallel")
 
 
 def poisson_arrivals(n: int, rate: float, seed: int = 0):
@@ -82,16 +88,53 @@ def main(argv=None):
                     help="decode attention walks the block table through the paged-"
                          "attention kernel instead of gathering each lane's whole view "
                          "(--paged)")
+    ap.add_argument("--overcommit", type=float, default=1.0,
+                    help="admit against this multiple of the pool's physical blocks "
+                         "(--paged); > 1.0 enables preemption: a victim lane's blocks are "
+                         "reclaimed and its request re-prefills prompt + generated tokens")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="bit-plane speculative decoding (--paged, --packed-bits): decode "
+                         "lanes self-draft --gamma steps from the --draft-planes most "
+                         "significant planes of the same packed weights, then one verify "
+                         "chunk scores every drafted position; greedy output equals "
+                         "non-speculative decode")
+    ap.add_argument("--draft-planes", type=int, default=2,
+                    help="active bit planes during draft steps (--spec-decode); must be "
+                         "< --packed-bits")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="max draft steps per speculative round (--spec-decode)")
+    ap.add_argument("--tier", choices=("throughput", "latency", "mixed"),
+                    default="throughput",
+                    help="SLO class stamped on requests: latency-tier is admitted first "
+                         "and preempted last; 'mixed' marks every 4th request latency-tier")
+    ap.add_argument("--precision-tier", choices=("full", "economy", "mixed"),
+                    default="full",
+                    help="precision class stamped on requests (--packed-bits and a "
+                         "chunked continuous engine): economy lanes decode at "
+                         "--economy-planes active planes; 'mixed' marks every other "
+                         "request economy")
+    ap.add_argument("--economy-planes", type=int, default=0,
+                    help="active bit planes of the economy class (0 = max(1, "
+                         "--packed-bits // 2)); in [1, --packed-bits], and above "
+                         "--draft-planes under --spec-decode")
+    ap.add_argument("--degrade", action="store_true",
+                    help="load-triggered plane shedding: under queue, occupancy or "
+                         "preemption pressure shed one active plane per step "
+                         "(floor-clamped per class) instead of shedding requests, and "
+                         "restore with hysteresis")
+    ap.add_argument("--degrade-queue-depth", type=int, default=2,
+                    help="queue depth (after admission) at which the degrade loop sheds "
+                         "a plane (--degrade)")
+    ap.add_argument("--degrade-hysteresis", type=int, default=4,
+                    help="calm steps before the degrade loop restores a plane (--degrade)")
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="simulate Poisson arrivals at this mean rate per decode step "
                          "(continuous mode; 0 = all requests at step 0)")
-    for flag in _UNPORTED_SWITCHES:
-        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     for flag in _UNPORTED_VALUES:
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    for flag in _UNPORTED_SWITCHES + _UNPORTED_VALUES:
-        if getattr(args, flag[2:].replace("-", "_")) not in (False, None):
+    for flag in _UNPORTED_VALUES:
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
             raise SystemExit(f"{flag} is not yet ported to repro_torch")
     if args.chunked_prefill and not args.continuous:
         raise SystemExit("--chunked-prefill requires --continuous")
@@ -99,6 +142,37 @@ def main(argv=None):
         raise SystemExit("--paged requires --continuous")
     if args.paged_kernel and not args.paged:
         raise SystemExit("--paged-kernel requires --paged")
+    if args.overcommit != 1.0 and not args.paged:
+        raise SystemExit("--overcommit requires --paged (only the block pool has "
+                         "commitment accounting)")
+    if args.spec_decode and not args.paged:
+        raise SystemExit("--spec-decode requires --paged (draft rollback rewinds lane "
+                         "positions through the block tables)")
+    if args.spec_decode and not args.packed_bits:
+        raise SystemExit("--spec-decode requires --packed-bits (drafting truncates the "
+                         "packed weight's bit planes)")
+    if args.spec_decode and args.temperature > 0:
+        raise SystemExit("--spec-decode requires --temperature 0 (greedy verify is what "
+                         "makes spec output token-identical)")
+    if args.spec_decode and not 1 <= args.draft_planes < args.packed_bits:
+        raise SystemExit(f"--draft-planes {args.draft_planes} must be in "
+                         f"[1, --packed-bits {args.packed_bits})")
+    tiered = args.precision_tier != "full" or args.degrade
+    if tiered and not args.packed_bits:
+        raise SystemExit("--precision-tier/--degrade require --packed-bits (float weights "
+                         "have no bit planes to shed)")
+    if tiered and not (args.chunked_prefill or args.paged):
+        raise SystemExit("--precision-tier/--degrade require a chunked continuous engine "
+                         "(--continuous with --chunked-prefill or --paged)")
+    econ_planes = args.economy_planes or max(1, args.packed_bits // 2)
+    if args.precision_tier != "full":
+        if not 1 <= econ_planes <= args.packed_bits:
+            raise SystemExit(f"--economy-planes {econ_planes} must be in "
+                             f"[1, --packed-bits {args.packed_bits}]")
+        if args.spec_decode and econ_planes <= args.draft_planes:
+            raise SystemExit(f"--economy-planes {econ_planes} must exceed --draft-planes "
+                             f"{args.draft_planes} (the verify must add information over "
+                             "the draft)")
 
     import torch
 
@@ -129,12 +203,29 @@ def main(argv=None):
                          continuous=args.continuous, n_slots=args.slots,
                          chunked_prefill=args.chunked_prefill, paged=args.paged,
                          block_size=args.block_size, n_blocks=args.blocks or None,
-                         paged_kernel=args.paged_kernel, obs=obs)
+                         paged_kernel=args.paged_kernel, overcommit=args.overcommit,
+                         spec_decode=args.spec_decode, draft_planes=args.draft_planes,
+                         gamma=args.gamma,
+                         precision_tiers=({"economy": econ_planes}
+                                          if args.precision_tier != "full" else None),
+                         degrade=args.degrade, degrade_queue_depth=args.degrade_queue_depth,
+                         degrade_hysteresis=args.degrade_hysteresis, obs=obs)
     task = MarkovLM(vocab=cfg.vocab_size, seed=3)
     if args.mixed_lens:
         lens = [max(2, args.prompt_len * m // 2) for m in (1, 2, 3, 4)]
     else:
         lens = [args.prompt_len]
+
+    def req_tier(i: int) -> str:
+        if args.tier == "mixed":
+            return "latency" if i % 4 == 0 else "throughput"
+        return args.tier
+
+    def req_precision(i: int) -> str:
+        if args.precision_tier == "mixed":
+            return "economy" if i % 2 else "full"
+        return args.precision_tier
+
     reqs = [
         Request(
             uid=i,
@@ -142,6 +233,8 @@ def main(argv=None):
                    : lens[i % len(lens)]].astype(np.int32),
             max_new=args.max_new,
             temperature=args.temperature,
+            tier=req_tier(i),
+            precision=req_precision(i),
         )
         for i in range(args.requests)
     ]
@@ -162,6 +255,17 @@ def main(argv=None):
         if args.chunked_prefill or args.paged:
             print(f"[chunked] chunk_dispatches={sched.prefill_chunks} "
                   f"admit_bursts={len(sched.admit_bursts)}")
+        if tiered:
+            econ = (f"economy={sched.active_planes('economy')}/{econ_planes}"
+                    if args.precision_tier != "full" else "economy=-")
+            print(f"[tiers] precision_tier={args.precision_tier} "
+                  f"full={sched.active_planes('full')}/{args.packed_bits} {econ} "
+                  f"tier_dispatches={sched.tier_dispatches}")
+        if args.degrade:
+            print(f"[degrade] sheds={sched.degrade_sheds} restores={sched.degrade_restores} "
+                  f"events={sched.degrade_events_total()} "
+                  f"queue_depth_trigger={args.degrade_queue_depth} "
+                  f"hysteresis={args.degrade_hysteresis}")
         if args.paged:
             pool = sched.pool
             print(f"[paged] block_size={pool.block_size} n_blocks={pool.n_blocks} "
@@ -169,6 +273,16 @@ def main(argv=None):
                   f"block_occupancy={sched.mean_block_occupancy():.2f} "
                   f"fragmentation={sched.mean_fragmentation():.2f} "
                   f"leaked_blocks={pool.n_blocks - pool.allocator.free_count}")
+            if args.overcommit != 1.0:
+                print(f"[overcommit] factor={args.overcommit} "
+                      f"commit_capacity={pool.allocator.commit_capacity}"
+                      f"x{pool.allocator.n_shards} preemptions={sched.preemptions_total()}")
+            if args.spec_decode:
+                print(f"[spec] draft_planes={args.draft_planes} gamma={args.gamma} "
+                      f"rounds={sched.spec_rounds} draft_steps={sched.draft_steps} "
+                      f"drafted={sched.spec_drafted} accepted={sched.spec_accepted} "
+                      f"committed={sched.spec_committed} "
+                      f"accept_rate={sched.spec_accept_rate():.2f}")
     if args.trace_out:
         n = obs.recorder.dump_jsonl(args.trace_out)
         print(f"[obs] {n} request traces -> {args.trace_out}")
@@ -176,17 +290,19 @@ def main(argv=None):
         obs.recorder.dump_chrome_trace(args.chrome_trace_out)
         print(f"[obs] chrome trace -> {args.chrome_trace_out}")
     if args.smoke:
-        _obs_smoke(args, obs, server)
+        _obs_smoke(args, obs, server, engine)
     if server is not None:
         server.close()
     return results
 
 
-def _obs_smoke(args, obs, server):
+def _obs_smoke(args, obs, server, engine):
     """Scrape once (over HTTP when an endpoint was requested), check the
     exposition parses, the families of the path served are populated, no
-    span leaked and the JSONL trace passes the schema check.  Prints
-    OBS_SMOKE_OK."""
+    span leaked and the JSONL trace passes the schema check.  With
+    ``--degrade`` the shed-and-restore cycle must have fired (overload
+    the pool: more requests than slots, arrivals at step 0) with no
+    leaked block.  Prints OBS_SMOKE_OK."""
     from urllib.request import urlopen
 
     from ..obs import trace as obs_trace
@@ -202,11 +318,28 @@ def _obs_smoke(args, obs, server):
         required += ["serve_occupancy", "serve_decode_step_ms"]
     if args.paged:
         required += ["serve_blocks_alloc_total", "serve_block_pool_free"]
+    if args.spec_decode:
+        required += ["serve_spec_rounds_total", "serve_spec_accept_total"]
+    if args.precision_tier != "full" or args.degrade:
+        required += ["serve_active_planes"]
+    if args.degrade:
+        required += ["serve_degrade_events_total"]
     missing = [f for f in required if f not in families or not families[f]["samples"]]
     if missing:
         raise SystemExit(f"[obs] smoke FAILED: empty/missing families {missing}")
     if obs.recorder.leaked:
         raise SystemExit(f"[obs] smoke FAILED: leaked spans {obs.recorder.leaked}")
+    if args.degrade:
+        sched = engine.scheduler
+        if sched.degrade_sheds < 1 or sched.degrade_restores < 1:
+            raise SystemExit(
+                f"[obs] smoke FAILED: --degrade ran without a full shed-and-restore cycle "
+                f"(sheds={sched.degrade_sheds}, restores={sched.degrade_restores}): "
+                "overload the pool (more requests than slots, arrivals at step 0)")
+        pool = sched.pool
+        if args.paged and pool.n_blocks - pool.allocator.free_count:
+            raise SystemExit(f"[obs] smoke FAILED: {pool.n_blocks - pool.allocator.free_count}"
+                             " leaked KV blocks after the degrade run")
     if args.trace_out:
         n = obs_trace.validate_jsonl(args.trace_out)
         if n < args.requests:

@@ -148,9 +148,12 @@ def _head(params: Params, cfg: ModelConfig):
 
 def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Embedding times sqrt(d_model), the constant rounded to the compute
-    dtype first as ``jnp.asarray(d_model**0.5, dt)`` is."""
+    dtype first as ``jnp.asarray(d_model**0.5, dt)`` is.  The constant is
+    a 0-dim host tensor, which a device op reads as a scalar: a device
+    tensor made from it would be a host-to-device copy, and a host sync,
+    at every model call."""
     x = embed_apply(params["embed"], tokens, cfg.compute_dtype)
-    return x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+    return x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
 
 
 def _mlp_residual(p: Params, x: torch.Tensor, cfg: ModelConfig, active_planes) -> torch.Tensor:
@@ -329,7 +332,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, ma
 
 def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tensor,
                   n_valid: torch.Tensor, cfg: ModelConfig,
-                  block_table: Optional[torch.Tensor] = None, active_planes=None):
+                  block_table: Optional[torch.Tensor] = None, active_planes=None,
+                  return_all_logits: bool = False):
     """One fixed-size prefill chunk over the whole slot pool.
 
     ``tokens`` (B, C), one chunk per lane; ``start`` (B,) the chunk's
@@ -343,7 +347,13 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tens
     Returns (last_logits (B, V) f32, cache): ``last_logits[b]`` is the
     logits at lane b's last real token of the chunk (garbage for lanes
     that did not finish their prompt).  "local" layers stream the chunk
-    through their ring buffer and ignore the table."""
+    through their ring buffer and ignore the table.
+
+    ``return_all_logits=True`` returns (logits (B, C, V) f32, cache)
+    instead: the logits at EVERY chunk position (positions >= n_valid are
+    garbage).  This is the speculative verify: one chunk scores every
+    drafted position at once.  ``active_planes`` (an int32 device tensor
+    on the card) runs every packed projection at that many planes."""
     x = _embed(params, tokens, cfg)
     for p, key, kind in _layers(params, cfg):
         ck, cv = _layer_cache(cache, key)
@@ -357,6 +367,8 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tens
         )
         x = _mlp_residual(p, x + out, cfg, active_planes)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if return_all_logits:
+        return logits_apply(_head(params, cfg), x, cfg.logit_softcap, active_planes), cache
     # logits only at each lane's last real token (the row math of
     # prefill's x[:, -1:], so greedy stays token-identical to the oracle)
     B, C, D = x.shape

@@ -12,8 +12,9 @@ imports nothing of the JAX package:
   :class:`FlightRecorder` ring of recent requests, JSONL +
   ``chrome://tracing`` dumps, and the single TTFT definition every
   serve path derives ``Result.prefill_ms`` from.
-
-The quality probe (``repro.obs.quality``) is not ported yet.
+* :mod:`repro_torch.obs.quality` — the quantization-quality probe
+  (packed model at k active planes vs full), the tier-table picker and
+  the plane-log replay oracle of tiered serving (imports torch lazily).
 
 An :class:`Observability` bundle (registry + flight recorder) is what
 the serve engine carries; the default constructs fresh instances so
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from . import export, metrics, trace  # noqa: F401
+from . import export, metrics, quality, trace  # noqa: F401
 from .export import (  # noqa: F401
     MetricsServer,
     parse_prometheus,

@@ -10,6 +10,11 @@ decode reads run through the paged-attention kernel when
 ``paged_kernel=True``.  Packed weights are dequantised inside the
 bitserial kernel at every projection (``kernels.ops.bitserial_matmul``),
 so device-memory reads per decode step scale with the packed bit count.
+The continuous scheduler's policies ride in the same arguments as in the
+JAX engine: ``overcommit`` (recompute-swap preemption),
+``spec_decode``/``draft_planes``/``gamma`` (bit-plane speculative
+decoding), ``precision_tiers`` and ``degrade`` (per-request plane counts
+and load-triggered plane shedding).
 Whole-prompt prefill (the bucketed path and legacy admission) runs its
 attention through the flash kernel; models with sliding-window layers
 (gemma3) keep a ring buffer per lane for them.
@@ -41,10 +46,14 @@ class Request:
     tokens: np.ndarray  # (S,) int32 prompt
     max_new: int = 32
     temperature: float = 0.0  # 0 => greedy
-    # SLO class of the continuous scheduler ("latency" is admitted
-    # first); the bucketed engine ignores it, as the JAX one does.
-    # Precision classes other than "full" come with a later slice.
+    # SLO class of the continuous scheduler: "latency" requests outrank
+    # "throughput" at admission and are preempted last under overcommit;
+    # the bucketed engine ignores it, as the JAX one does.
     tier: str = "throughput"
+    # Precision class of a tiered continuous engine: "full", a key of the
+    # policy's precision_tiers table, or an explicit plane count (int),
+    # validated at stream() like ``tier``.  The bucketed engine ignores
+    # it; an untiered continuous engine rejects anything but "full".
     precision: object = "full"
 
 
@@ -55,6 +64,11 @@ class Result:
     # TTFT: the request's admitted -> first_token span (RequestTrace.ttft_ms)
     prefill_ms: float
     decode_ms_per_tok: float
+    # Tiered engines only: the active plane count each token was computed
+    # at, parallel to ``tokens`` (the first token at full precision, decode
+    # tokens at the step's effective count after any degrade shed).  None
+    # on untiered paths.  ``obs.quality.replay_plane_log`` replays it.
+    plane_log: Optional[np.ndarray] = None
 
 
 _MATRICES = frozenset(PACKABLE_SUFFIXES) | {"embed"}
@@ -83,7 +97,11 @@ class ServeEngine:
                  device=None, continuous: bool = False, n_slots: int = 8,
                  policy=None, chunked_prefill: bool = False, paged: bool = False,
                  block_size: int = 32, n_blocks: Optional[int] = None,
-                 paged_kernel: bool = False, obs: Optional[Observability] = None):
+                 paged_kernel: bool = False, overcommit: float = 1.0,
+                 spec_decode: bool = False, draft_planes: int = 2, gamma: int = 4,
+                 precision_tiers: Optional[Dict[str, int]] = None, degrade: bool = False,
+                 degrade_queue_depth: int = 2, degrade_hysteresis: int = 4,
+                 obs: Optional[Observability] = None):
         transformer.check_supported(cfg)
         self.cfg = cfg
         self.max_len = max_len
@@ -95,6 +113,9 @@ class ServeEngine:
         if (paged or paged_kernel) and not continuous:
             raise ValueError("paged=True requires continuous=True (the block pool lives "
                              "in the slot-pool scheduler)")
+        if spec_decode and not continuous:
+            raise ValueError("spec_decode=True requires continuous=True (the draft/verify "
+                             "rounds live in the slot-pool scheduler)")
         if paged_kernel and not paged:
             raise ValueError("paged_kernel=True requires paged=True: the kernel walks the "
                              "block table a dense cache does not have")
@@ -105,7 +126,12 @@ class ServeEngine:
                 policy = SchedulerPolicy(n_slots=n_slots,
                                          chunked_prefill=chunked_prefill or paged,
                                          paged=paged, block_size=block_size,
-                                         n_blocks=n_blocks, paged_kernel=paged_kernel)
+                                         n_blocks=n_blocks, paged_kernel=paged_kernel,
+                                         overcommit=overcommit, spec_decode=spec_decode,
+                                         draft_planes=draft_planes, gamma=gamma,
+                                         precision_tiers=precision_tiers, degrade=degrade,
+                                         degrade_queue_depth=degrade_queue_depth,
+                                         degrade_hysteresis=degrade_hysteresis)
             else:
                 if chunked_prefill and not policy.chunked_prefill:
                     policy = dataclasses.replace(policy, chunked_prefill=True)
@@ -115,6 +141,19 @@ class ServeEngine:
                                                  block_size=block_size, n_blocks=n_blocks)
                 if paged_kernel and not policy.paged_kernel:
                     policy = dataclasses.replace(policy, paged_kernel=True)
+                # each of these requires paged (or chunked) serving; the
+                # policy validates
+                if overcommit != 1.0 and policy.overcommit == 1.0:
+                    policy = dataclasses.replace(policy, overcommit=overcommit)
+                if spec_decode and not policy.spec_decode:
+                    policy = dataclasses.replace(policy, spec_decode=True,
+                                                 draft_planes=draft_planes, gamma=gamma)
+                if precision_tiers is not None and policy.precision_tiers is None:
+                    policy = dataclasses.replace(policy, precision_tiers=precision_tiers)
+                if degrade and not policy.degrade:
+                    policy = dataclasses.replace(policy, degrade=True,
+                                                 degrade_queue_depth=degrade_queue_depth,
+                                                 degrade_hysteresis=degrade_hysteresis)
             self.scheduler = ContinuousScheduler(self, policy)
 
     # -- sampling ---------------------------------------------------------

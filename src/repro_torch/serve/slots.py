@@ -26,8 +26,13 @@ prefill chunks land and decode crosses a block boundary
 scales with the live tokens, not ``n_slots * max_len``.  Admission
 reserves each request's worst-case need up front
 (:meth:`BlockAllocator.reserve`), which makes on-demand growth
-infallible.  The device pool holds one block more than the allocator
-grants: the drop sentinel of ``models.attention``.  Likewise the unpaged
+infallible at ``overcommit == 1.0``; past 1.0 the scheduler admits
+against ``BlockAllocator.commit_capacity`` and preempts a victim lane
+(recompute swap) when growth would exhaust the pool.  A speculative
+round's rejected rows rewind through :meth:`SlotPool.commit_spec`,
+which frees tail blocks and moves no cache data.  The device pool holds
+one block more than the allocator grants: the drop sentinel of
+``models.attention``.  Likewise the unpaged
 pool's "attn" caches hold one row more than ``max_len``.  Sliding-window
 ("local") layers keep a ring buffer of ``min(window, max_len)`` slots per
 lane in both layouts: it never pages, and its rows need no reset (the
@@ -78,8 +83,11 @@ class BlockAllocator:
     request's worst-case lifetime block need at admission and releases it
     at eviction.  With ``overcommit == 1.0`` the commitment capacity
     equals the physical pool, which guarantees every admitted lane can
-    always grow to its last decode row.  (The port's scheduler runs at
-    1.0 only; the allocator keeps the factor, as the JAX one does.)
+    always grow to its last decode row.  With ``overcommit > 1.0`` the
+    scheduler admits against ``commit_capacity = shard_blocks *
+    overcommit`` per shard, so growth CAN hit an exhausted shard, and the
+    scheduler preempts a victim first (``serve.scheduler``).  ``alloc``
+    still fails only when a shard is physically out of blocks.
 
     **Sharded tables** (``n_shards > 1``): the block id space splits into
     ``n_shards`` contiguous ranges, each with its own free list and
@@ -296,7 +304,22 @@ class SlotState:
     # paged-KV bookkeeping
     blocks: Optional[List[int]] = None  # pool blocks owned, logical order
     committed: int = 0  # worst-case lifetime blocks reserved at admission
+    # overcommit / SLO bookkeeping
     tier: str = "throughput"  # SLO class: "latency" outranks "throughput"
+    prior: Optional[List[int]] = None  # tokens generated before a preemption
+    admit_seq: int = 0  # monotone admission counter (LIFO victim order)
+    # speculative decoding: per-lane draft depth (full accepts grow it
+    # toward the policy gamma, zero accepts halve it); 0 on non-spec lanes
+    spec_gamma: int = 0
+    # precision tiers (tiered engines only): ``planes`` the request's
+    # resolved plane count before any degrade shed, ``precision`` the class
+    # it resolved from (floor lookups), ``plane_log`` the plane count of
+    # each emitted token (parallel to ``tokens``), ``prior_planes`` that of
+    # each ``prior`` token
+    planes: Optional[int] = None
+    precision: str = "full"
+    plane_log: Optional[List[int]] = None
+    prior_planes: Optional[List[int]] = None
 
 
 class SlotPool:
@@ -304,7 +327,7 @@ class SlotPool:
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, cache_dtype=None,
                  paged: bool = False, block_size: int = 32, n_blocks: Optional[int] = None,
-                 registry=None, device=None):
+                 overcommit: float = 1.0, registry=None, device=None):
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
@@ -316,11 +339,13 @@ class SlotPool:
         self.blocks_per_lane = _ceil_div(max_len, block_size) if paged else None
         # repro.dist.sharding.table_shards without a mesh: one shard
         self.table_shards = 1
+        self.overcommit = overcommit if paged else 1.0
         if paged:
             # default capacity matches the unpaged reservation (no admission
             # throttling); callers shrink n_blocks to save device memory
             self.n_blocks = n_slots * self.blocks_per_lane if n_blocks is None else n_blocks
-            self.allocator = BlockAllocator(self.n_blocks, block_size, registry=registry)
+            self.allocator = BlockAllocator(self.n_blocks, block_size,
+                                            overcommit=overcommit, registry=registry)
             self.cache = transformer.init_cache(
                 cfg, n_slots, max_len, self.cache_dtype, self.device,
                 paged_blocks=self.n_blocks, block_size=block_size)
@@ -406,18 +431,29 @@ class SlotPool:
         self.act[slot] = True
 
     def admit(self, slot: int, uid: int, prompt: np.ndarray, max_new: int, temperature: float,
-              now: int, wall: float, tier: str = "throughput"):
+              now: int, wall: float, tier: str = "throughput",
+              prior: Optional[List[int]] = None, admit_seq: int = 0,
+              planes: Optional[int] = None, precision: str = "full",
+              prior_planes: Optional[List[int]] = None):
         """Claim lane ``slot`` for chunked prefill: the prompt is staged
         host-side and streams through ``prefill_chunk``; the lane joins
         the decode phase via :meth:`start_decode` once its last chunk
         lands.  Paged pools also reserve the request's worst-case
         lifetime need (prompt + max_new - 1 rows); the scheduler's
-        admission check guarantees it fits, and the reservation in turn
-        guarantees every later :meth:`grow_many` succeeds."""
+        admission check guarantees it fits.  At ``overcommit == 1.0`` the
+        reservation in turn guarantees every later :meth:`grow_many`
+        succeeds; past 1.0 the scheduler preempts to headroom first.
+
+        Re-admitting a preempted request passes ``prior`` (the tokens it
+        had generated) with ``prompt`` already extended by them: the
+        re-prefill recomputes their KV rows, and the Result stitches
+        ``prior + tokens`` back together."""
         self.slots[slot] = SlotState(
             uid=uid, remaining=max_new, tokens=[], admitted_at=now, temperature=temperature,
             phase="prefill", prompt=np.asarray(prompt, np.int32), filled=0, admit_wall=wall,
-            blocks=[] if self.paged else None, tier=tier)
+            blocks=[] if self.paged else None, tier=tier,
+            prior=list(prior) if prior else None, admit_seq=admit_seq, planes=planes,
+            precision=precision, prior_planes=list(prior_planes) if prior_planes else None)
         if self.paged:
             s = self.slots[slot]
             sh = self.lane_shard(slot)
@@ -439,8 +475,10 @@ class SlotPool:
 
     def grow_many(self, rows_by_slot) -> None:
         """Grant every lane's demand and apply ONE block-table update.
-        The admission-time reservation makes failure impossible for
-        admitted lanes, so a failure here is a bug, and raises."""
+        At ``overcommit == 1.0`` the admission-time reservation makes
+        failure impossible for admitted lanes; past 1.0 the scheduler must
+        have preempted to headroom first.  Either way a failure here is a
+        bug, and raises."""
         rr, cc, vv = [], [], []
         for slot, rows in rows_by_slot.items():
             s = self.slots[slot]
@@ -459,9 +497,8 @@ class SlotPool:
             vv += got
             s.blocks.extend(got)
         if rr:
-            idx = torch.tensor([rr, cc], dtype=torch.int64).to(self.device)
-            self.block_table[idx[0], idx[1]] = torch.tensor(vv, dtype=torch.int32).to(
-                self.device)
+            upd = torch.tensor([rr, cc, vv], dtype=torch.int64).to(self.device)  # one copy
+            self.block_table[upd[0], upd[1]] = upd[2].to(torch.int32)
 
     def live_rows(self) -> int:
         """Cache rows holding live K/V across lanes (telemetry)."""
@@ -502,6 +539,33 @@ class SlotPool:
         self.act[slot] = False
         return done
 
+    def commit_spec(self, slot: int, tokens: List[int]) -> int:
+        """Commit a speculative round's tokens on lane ``slot`` and rewind
+        past the rejected draft rows.
+
+        Appends ``tokens``, then returns to the allocator the tail blocks
+        granted only for rejected draft rows: after the commit the lane's
+        written rows are ``[0, plen + g - 1)`` with ``g = len(tokens)``
+        (the last token's K/V, like ``tok`` after a decode step, is
+        written by the next step), so the lane keeps
+        ``blocks_for_rows(plen + g - 1)`` blocks.  The freed blocks' table
+        entries go stale as an evicted lane's do (the paged kernel never
+        reads past a lane's position), so the rewind moves no cache data.
+        The device ``pos``/``tok`` rewind is the scheduler's.  Returns
+        the number of blocks freed."""
+        s = self.slots[slot]
+        s.tokens.extend(tokens)
+        s.remaining -= len(tokens)
+        if not self.paged or not s.blocks:
+            return 0
+        keep = self.allocator.blocks_for_rows(len(s.prompt) + len(s.tokens) - 1)
+        if keep >= len(s.blocks):
+            return 0
+        dead = s.blocks[keep:]
+        del s.blocks[keep:]
+        self.allocator.free(dead)
+        return len(dead)
+
     def advance(self, sampled: np.ndarray, active: np.ndarray):
         """After one pool decode step: record each active lane's token and
         advance its position.  ``sampled``: (n_slots,) host int array."""
@@ -519,5 +583,5 @@ class SlotPool:
         self.act.zero_()
         if self.paged:
             self.allocator = BlockAllocator(self.n_blocks, self.block_size,
-                                            registry=self.registry)
+                                            overcommit=self.overcommit, registry=self.registry)
             self.block_table.zero_()

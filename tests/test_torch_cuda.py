@@ -83,10 +83,33 @@ def test_kernel_matches_plain_version_and_active_is_truncate(cuda, M, K, N, n_bi
     assert (got - want).abs().max().item() <= tol * want.abs().max().item()
     iview = torch.int32 if dtype == torch.float32 else torch.int16
     for a in range(1, n_bits + 1):
-        dyn = tops.bitserial_matmul(x, pw, active_planes=a)
+        active = torch.tensor([a], dtype=torch.int32, device=cuda)
+        dyn = tops.bitserial_matmul(x, pw, active_planes=active)
         static = tops.bitserial_matmul(x, tpack.truncate_packed(pw, a))
         assert torch.equal(dyn.view(iview), static.view(iview)), a
     assert torch.equal(tops.bitserial_matmul(x, pw), tops.bitserial_matmul(x, pw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)])
+@pytest.mark.parametrize("M", [8, 32, 40])
+def test_active_is_truncate_at_the_serving_shapes(cuda, M, K, N, dtype):
+    """The runtime plane count at the M of the policies' serving path
+    (8 lanes: a grouped decode or a draft step at M 8; a verify chunk of
+    width 4 at M 32; 40 rows) on granite-3-2b's projections: bitwise the
+    static kernel over ``truncate_packed`` at the same M, for every a,
+    with the count read from a device tensor and counted as such."""
+    pw, x = _packed(M, K, N, 6, None, seed=M, dev=cuda)
+    x = x.to(dtype)
+    iview = torch.int32 if dtype == torch.float32 else torch.int16
+    for a in range(1, 7):
+        active = torch.tensor([a], dtype=torch.int32, device=cuda)
+        tkern.reset_launches()
+        dyn = tops.bitserial_matmul(x, pw, active_planes=active)
+        assert (tkern.launches, tkern.active_launches) == (1, 1)
+        static = tops.bitserial_matmul(x, tpack.truncate_packed(pw, a))
+        assert tkern.active_launches == 1
+        assert torch.equal(dyn.view(iview), static.view(iview)), a
 
 
 def test_kernel_paths(cuda):
@@ -126,6 +149,10 @@ def test_wrapper_raises_instead_of_copying(cuda):
         tkern.bitserial_matmul_cuda(x, pw.planes, pw.sign, pw.scale, 9, 64)
     with pytest.raises(TypeError, match="dtype"):
         tkern.bitserial_matmul_cuda(x.half(), pw.planes, pw.sign, pw.scale, 6, 64)
+    # a Python int plane count on the card would be a host-to-device copy
+    # per launch: the entry point refuses it
+    with pytest.raises(TypeError, match="int32 tensor"):
+        tops.bitserial_matmul(x, pw, active_planes=3)
 
 
 def test_engine_on_card_matches_cpu_tokens(cuda):
@@ -260,6 +287,48 @@ def test_continuous_paged_kernel_engine_on_card_matches_cpu(cuda):
     assert tpaged.launches == eng.scheduler.decode_steps * cfg.n_layers
     for uid in out["cpu"]:
         np.testing.assert_array_equal(out["cuda"][uid], out["cpu"][uid])
+
+
+def test_policy_engines_on_card_match_cpu(cuda):
+    """Reduced granite-3-2b at f32, 6-bit packed, through the paged-kernel
+    engine with tiers and a forced degrade schedule, and with spec decode
+    under overcommit: the same tokens, plane logs and counts on the card
+    and on the CPU, and one runtime-plane launch per packed projection of
+    every call that passed a plane count."""
+    cfg = reduced_config("granite-3-2b")
+    params = transformer.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda,
+                                     pack_bits=6)
+    rng = np.random.default_rng(2)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, 10).astype(np.int32),
+                    max_new=11, tier="latency" if i == 0 else "throughput",
+                    precision="economy" if i % 2 else "full") for i in range(3)]
+    runs = {"tiers": dict(precision_tiers={"economy": 4}, degrade=True),
+            "spec": dict(spec_decode=True, draft_planes=3, gamma=4)}
+    for name, kw in runs.items():
+        out = {}
+        for dev in (cuda, torch.device("cpu")):
+            eng = ServeEngine(tpack.tree_to(params, dev), cfg, max_len=32, device=dev,
+                              continuous=True, n_slots=3, paged=True, block_size=4,
+                              n_blocks=8, overcommit=2.0, paged_kernel=True, **kw)
+            sched = eng.scheduler
+            sched.force_shed = (lambda step: (step // 2) % 3) if name == "tiers" else None
+            tkern.reset_launches()
+            work = reqs if name == "tiers" else [
+                Request(uid=r.uid, tokens=r.tokens, max_new=r.max_new, tier=r.tier)
+                for r in reqs]
+            res = {r.uid: r for r in eng.generate(work)}
+            out[dev.type] = ({u: (r.tokens.tolist(), None if r.plane_log is None
+                                  else r.plane_log.tolist()) for u, r in res.items()},
+                             sched.preemptions_total(), sched.spec_accepted,
+                             sched.spec_drafted, sched.degrade_events_total())
+            assert eng.scheduler.pool.allocator.free_count == 8
+            if dev.type == "cuda":
+                # packed projections per model call (stacked leaves: one per layer)
+                n_proj = sum(pw.planes.shape[0] if pw.planes.ndim == 4 else 1
+                             for pw in tpack.packed_leaves(params))
+                assert tkern.active_launches == n_proj * sched.plane_dispatches() > 0
+        assert out["cuda"] == out["cpu"], name
+        assert out["cpu"][1] > 0, f"{name}: never preempted"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

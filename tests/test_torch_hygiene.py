@@ -87,15 +87,14 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, monkeypatch)
 def test_unported_paths_say_so():
     from repro_torch.launch import serve as launcher
     from repro_torch.models import transformer
-    from repro_torch.serve.scheduler import SchedulerPolicy
 
-    for argv in (["--spec-decode"], ["--continuous", "--paged", "--overcommit", "2"]):
+    for argv in (["--data-parallel", "2"], ["--model-parallel", "2"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             launcher.main(argv + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="later slice"):
         transformer.init_params(reduced_config("recurrentgemma-9b"), torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
-        SchedulerPolicy(chunked_prefill=True, paged=True, spec_decode=True)
+        transformer.init_params(reduced_config("phi3.5-moe-42b-a6.6b"), torch.Generator(), "cpu")
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
