@@ -38,9 +38,11 @@ failure exits non-zero and none is caught:
    of 5 timings, since calls of tens of microseconds swing up to 2x);
 2c. hold the bgl_sumsq kernel (per-row sum of squares, the BSQ
    regulariser's) against its plain version at the training slice's
-   shapes and two ragged ones, f32 and bf16, within 1e-5 of each row's
-   plain value, check a second call bitwise equal, and time the kernel,
-   the plain version and one ``torch.linalg.vector_norm`` call;
+   shapes and two ragged ones, f32 and bf16, and at the paper pipeline's
+   ResNet-20 plane views ((9, C) for its 9 tensor sizes, f32), within
+   1e-5 of each row's plain value, check a second call bitwise equal, and
+   time the kernel, the plain version and one ``torch.linalg.vector_norm``
+   call;
 2d. hold the flash-attention kernel against its plain version at the
    prefill shapes (granite-3-2b's bucket, gemma3-12b's 2 x 4096 tokens
    causal and with window 1024, a non-causal case, a ragged length),
@@ -102,6 +104,24 @@ failure exits non-zero and none is caught:
    the state saved at step 4; then the final scheme, ``export_packed``,
    a profile of two train steps, and 4 requests served from the
    exported packed weights through the bitserial and flash kernels;
+6b. full-width ResNet-20 (width 16), f32, one batch of 64 gaussian_blobs
+   images: two BSQ steps of the paper pipeline from one state on the card
+   and on the CPU, the CPU fed the card's 4-bit activations (each input
+   held against the card's, the ones that round to the other level
+   counted): losses within 1e-5 relative, plane gradients within 1e-4 of
+   their max, masks after a requant equal;
+6c. the paper's pipeline through ``repro_torch.examples.resnet20_bsq_paper``
+   at its defaults (width 16, batch 64, 60 BSQ steps, requant every 20),
+   then 30 steps of the DoReFa finetune under the found scheme: the
+   bgl_sumsq launches checked exactly (44 per BSQ step, none while
+   finetuning), no serving kernel, every loss finite; ms per step beside
+   the step's bound, peak memory, bits/param, compression, per-layer
+   bits, held-out top-1, and a profile of three BSQ steps;
+6d. the LM examples at their defaults, each one's kernel launches
+   checked exactly: quickstart, serve_quantized (the packed export served
+   through the bitserial and flash kernels, its greedy tokens printed),
+   fault_tolerance (resumes from its own checkpoint) and train_lm_bsq cut
+   to 40 steps without a workdir (the card machine's disk);
 7. a ``{"kernels": [...]}`` line (the bitserial decode and prefill
    entries, the runtime-plane entry with phase 4d's launches, flash and
    paged also carry ``vs_library``, their time over the library call's:
@@ -158,6 +178,18 @@ BGL_SHAPES = [BGL_MLP, BGL_QO, BGL_KV, BGL_EMBED, (7, 1_000_003), (1, 33)]
 # wv and the three MLP projections
 BGL_STEP = [BGL_EMBED] * 2 + [BGL_QO] * 4 + [BGL_KV] * 4 + [BGL_MLP] * 6
 BGL_TOL = 1e-5  # of each row's plain value: f32 sums of non-negative terms
+# ... and the paper pipeline's plane views (phases 2c, 6b, 6c): each of
+# ResNet-20's 22 quantised tensors (width 16, in name order) is one group
+# of 9 planes, a (9, numel) view; a BSQ step launches the kernel on wp and
+# wn of each, 44 launches over 270,896 parameters
+RESNET_TENSOR_C = [432, 640] + [2304] * 6 + [4608, 9216, 512] + [9216] * 4 \
+    + [18432, 36864, 2048] + [36864] * 4
+RESNET_BGL_SHAPES = sorted({(9, C) for C in RESNET_TENSOR_C})
+# the paper pipeline (phase 6c) at its defaults, then the DoReFa finetune
+RESNET_WIDTH, RESNET_BATCH, RESNET_STEPS, RESNET_FT_STEPS = 16, 64, 60, 30
+# phase 6b: each quantised activation's input, card against CPU, within
+# this share of the layer's max |input| (f32 convs summed in other orders)
+RESNET_ACT_TOL = 1e-4
 # the training slice (phase 6)
 TRAIN_STEPS, TRAIN_INTERVAL = 8, 4  # steps; requant and checkpoint interval
 
@@ -1271,46 +1303,50 @@ def profile_continuous(engine, reqs, card):
 
 def bgl_kernel_phase(dev, card, time_ms):
     """Phase 2c: the bgl_sumsq kernel against its plain version at the
-    training slice's plane views and two ragged shapes, f32 and bf16."""
+    training slice's plane views and two ragged shapes, f32 and bf16, and
+    at the paper pipeline's ResNet-20 plane views, f32."""
     import torch
 
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(4)
     rows = []
-    for R, C in BGL_SHAPES:
-        for dt in (torch.float32, torch.bfloat16):
-            dname = str(dt).split(".")[-1]
-            x = torch.randn((R, C), generator=gen, device=dev).to(dt)
-            got = ops.bgl_sumsq(x)
-            want = ref.bgl_sumsq_ref(x)
-            torch.cuda.synchronize()
-            rel = ((got - want).abs() / want).max().item()
-            err = (got - want).abs().max().item()
-            what = f"bgl_sumsq ({R}, {C}) {dname}"
-            check(bool(torch.isfinite(got).all()) and rel <= BGL_TOL,
-                  f"{what} vs plain: max relative error {rel} > {BGL_TOL}")
-            check(torch.equal(got, ops.bgl_sumsq(x)), f"{what}: a second call differs")
-            row = {
-                "R": R, "C": C, "dtype": dname, "max_rel_err": rel, "max_abs_err": err,
-                "max_plain": want.max().item(),
-                "ms": time_ms(lambda: ops.bgl_sumsq(x)),
-                "plain_ms": time_ms(lambda: ref.bgl_sumsq_ref(x), iters=5),
-                "library_ms": time_ms(lambda: torch.linalg.vector_norm(x, dim=1,
-                                                                       dtype=torch.float32)),
-            }
-            # the least the card could take: x read once, the sums written once;
-            # two flops per element at the f32 rate
-            t_bytes = (x.numel() * x.element_size() + 4 * R) / HBM_BYTES_PER_S
-            t_ops = 2.0 * x.numel() / PEAK_FLOPS["float32"]
-            row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            rows.append(row)
-            print(f"[bgl] ({R}, {C}) {dname}: max rel err {rel:.3e} (abs {err:.3e} of "
-                  f"{row['max_plain']:.4e}); kernel {row['ms']:.4f} ms, bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-                  f"vector_norm {row['library_ms']:.4f} ms [{card}]", flush=True)
-            del x, got, want
+    cases = [("granite", shape, dt) for shape in BGL_SHAPES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [("resnet20", shape, torch.float32) for shape in RESNET_BGL_SHAPES]
+    for model, (R, C), dt in cases:
+        dname = str(dt).split(".")[-1]
+        x = torch.randn((R, C), generator=gen, device=dev).to(dt)
+        got = ops.bgl_sumsq(x)
+        want = ref.bgl_sumsq_ref(x)
+        torch.cuda.synchronize()
+        rel = ((got - want).abs() / want).max().item()
+        err = (got - want).abs().max().item()
+        what = f"bgl_sumsq ({R}, {C}) {dname}"
+        check(bool(torch.isfinite(got).all()) and rel <= BGL_TOL,
+              f"{what} vs plain: max relative error {rel} > {BGL_TOL}")
+        check(torch.equal(got, ops.bgl_sumsq(x)), f"{what}: a second call differs")
+        row = {
+            "model": model, "R": R, "C": C, "dtype": dname, "max_rel_err": rel,
+            "max_abs_err": err,
+            "max_plain": want.max().item(),
+            "ms": time_ms(lambda: ops.bgl_sumsq(x)),
+            "plain_ms": time_ms(lambda: ref.bgl_sumsq_ref(x), iters=5),
+            "library_ms": time_ms(lambda: torch.linalg.vector_norm(x, dim=1,
+                                                                   dtype=torch.float32)),
+        }
+        # the least the card could take: x read once, the sums written once;
+        # two flops per element at the f32 rate
+        t_bytes = (x.numel() * x.element_size() + 4 * R) / HBM_BYTES_PER_S
+        t_ops = 2.0 * x.numel() / PEAK_FLOPS["float32"]
+        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rows.append(row)
+        print(f"[bgl] {model} ({R}, {C}) {dname}: max rel err {rel:.3e} (abs {err:.3e} of "
+              f"{row['max_plain']:.4e}); kernel {row['ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+              f"vector_norm {row['library_ms']:.4f} ms [{card}]", flush=True)
+        del x, got, want
     print(f"[bgl] kernel == plain within {BGL_TOL} relative per row; second calls bitwise "
           "equal", flush=True)
     return rows
@@ -1611,6 +1647,393 @@ def bsq_slice(dev, card):
             "restore_s": resumed["restore_s"], "ckpt_bytes": resumed["nbytes"],
             "profile": prof,
             "serve_s": serve_s, "tokens": toks.tolist(), "serve_bitserial_launches": expected}
+
+
+def _launch_counts():
+    from repro_torch.kernels import bgl_sumsq as bgl
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    return {"bgl_sumsq": bgl.launches, "bitserial_matmul": bsm.launches,
+            "paged_attention": pa.launches, "flash_attention": fa.launches}
+
+
+def _reset_launches() -> None:
+    from repro_torch.kernels import bgl_sumsq as bgl
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    for m in (bgl, bsm, pa, fa):
+        m.reset_launches()
+
+
+def resnet_parity(dev, card):
+    """Phase 6b: full-width ResNet-20 (width 16), f32, one batch of 64
+    gaussian_blobs images: two BSQ steps of the paper pipeline from one
+    state on the card and on the CPU, then a requant.
+
+    A 4-bit activation is a step function of its input, and its STE
+    derivative (1 inside ReLU6's [0, 6], 0 outside) another: where the
+    card's and the CPU's f32 sums put an input on either side of a level
+    boundary, the two activations differ by a whole level (0.4), and where
+    they put it on either side of 0 or 6, the gradient through it differs
+    by the whole upstream gradient; both changes spread.  So the CPU side
+    is fed the card's activation values and derivatives: each activation's
+    input is held against the card's within RESNET_ACT_TOL of the layer's
+    max, and the activations and derivatives the CPU would have taken
+    otherwise (their inputs then lie within that tolerance of a boundary)
+    are counted.  Then the losses agree within 1e-5 relative, every plane
+    gradient within 1e-4 of its max |CPU grad|, and the masks after
+    requant are equal.  The free-running loss gap is printed beside it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import gaussian_blobs
+    from repro_torch.examples import resnet20_bsq_paper as paper
+    from repro_torch.kernels import bgl_sumsq as bgl
+    from repro_torch.models import resnet
+    from repro_torch.tree import tree_map
+
+    cpu = torch.device("cpu")
+    p_cpu = resnet.init_resnet20(torch.Generator().manual_seed(0), width=RESNET_WIDTH,
+                                 device=cpu)
+    runs = {"cuda": paper.PaperBSQ(tree_map(lambda x: x.to(dev, copy=True), p_cpu),
+                                   RESNET_WIDTH),
+            "cpu": paper.PaperBSQ(p_cpu, RESNET_WIDTH)}
+    b = gaussian_blobs(np.random.default_rng(0), RESNET_BATCH)
+    data = {n: (torch.from_numpy(b["images"]).to(d), torch.from_numpy(b["labels"]).long().to(d))
+            for n, d in (("cuda", dev), ("cpu", cpu))}
+    _reset_launches()
+    with torch.no_grad():
+        free = {n: float(runs[n].loss(runs[n].trainable, *data[n])[0]) for n in runs}
+
+    orig_act = resnet._act
+    recorded = []
+    forced = {"flips": 0, "derivative_flips": 0, "acts": 0, "max_rel_err": 0.0, "calls": 0}
+
+    def derivative(x, act_bits):
+        """d act / dx, elementwise (the STE's)."""
+        xd = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            return torch.autograd.grad(orig_act(xd, act_bits).sum(), xd)[0]
+
+    def record(x, act_bits):
+        y = orig_act(x, act_bits)
+        recorded.append((x.detach().cpu(), y.detach().cpu(), derivative(x, act_bits).cpu()))
+        return y
+
+    def replay(x, act_bits):
+        x_card, y_card, d_card = recorded.pop(0)
+        scale = x_card.abs().max().item()
+        rel = (x.detach() - x_card).abs().max().item() / max(scale, 1e-30)
+        forced["max_rel_err"] = max(forced["max_rel_err"], rel)
+        # the STE's value and derivative differ by an ulp between the devices
+        # anyway: count what moved by half a level, or from 0 to 1
+        half_level = 3.0 / (2**act_bits - 1)
+        forced["flips"] += int(((orig_act(x.detach(), act_bits) - y_card).abs()
+                                > half_level).sum())
+        forced["derivative_flips"] += int(((derivative(x, act_bits) - d_card).abs()
+                                           > 0.5).sum())
+        forced["acts"] += x.numel()
+        forced["calls"] += 1
+        return y_card + (x - x.detach()) * d_card  # the card's value and derivative
+
+    steps = []
+    try:
+        for i in range(2):
+            got = {}
+            for name, act in (("cuda", record), ("cpu", replay)):
+                resnet._act = act
+                got[name] = runs[name].grads(*data[name])
+            resnet._act = orig_act
+            check(not recorded, f"step {i}: {len(recorded)} card activations not replayed")
+            (lc, mc, gc_), (lp, mp, gp) = got["cuda"], got["cpu"]
+            rec = {"loss": (float(lc), float(lp)), "ce": (float(mc["ce"]), float(mp["ce"]))}
+            check(abs(float(lc) - float(lp)) <= 1e-5 * abs(float(lp)),
+                  f"step {i}: loss card {float(lc)} vs cpu {float(lp)}")
+            worst = 0.0
+            for name in gp:
+                for k in ("wp", "wn"):
+                    want = gp[name][k]
+                    d = (gc_[name][k].cpu() - want).abs().max().item()
+                    rel = d / max(want.abs().max().item(), 1e-30)
+                    worst = max(worst, rel)
+                    check(rel <= 1e-4, f"step {i}: {name} {k} gradient differs by {rel:.3e} of "
+                                       "its max |CPU grad|")
+            rec["max_plane_grad_rel_err"] = worst
+            steps.append(rec)
+            for name in runs:
+                runs[name].apply(got[name][2])
+    finally:
+        resnet._act = orig_act
+    check(forced["max_rel_err"] <= RESNET_ACT_TOL,
+          f"activation inputs differ by {forced['max_rel_err']:.3e} of the layer's max")
+    for r in runs.values():
+        r.requant()
+    masks = {n: {k: r.mask for k, r in runs[n].reps.items()} for n in runs}
+    for name in masks["cpu"]:
+        check(torch.equal(masks["cuda"][name].cpu(), masks["cpu"][name]),
+              f"masks after requant differ for {name}")
+    launches = _launch_counts()
+    expected = 3 * 2 * len(RESNET_TENSOR_C)  # the free-running loss and two steps
+    check(launches["bgl_sumsq"] == expected,
+          f"{launches['bgl_sumsq']} bgl_sumsq launches on the card, expected {expected}")
+    print(f"[resnet-parity] ResNet-20 width {RESNET_WIDTH}, f32, batch {RESNET_BATCH}, 2 BSQ "
+          f"steps card vs cpu: losses {[r['loss'] for r in steps]} within 1e-5 relative; plane "
+          f"gradients within {max(r['max_plane_grad_rel_err'] for r in steps):.3e} of max "
+          f"(limit 1e-4); masks after requant equal; activations forced from the card: "
+          f"{forced['calls']} calls, inputs within {forced['max_rel_err']:.3e} of the layer max "
+          f"(limit {RESNET_ACT_TOL}), {forced['flips']} of {forced['acts']:,} rounded to the "
+          f"other level, {forced['derivative_flips']} took the other derivative; free-running "
+          f"first loss card {free['cuda']:.7f} cpu {free['cpu']:.7f} "
+          f"(gap {abs(free['cuda'] - free['cpu']) / free['cpu']:.3e} relative); "
+          f"{bgl.launches} bgl_sumsq launches [{card}]", flush=True)
+    return {"steps": steps, "forced": forced, "free_loss": free, "launches": launches}
+
+
+def resnet_step_bound_ms(width, batch, n_quantised, planes=9, img=32, classes=10):
+    """The least time of one BSQ step of ResNet-20: its convs' and fc's
+    operations, forward and backward (twice the forward: the input's and
+    the kernel's gradients), at the f32 rate (TF32 is off), against the
+    plane state's bytes (wp and wn read and written by the update, their
+    gradients written and read, the momentum read and written)."""
+    def conv(k, cin, cout, size):
+        return 2.0 * batch * size * size * k * k * cin * cout
+
+    flops, cin, size = conv(3, 3, width, img), width, img
+    for stage in range(3):
+        cout = width * 2**stage
+        for blk in range(3):
+            stride = 2 if stage > 0 and blk == 0 else 1
+            size //= stride
+            flops += conv(3, cin, cout, size) + conv(3, cout, cout, size)
+            if stride != 1 or cin != cout:
+                flops += conv(1, cin, cout, size)
+            cin = cout
+    flops = 3 * (flops + 2.0 * batch * cin * classes)
+    nbytes = 6 * 2 * planes * 4 * n_quantised
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def profile_resnet(dev, card, steps=3):
+    """torch.profiler over BSQ steps of a fresh ResNet-20 pipeline state
+    (after one unprofiled step): device busy time and idle share, device
+    kernels per step, bgl_sumsq's share, the top device ops."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import gaussian_blobs
+    from repro_torch.examples import resnet20_bsq_paper as paper
+    from repro_torch.models import resnet
+
+    run = paper.PaperBSQ(resnet.init_resnet20(torch.Generator(device=dev).manual_seed(1),
+                                              width=RESNET_WIDTH, device=dev), RESNET_WIDTH)
+    b = gaussian_blobs(np.random.default_rng(1), RESNET_BATCH)
+    images, labels = torch.from_numpy(b["images"]).to(dev), torch.from_numpy(b["labels"]).to(dev)
+    run.step(images, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run.step(images, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_name = device_ms_by_name(prof)
+    if not by_name:
+        print(f"[profile] ResNet-20 BSQ step: wall {wall_ms:.2f} ms under the profiler; device "
+              f"time not measured (the profiler saw no device events) [{card}]")
+        return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": None}
+    busy = sum(t for t, _ in by_name.values()) / steps
+    kernels = sum(n for _, n in by_name.values()) / steps
+    bgl_ms = sum(t for k, (t, _) in by_name.items() if "bgl_" in k) / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    print(f"[profile] ResNet-20 BSQ step (width {RESNET_WIDTH}, batch {RESNET_BATCH}): wall "
+          f"{wall_ms:.2f} ms under the profiler, device busy {busy:.3f} ms (idle "
+          f"{1 - busy / wall_ms:.1%}), {kernels:.0f} device kernels per step; bgl_sumsq "
+          f"{bgl_ms:.3f} ms per step [{card}]", flush=True)
+    for name, (t, n) in top:
+        print(f"[profile]   {t / steps:9.3f} ms/step {n / steps:6.0f}x  {name[:90]}")
+    return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
+            "kernels_per_step": kernels, "bgl_ms_per_step": bgl_ms,
+            "top": [{"name": k, "ms_per_step": t / steps, "count_per_step": n / steps}
+                    for k, (t, n) in top]}
+
+
+def paper_slice(dev, card):
+    """Phase 6c: the paper's pipeline on the card at its defaults (ResNet-20
+    width 16, batch 64, 60 BSQ steps, requant at 20/40/60), then the
+    DoReFa finetune under the found scheme; the bgl_sumsq launches checked
+    exactly (two per quantised tensor per BSQ step, none while
+    finetuning) and no serving kernel launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch.examples import resnet20_bsq_paper as paper
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = paper.main(steps=RESNET_STEPS, width=RESNET_WIDTH, batch=RESNET_BATCH)
+    torch.cuda.synchronize()
+    bsq_s = time.perf_counter() - t0
+    bsq_launches = _launch_counts()
+    bsq_peak = torch.cuda.max_memory_allocated()
+    scheme, hist = out["scheme"], out["history"]
+    sizes = sorted(scheme.group_numel[k] * scheme.bits[k].size for k in scheme.bits)
+    check(sizes == sorted(RESNET_TENSOR_C), f"quantised tensor sizes {sizes}")
+    expected = 2 * len(scheme.bits) * RESNET_STEPS
+    check(bsq_launches["bgl_sumsq"] == expected,
+          f"{bsq_launches['bgl_sumsq']} bgl_sumsq launches, expected {expected} "
+          f"(2 x {len(scheme.bits)} tensors x {RESNET_STEPS} steps)")
+    check(bsq_launches["bitserial_matmul"] == bsq_launches["paged_attention"]
+          == bsq_launches["flash_attention"] == 0,
+          f"the BSQ pipeline launched serving kernels: {bsq_launches}")
+    check([h["step"] for h in hist] == list(range(1, RESNET_STEPS + 1)), "history steps")
+    for h in hist:
+        check(all(np.isfinite(h[k]) for k in ("loss", "ce", "acc")),
+              f"non-finite metrics at BSQ step {h['step']}: {h}")
+    step_ms = 1e3 * float(np.median([h["dt"] for h in hist[1:]]))
+    bound_ms, bound_by, flops = resnet_step_bound_ms(RESNET_WIDTH, RESNET_BATCH,
+                                                     sum(RESNET_TENSOR_C))
+    prof = profile_resnet(dev, card)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    ft = paper.finetune(scheme, out["params"], steps=RESNET_FT_STEPS, width=RESNET_WIDTH,
+                        batch=RESNET_BATCH)
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t0
+    ft_launches = _launch_counts()
+    ft_peak = torch.cuda.max_memory_allocated()
+    check(all(v == 0 for v in ft_launches.values()),
+          f"the finetune launched kernels: {ft_launches}")
+    for h in ft["history"]:
+        check(np.isfinite(h["ce"]) and np.isfinite(h["acc"]),
+              f"non-finite metrics at finetune step {h['step']}: {h}")
+    ft_ms = 1e3 * float(np.median([h["dt"] for h in ft["history"][1:]]))
+    bits = scheme.layer_bits()
+    print(f"[paper] ResNet-20 width {RESNET_WIDTH} (16/32/64, 3x3 basic blocks), BSQ from 8 "
+          f"bits, one group per tensor, 4-bit ReLU6 activations, SGDM 0.9 / wd 1e-4, lr "
+          f"{paper.LR}, alpha {paper.ALPHA}, batch {RESNET_BATCH} gaussian_blobs, requant every "
+          f"{paper.REQUANT_INTERVAL}: {RESNET_STEPS} steps in {bsq_s:.2f} s, {step_ms:.2f} ms per "
+          f"step (median of steps 2-{RESNET_STEPS}; step 1 {1e3 * hist[0]['dt']:.1f}; bound "
+          f"{bound_ms:.4f} ms, {bound_by}: {flops / 1e9:.2f} GFLOP at the f32 rate), peak "
+          f"{bsq_peak / 1e6:.1f} MB; bgl_sumsq launches {bsq_launches['bgl_sumsq']} == "
+          f"{expected} [{card}]", flush=True)
+    for h in hist:
+        if "bits_per_param" in h:
+            print(f"[paper]   step {h['step']}: loss {h['loss']:.4f} ce {h['ce']:.4f} acc "
+                  f"{h['acc']:.3f} bits/param {h['bits_per_param']:.4f} comp "
+                  f"{h['compression']:.4f}x")
+    print(f"[paper] scheme: {scheme.bits_per_param:.4f} bits/param, compression "
+          f"{scheme.compression:.4f}x vs f32; per layer: "
+          + ", ".join(f"{k}={v:.0f}" for k, v in bits.items()), flush=True)
+    print(f"[paper] DoReFa finetune under the scheme (lr {paper.FT_LR}, BN on batch "
+          f"statistics): {RESNET_FT_STEPS} steps in {ft_s:.2f} s, "
+          f"{ft_ms:.2f} ms per step, peak {ft_peak / 1e6:.1f} MB, ce {ft['history'][0]['ce']:.4f}"
+          f" -> {ft['history'][-1]['ce']:.4f}; held-out top-1 (256 images): after BSQ "
+          f"{out['eval_acc']:.4f}, after finetune {ft['eval_acc']:.4f} [{card}]", flush=True)
+    return {"bsq_s": bsq_s, "ms_per_step": step_ms, "bound_ms_per_step": bound_ms,
+            "bound_by": bound_by, "flops_per_step": flops, "profile": prof,
+            "step_dt_s": [h["dt"] for h in hist],
+            "peak_bytes": bsq_peak, "launches": bsq_launches, "history": hist,
+            "bits_per_param": scheme.bits_per_param, "compression": scheme.compression,
+            "layer_bits": bits, "eval_acc": out["eval_acc"], "ft_s": ft_s,
+            "ft_ms_per_step": ft_ms, "ft_peak_bytes": ft_peak, "ft_launches": ft_launches,
+            "ft_history": ft["history"], "ft_eval_acc": ft["eval_acc"]}
+
+
+def lm_examples(dev, card):
+    """Phase 6d: the LM examples on the card at their defaults, each
+    with its kernels' launches counted exactly: quickstart (200 BSQ steps
+    of reduced granite-3-2b), serve_quantized (120 steps, then 8 requests x
+    32 tokens served from the packed export: bitserial and flash),
+    fault_tolerance (20 steps, host 2 dies, resume to 30), train_lm_bsq
+    (the 12 x 512 LM, cut to 40 steps with requant at 20 and no workdir:
+    its 12 GB checkpoint would add to phase 6's 32 GB on the card
+    machine's disk)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.examples import fault_tolerance, quickstart, serve_quantized, train_lm_bsq
+
+    report = {}
+
+    def run(name, fn, want):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rec = {"s": time.perf_counter() - t0, "launches": _launch_counts(),
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        expected = {k: 0 for k in rec["launches"]}
+        expected.update(want(out))
+        check(rec["launches"] == expected,
+              f"{name}: kernel launches {rec['launches']}, expected {expected}")
+        report[name] = rec
+        print(f"[examples] {name}: {rec['s']:.2f} s, peak {rec['peak_bytes'] / 1e9:.3f} GB, "
+              f"launches {rec['launches']} as counted [{card}]", flush=True)
+        return out
+
+    def bgl_per_step(out):
+        return 2 * len(out["scheme"].bits)
+
+    q = run("quickstart", lambda: quickstart.main([]),
+            lambda o: {"bgl_sumsq": bgl_per_step(o) * 200})
+    check(all(np.isfinite([h["ce"], h["reg"]]).all() for h in q["history"]),
+          f"quickstart: non-finite history {q['history']}")
+    report["quickstart"]["bits_per_param"] = q["scheme"].bits_per_param
+    del q
+
+    def served(o):
+        n_layers, n_new = o["cfg"].n_layers, 32
+        return {"bgl_sumsq": bgl_per_step(o) * 120,
+                "bitserial_matmul": n_new * n_layers * 7,  # each model call, 7 projections
+                "flash_attention": n_layers}  # one prefill of the single bucket
+
+    s = run("serve_quantized", lambda: serve_quantized.main([]), served)
+    toks = np.stack([r.tokens for r in sorted(s["results"], key=lambda r: r.uid)])
+    check(toks.shape == (8, 32) and ((toks >= 0) & (toks < s["cfg"].vocab_size)).all(),
+          f"serve_quantized tokens {toks.shape}")
+    report["serve_quantized"].update(tokens=toks.tolist(),
+                                     bits_per_param=s["scheme"].bits_per_param,
+                                     packed_route_bytes=serve_quantized.tree_bytes(s["params"]),
+                                     float_route_bytes=serve_quantized.tree_bytes(
+                                         s["float_params"]))
+    print(f"[examples] serve_quantized greedy tokens (packed route): {toks.tolist()}", flush=True)
+    del s
+
+    f = run("fault_tolerance", lambda: fault_tolerance.main([]),
+            lambda o: {"bgl_sumsq": 16 * 30})  # 8 quantised tensors, 20 + 10 steps
+    check((f["phase1_step"], f["resumed_from"], f["phase2_step"]) == (20, 20, 30)
+          and 2 not in f["survivors"], f"fault_tolerance: {f}")
+    report["fault_tolerance"].update(resumed_from=f["resumed_from"], status=f["status"])
+    del f
+
+    t = run("train_lm_bsq",
+            lambda: train_lm_bsq.main(["--steps", "40", "--requant-interval", "20",
+                                       "--workdir", ""]),
+            lambda o: {"bgl_sumsq": bgl_per_step(o) * 40})
+    check([h["step"] for h in t["history"]] == [20, 40]
+          and all(np.isfinite(h["total"]) for h in t["history"]),
+          f"train_lm_bsq history {t['history']}")
+    report["train_lm_bsq"].update(history=t["history"],
+                                  bits_per_param=t["scheme"].bits_per_param)
+    print(f"[examples] train_lm_bsq (12 x 512, 81M quantised parameters, batch 8 x 128): step "
+          f"20 {1e3 * t['history'][0]['dt']:.1f} ms, step 40 {1e3 * t['history'][1]['dt']:.1f} "
+          f"ms; ce {t['history'][0]['ce']:.4f} -> {t['history'][1]['ce']:.4f}", flush=True)
+    del t
+    return report
 
 
 def bitserial_case(dev, gen, card, time_ms, M, K, N, groups, dt, profile=False):
@@ -2057,6 +2480,17 @@ def kernel_entries(report, max_err):
         "work": "the 16 launches of one BSQ train step of 2-layer full-width granite-3-2b: "
                 "wp and wn of its 8 plane tensors, f32, 16.04 GB",
     }
+    # the paper pipeline's step (phase 6c): wp and wn of ResNet-20's 22 tensors
+    r_rows = [b_rows[(9, C, "float32")] for C in RESNET_TENSOR_C for _ in range(2)]
+    b_entry.update({
+        "launches_resnet": report["paper"]["launches"]["bgl_sumsq"],
+        "ms_resnet_step": sum(r["ms"] for r in r_rows),
+        "plain_ms_resnet_step": sum(r["plain_ms"] for r in r_rows),
+        "bound_ms_resnet_step": sum(r["bound_ms"] for r in r_rows),
+        "library_ms_resnet_step": sum(r["library_ms"] for r in r_rows),
+        "work_resnet": "the 44 launches of one BSQ step of ResNet-20 (width 16): wp and wn of "
+                       "its 22 tensors, (9, numel) each, f32, 270,896 parameters, 19.5 MB",
+    })
     # one gemma3-12b prefill call's attention: 40 windowed and 8 causal
     # launches at B = 2, S = 4096 (bf16), the bucketed run's main path
     f_rows = {(r["case"], r["dtype"]): r for r in report["flash"]}
@@ -2240,6 +2674,15 @@ def main() -> int:
     if want("6"):
         report["bsq"] = bsq_slice(dev, card)
         phase_done("6")
+    if want("6b"):
+        report["resnet_parity"] = resnet_parity(dev, card)
+        phase_done("6b")
+    if want("6c"):
+        report["paper"] = paper_slice(dev, card)
+        phase_done("6c")
+    if want("6d"):
+        report["lm_examples"] = lm_examples(dev, card)
+        phase_done("6d")
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

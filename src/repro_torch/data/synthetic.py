@@ -1,11 +1,13 @@
-"""Deterministic synthetic token streams (a copy of the numpy-only
-``MarkovLM`` of ``repro.data.synthetic``; the launcher draws its
-prompts from it).
+"""Deterministic synthetic datasets with learnable structure (a copy of
+the numpy-only ``repro.data.synthetic``: both packages draw the same
+tokens and images from one seed).
 
-:class:`MarkovLM` — an order-1 Markov token stream whose transition
-matrix is a low-entropy random sparse matrix derived from a seed: a
-model that learns the bigram statistics gets a much lower CE than
-uniform, so compression-induced degradation is measurable.
+* :class:`MarkovLM` — an order-1 Markov token stream whose transition
+  matrix is a low-entropy random sparse matrix derived from a seed: a
+  model that learns the bigram statistics gets a much lower CE than
+  uniform, so compression-induced degradation is measurable.
+* :func:`gaussian_blobs` — class-conditional Gaussian images in the
+  CIFAR-10 shape (32x32x3, 10 classes) for the ResNet-20 pipeline.
 """
 from __future__ import annotations
 
@@ -45,3 +47,16 @@ class MarkovLM:
         """Mean next-token entropy (nats) — the best achievable CE."""
         p = self.probs
         return float(np.mean(-np.sum(p * np.log(np.maximum(p, 1e-12)), axis=1)))
+
+
+def gaussian_blobs(
+    rng: np.random.Generator, batch: int, num_classes: int = 10, img: int = 32, noise: float = 0.6
+):
+    """CIFAR-10-shaped class-conditional images: per-class fixed mean
+    pattern + Gaussian noise.  Linearly separable-ish but benefits from
+    depth at high noise."""
+    master = np.random.default_rng(1234)  # class patterns independent of rng
+    patterns = master.normal(size=(num_classes, img, img, 3)).astype(np.float32)
+    labels = rng.integers(0, num_classes, size=batch)
+    x = patterns[labels] + noise * rng.normal(size=(batch, img, img, 3)).astype(np.float32)
+    return {"images": x.astype(np.float32), "labels": labels.astype(np.int32)}

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..core.packing import PACKABLE_SUFFIXES, PackedWeight, tree_map_with_path
+from ..core.bsq import merge_params
+from ..core.packing import PACKABLE_SUFFIXES, PackedWeight, tree_map_with_path, unpack_to_float
 from ..device import resolve_device
 from ..models import transformer
 from ..obs import Observability
@@ -90,6 +91,15 @@ def serving_params(params, cfg: ModelConfig, device: torch.device):
         return leaf
 
     return tree_map_with_path(place, params)
+
+
+def dequantize_packed_params(template, packed: Dict[str, PackedWeight],
+                             floats: Dict[str, torch.Tensor]):
+    """Materialise a float param tree from a BSQ packed export: the plain
+    route (``unpack_to_float``), where the bitserial kernel dequantises
+    inside the matmul instead."""
+    return merge_params(template, {name: unpack_to_float(pw) for name, pw in packed.items()},
+                        floats)
 
 
 class ServeEngine:

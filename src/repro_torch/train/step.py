@@ -98,7 +98,7 @@ def bsq_loss(trainable, masks, batch, ctx: BSQTrainContext):
     return total, dict(metrics, reg=reg, total=total)
 
 
-def _grad(fn: Callable, tree):
+def value_and_grad(fn: Callable, tree):
     """``fn(tree) -> (loss, metrics)``; returns (loss, metrics) detached and
     the gradient tree (zeros where ``fn`` does not depend on a leaf)."""
     named = flatten_with_path(tree)
@@ -145,7 +145,8 @@ def make_bsq_train_step(
     alpha = ctx.bsq_cfg.alpha
 
     def single_grads(trainable, masks, batch):
-        loss, metrics, grads = _grad(lambda tr: bsq_loss(tr, masks, batch, ctx), trainable)
+        loss, metrics, grads = value_and_grad(lambda tr: bsq_loss(tr, masks, batch, ctx),
+                                              trainable)
         return (loss, metrics), grads
 
     def hoisted_grads(trainable, masks, batch):
@@ -215,7 +216,7 @@ def make_bsq_train_step(
             reps = _reps_from_state(tr, masks, ctx.meta)
             return alpha * bsq_mod.regularizer(reps, ctx.bsq_cfg, ctx.total_quant_params), {}
 
-        return _grad(reg_loss, trainable)[2]
+        return value_and_grad(reg_loss, trainable)[2]
 
     def train_step(state, batch):
         (loss, metrics), grads = accumulated_grads(state["trainable"], state["masks"], batch)
@@ -276,8 +277,8 @@ def init_plain_state(generator: torch.Generator, cfg: ModelConfig, optimizer, de
 
 def make_plain_train_step(cfg: ModelConfig, optimizer, lr_fn, grad_clip: Optional[float] = 1.0):
     def train_step(state, batch):
-        loss, metrics, grads = _grad(lambda p: transformer.loss_fn(p, batch, cfg),
-                                     state["params"])
+        loss, metrics, grads = value_and_grad(lambda p: transformer.loss_fn(p, batch, cfg),
+                                              state["params"])
         if grad_clip is not None:
             grads, metrics["grad_norm"] = clip_by_global_norm(grads, grad_clip)
         lr = lr_fn(state["step"])

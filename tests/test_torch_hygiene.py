@@ -30,7 +30,11 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.optim.optimizers", "repro_torch.data.pipeline",
             "repro_torch.ckpt.checkpoint", "repro_torch.train.step",
             "repro_torch.train.trainer", "repro_torch.launch.train",
-            "repro_torch.tree", "repro_torch.kernels.flash_attention"} <= set(mods)
+            "repro_torch.tree", "repro_torch.kernels.flash_attention",
+            "repro_torch.models.resnet", "repro_torch.core.qat", "repro_torch.train.ft",
+            "repro_torch.examples.resnet20_bsq_paper", "repro_torch.examples.quickstart",
+            "repro_torch.examples.serve_quantized", "repro_torch.examples.train_lm_bsq",
+            "repro_torch.examples.fault_tolerance"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
