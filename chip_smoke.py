@@ -14,8 +14,12 @@ failure exits non-zero and none is caught:
 2. hold the bitserial kernel against its plain PyTorch version at the
    main path's shapes (granite-3-2b's projections at M 4 and 512, f32 and
    bf16, per-tensor and per-group scales; gemma3-12b's 7 projections in
-   bf16 at decode, M 2, and at its 2 x 4096-token prefill, M 8192), check
-   a second call bitwise equal, ``active=a`` bitwise against
+   bf16 at decode, M 2, and at its 2 x 4096-token prefill, M 8192;
+   the MoE slices' projections and heads in bf16 at the M their paths
+   run: qwen2-moe-a2.7b's 2048 x 2048 at M 8, 2048 and 4096 and its 2048
+   x 152064 head at M 4 and 8, phi3.5-moe's 4096 x 4096 and 4096 x 1024
+   at M 4 and 1024 and its 4096 x 32256 head at M 4), check a second call
+   bitwise equal, ``active=a`` bitwise against
    ``truncate_packed`` for every a, and that decode runs the split-K
    kernel and bf16 prefill the wgmma tile (the profiler names both; a
    profiler session whose trace holds no device event is taken again),
@@ -29,8 +33,9 @@ failure exits non-zero and none is caught:
    M for every a, timed beside it;
 2b. hold the paged-attention kernel against its plain version at the
    continuous slices' shapes (granite-3-2b's d 64, G 4: f32, bf16, one
-   windowed case; gemma3-12b's global layers, d 256, G 2: f32, bf16;
-   ragged positions with inactive lanes), check that scrambled stale
+   windowed case; gemma3-12b's global layers, d 256, G 2: f32, bf16; the
+   MoE slices' d 128 at G 1 (qwen2-moe, MHA) and G 4 (phi3.5-moe): f32,
+   bf16; ragged positions with inactive lanes), check that scrambled stale
    table entries and NaN in never-live blocks leave its output bitwise
    unchanged, and time the kernel, the plain version and one
    ``scaled_dot_product_attention`` call on K/V already gathered into
@@ -45,7 +50,9 @@ failure exits non-zero and none is caught:
    call;
 2d. hold the flash-attention kernel against its plain version at the
    prefill shapes (granite-3-2b's bucket, gemma3-12b's 2 x 4096 tokens
-   causal and with window 1024, a non-causal case, a ragged length),
+   causal and with window 1024, a non-causal case, a ragged length,
+   qwen2-moe's 4 x 1024 tokens at d 128 MHA, phi3.5-moe's 4 x 256 at d
+   128 G 4),
    f32 within 1e-5 and bf16 within 2e-2 of max |plain|, a second call
    bitwise equal, and time the kernel, the plain version and one
    ``scaled_dot_product_attention`` call (a yardstick only); 2b and 2d
@@ -69,6 +76,15 @@ failure exits non-zero and none is caught:
    preempts; identical tokens, plane logs and counts, the card's replay
    of each plane log equal to its tokens, spec tokens equal to a
    non-speculative run's, the host syncs of each spec round counted;
+3f. full-width qwen2-moe-a2.7b cut to 2 layers, f32, 6-bit packed, card
+   against CPU (the same weights unpacked to f32) through the bucketed
+   engine (prompts of 64 and 200 tokens) and the chunked paged-kernel
+   engine (chunks of 64, 4 lanes): the CPU routes every MoE call as the
+   card did (routing is a step function of gates that the two sum in
+   other orders; the tokens that would have routed otherwise are
+   counted), every logit row within the phase-3 tolerance, identical
+   greedy tokens, launches exact, the share of dropped assignments
+   printed; then phase 3c's two BSQ steps on reduced qwen2-moe;
 4. full-width 40-layer granite-3-2b, bf16, 6-bit packed, served by the
    bucketed ServeEngine (8 requests, two buckets, 32 tokens each), with
    the bitserial and flash launch counts checked exactly;
@@ -93,6 +109,25 @@ failure exits non-zero and none is caught:
    paged, the paged kernel; 8 lanes, 16 requests with prompts uniform in
    [512, 3072] on Poisson arrivals; exactly 8 paged launches per decode
    step, the pool drained), and a profiled decode step;
+4e. full-width, full-depth qwen2-moe-a2.7b (24 layers, 60 routed experts
+   top-4 and 4 shared, MHA, untied 152064-row head), bf16, 6-bit packed
+   attention and head, bf16 experts: bucketed (two buckets of 4, prompts
+   of 128 and 1024 tokens, 32 new each; exactly 97 bitserial launches per
+   prefill call or decode step and 24 flash per prefill call) and
+   continuous (chunks of 256, paged, the paged kernel; 8 lanes, 256
+   blocks of 32 rows, 16 requests with prompts uniform in [64, 1024] on
+   Poisson arrivals; exactly 24 paged launches per decode step, the pool
+   drained): TTFT beside its operation bound, decode ms per step beside
+   its byte bound (the experts the step's routing needs, and every
+   expert, which the dense (E, C) dispatch reads), tokens/s, peak
+   memory, the
+   weights' bytes, the dropped share per mode, a profiled decode step
+   with the expert products' device time, and one layer's expert
+   products by CUDA events;
+4f. phi3.5-moe-42b-a6.6b at its full width cut to 4 of 32 layers (its
+   experts, never packed, would take 80.5 GB in bf16), bf16, 6-bit
+   packed: bucketed, 4 requests of 256 prompt tokens, 16 new, launches
+   exact;
 6. the BSQ training slice: full-width granite-3-2b cut to 2 layers,
    trained through ``repro_torch.launch.train.run``: 4 steps with a
    requant and a checkpoint at step 4, then a second run that resumes
@@ -125,8 +160,10 @@ failure exits non-zero and none is caught:
 7. a ``{"kernels": [...]}`` line (the bitserial decode and prefill
    entries, the runtime-plane entry with phase 4d's launches, flash and
    paged also carry ``vs_library``, their time over the library call's:
-   below 1 beats it), the card's name and power limit, and the final
-   ``{"ok": true, ...}`` line.
+   below 1 beats it; the bitserial, flash, paged and bgl_sumsq entries
+   add the MoE phases' launches and the kernels at their shapes), the
+   card's name and power limit, and the final ``{"ok": true, ...}``
+   line.
 
 Exits non-zero without a CUDA device, and when the repo's ``src`` is not
 beside it.  The per-shape table goes to ``chiprun_out/chip_smoke.json``.
@@ -139,6 +176,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -153,6 +191,19 @@ LAYER_PROJ = [(2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
 GEMMA3_PROJ = [(3840, 4096), (3840, 2048), (3840, 2048), (4096, 3840),
                (3840, 15360), (3840, 15360), (15360, 3840)]
 GEMMA3_M = (2, 8192)
+# the MoE slices' packed projections, as ((K, N), the M values their paths
+# run), in bf16.  qwen2-moe-a2.7b (phase 4e): q, k, v and o are 2048 x 2048,
+# at 8 lanes (continuous decode), a chunk of 8 lanes x 256 tokens and the
+# 4 x 1024-token bucket (M 4 and 512, the bucket of 4 x 128, are granite's
+# rows above); its untied head (2048 x 152064) runs on each lane's last
+# token only: M 4 (a bucket) and 8 (the lanes).  phi3.5-moe-42b-a6.6b
+# (phase 4f, a bucket of 4 x 256 tokens): q and o 4096 x 4096, k and v
+# 4096 x 1024 at M 4 and 1024, its head 4096 x 32256 at M 4
+QWEN2_PROJ, QWEN2_HEAD = (2048, 2048), (2048, 152064)
+PHI_PROJ = [(4096, 4096), (4096, 1024)]
+PHI_HEAD = (4096, 32256)
+MOE_ROWS = [(QWEN2_PROJ, (8, 2048, 4096)), (QWEN2_HEAD, (4, 8))] \
+    + [(kn, (4, 1024)) for kn in PHI_PROJ] + [(PHI_HEAD, (4,))]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of max |plain|, see phase 2
 # paged attention, of max |plain|: f32, an online softmax against a
 # one-pass one; bf16, the kernel rounds K to q's dtype and p to V's dtype
@@ -168,6 +219,15 @@ ACTIVE_M = (SLOTS, SLOTS * GAMMA, 40)
 # gemma3-12b's continuous run (phase 4c): 8 lanes, 512 blocks of 32 rows,
 # prompts up to 3072 tokens and 32 new ones
 G_MAX_LEN, G_N_BLOCKS = 3104, 512
+# the MoE slices: qwen2-moe-a2.7b's continuous run (phase 4e) on 8 lanes,
+# 256 blocks of 32 rows, chunks of 256, prompts up to 1024 tokens and 32 new
+# ones; the 2-layer parity (3f) in chunks of 64 on 4 lanes
+Q_MAX_LEN, Q_N_BLOCKS, Q_CHUNK, Q_MAX_NEW = 1024 + 32, 256, 256, 32
+# phases 3f and the MoE train parity impose the card's routing on the CPU;
+# at most this share of the routed tokens may have routed otherwise there
+# (a near-tie of f32 gates summed in another order).  A wrong gate or top-k
+# on the card would show as far more
+ROUTE_DIFFER_SHARE = 0.01
 # bgl_sumsq (phase 2c): the (bits x groups, rest) plane views of a BSQ train
 # step of 2-layer full-width granite-3-2b (9 planes; 2 layers per stacked
 # tensor), and two ragged shapes
@@ -232,19 +292,26 @@ def bound_ms(M, K, N, dtype_name, n_bits=N_BITS, groups=1):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def profile_decode(engine, reqs, cfg, card, steps=4):
+def profile_decode(engine, reqs, cfg, card, steps=4, n_experts=0):
     """Where a decode step's time goes: torch.profiler over ``steps``
     decode steps of one bucket, after the counted run.  Device busy time
     is the sum of the device events (one stream, so they do not
-    overlap); the idle share is 1 - busy / wall under the profiler."""
+    overlap); the idle share is 1 - busy / wall under the profiler.
+    ``n_experts`` (a MoE model) also sums the device time of the expert
+    products, each call of ``moe._experts`` under a profiler range."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import transformer
+    from repro_torch.models import moe, transformer
 
     dev = engine.device
     plen = len(reqs[0].tokens)
+    experts = moe._experts
+
+    def ranged(*a, **kw):
+        with torch.profiler.record_function("moe._experts"):
+            return experts(*a, **kw)
     with torch.inference_mode():
         prompts = torch.from_numpy(np.stack([r.tokens for r in reqs]).astype(np.int64)).to(dev)
         logits, cache = transformer.prefill(engine.params, {"tokens": prompts}, cfg,
@@ -253,7 +320,8 @@ def profile_decode(engine, reqs, cfg, card, steps=4):
         logits, cache = transformer.decode_step(engine.params, cache, tok, plen, cfg)
         tok = logits.argmax(-1, keepdim=True)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                mock.patch.object(moe, "_experts", ranged if n_experts else experts):
             t0 = time.perf_counter()
             for t in range(steps):
                 logits, cache = transformer.decode_step(engine.params, cache, tok,
@@ -263,7 +331,9 @@ def profile_decode(engine, reqs, cfg, card, steps=4):
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_name = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a record_function range shows on the device too, spanning its
+        # kernels: not busy time of its own
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "moe._experts":
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
     if not by_name:
@@ -278,10 +348,26 @@ def profile_decode(engine, reqs, cfg, card, steps=4):
           f"(idle {1 - busy / wall_ms:.1%}), {ops:.0f} device ops per step [{card}]")
     for name, (t, n) in top:
         print(f"[profile]   {t / steps:8.3f} ms/step {n / steps:6.0f}x  {name[:90]}")
-    return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
-            "device_ops_per_step": ops,
-            "top": [{"name": k, "ms_per_step": t / steps, "count_per_step": n / steps}
-                    for k, (t, n) in top]}
+    rep = {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
+           "device_ops_per_step": ops,
+           "top": [{"name": k, "ms_per_step": t / steps, "count_per_step": n / steps}
+                   for k, (t, n) in top]}
+    if n_experts:
+        # the device time of the kernels each range's ops launched (the
+        # profiler's tree: a range's total includes its children's)
+        us = calls = 0
+        for e in prof.events():
+            if e.name == "moe._experts" and e.device_type == torch.autograd.DeviceType.CPU:
+                dt = getattr(e, "device_time_total", None)
+                us += e.cuda_time_total if dt is None else dt
+                calls += 1
+        rep["expert_products_ms_per_step"] = us / 1e3 / steps if us else None
+        rep["expert_calls_per_step"] = calls / steps
+        print(f"[profile]   expert products (moe._experts, {calls / steps:.0f} calls per step): "
+              + (f"{us / 1e3 / steps:.3f} ms/step of {busy:.2f} busy" if us else
+                 "device time not measured (the range carries none)") + f" [{card}]",
+              flush=True)
+    return rep
 
 
 def device_ms_by_name(prof):
@@ -325,7 +411,9 @@ def paged_kernel_phase(dev, card, time_ms, median_ms):
     blocks of 32 rows, 16 table entries per lane, a pool of 64 blocks;
     f32, bf16, one windowed case) and gemma3-12b's global layers (8 KV
     heads of 2 query heads, d = 256, 97 table entries per lane, a pool of
-    512 blocks of which each lane owns 64; f32 and bf16)."""
+    512 blocks of which each lane owns 64; f32 and bf16) and the MoE
+    slices' d 128 (16 KV heads of 1, and 8 of 4; 33 table entries per
+    lane, a pool of 256 blocks; f32 and bf16)."""
     import torch
 
     rows = []
@@ -337,6 +425,13 @@ def paged_kernel_phase(dev, card, time_ms, median_ms):
         rows.append(paged_case(dev, card, time_ms, median_ms, dt, None, KV=8, G=2, d=256,
                                nb_lane=G_MAX_LEN // BLOCK, n_blocks=G_N_BLOCKS,
                                pos=[-1, 0, 511, 1000, 2047, 1500, -1, 64]))
+    # the MoE slices' d 128: qwen2-moe's MHA (16 KV heads of 1 query head) on
+    # phase 4e's table (33 entries per lane, 256 blocks), and phi3.5-moe's G 4
+    for KV, G in ((16, 1), (8, 4)):
+        for dt in (torch.float32, torch.bfloat16):
+            rows.append(paged_case(dev, card, time_ms, median_ms, dt, None, KV=KV, G=G, d=128,
+                                   nb_lane=-(-Q_MAX_LEN // BLOCK), n_blocks=Q_N_BLOCKS,
+                                   pos=[-1, 0, 31, 300, 1023, 700, -1, 64]))
     print("[paged] kernel == plain within tolerance; inactive lanes exact zeros; stale "
           "entries and NaN never-live blocks leave it bitwise unchanged", flush=True)
     return rows
@@ -463,7 +558,9 @@ def flash_kernel_phase(dev, card, time_ms):
     the prefill shapes of the main paths: granite-3-2b's bucket (4 x 32
     query heads over 32 K/V rows, d 64, 128 tokens), gemma3-12b's (2 x 16
     query heads over 16 K/V rows, d 256, 4096 tokens, causal and window
-    1024), a non-causal case and a ragged length; f32 and bf16."""
+    1024), a non-causal case, a ragged length, and the MoE slices' d 128
+    (qwen2-moe's 4 x 16 heads, MHA, 1024 tokens; phi3.5-moe's 4 x 32 over
+    4 x 8, 256 tokens); f32 and bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -475,6 +572,10 @@ def flash_kernel_phase(dev, card, time_ms):
         ("gemma3-local", 2 * 16, 2 * 8, 4096, 256, 1024, True),
         ("non-causal", 8, 8, 512, 64, None, False),
         ("ragged", 16, 8, 1000, 256, 300, True),
+        # the MoE slices at d 128: qwen2-moe's 4 x 1024-token bucket (MHA,
+        # 16 heads) and phi3.5-moe's 4 x 256 (32 query heads over 8 K/V)
+        ("qwen2-moe-prefill", 4 * 16, 4 * 16, 1024, 128, None, True),
+        ("phi35-moe-prefill", 4 * 32, 4 * 8, 256, 128, None, True),
     ]
     gen = torch.Generator(device=dev).manual_seed(5)
     rows = []
@@ -1352,9 +1453,11 @@ def bgl_kernel_phase(dev, card, time_ms):
     return rows
 
 
-def train_parity(dev, card):
-    """Phase 3c: reduced granite-3-2b, f32, two BSQ train steps from one
-    state on the card and on the CPU, then a requant."""
+def train_parity(dev, card, arch="granite-3-2b"):
+    """Phase 3c: reduced ``arch`` (granite-3-2b; qwen2-moe-a2.7b in phase
+    3f), f32, two BSQ train steps from one state on the card and on the
+    CPU, then a requant.  A MoE model's CPU side routes as the card did
+    (:class:`CardRouting`)."""
     import numpy as np
     import torch
 
@@ -1366,7 +1469,7 @@ def train_parity(dev, card):
     from repro_torch.train import init_bsq_state, make_bsq_train_step, make_requant_step
     from repro_torch.tree import tree_map
 
-    cfg = reduced_config("granite-3-2b")
+    cfg = reduced_config(arch)
     bsq_cfg = BSQConfig(n_init=8, alpha=5e-3, compute_dtype=torch.float32)
     opt = SGDM()
     states = {}
@@ -1379,26 +1482,36 @@ def train_parity(dev, card):
     batches = [task.batch(np.random.default_rng(i), 4, 16) for i in range(2)]
     got = {"cpu": [], "cuda": []}
     bgl.reset_launches()
+    routing = CardRouting()
     for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        for b in batches:
-            states[name], m = step(states[name], {k: torch.from_numpy(v).long().to(d)
-                                                  for k, v in b.items()})
-            got[name].append({k: float(m[k]) for k in ("ce", "reg", "total")})
+        with routing.record() if name == "cuda" else routing.replay():
+            for b in batches:
+                states[name], m = step(states[name], {k: torch.from_numpy(v).long().to(d)
+                                                      for k, v in b.items()})
+                got[name].append({k: float(m[k]) for k in ("ce", "aux", "reg", "total")})
+    check(routing.tokens == sum(e.shape[0] * e.shape[1] for e in routing.calls),
+          "the CPU did not replay every routed call of the card")
+    check(routing.differ <= ROUTE_DIFFER_SHARE * routing.tokens,
+          f"{routing.differ} of {routing.tokens} tokens would have routed otherwise on the CPU: "
+          f"more than {ROUTE_DIFFER_SHARE:.0%}")
     check(bgl.launches == 2 * 2 * len(ctx.meta),
           f"{bgl.launches} bgl_sumsq launches on the card, expected {2 * 2 * len(ctx.meta)}")
     for i, (a, b) in enumerate(zip(got["cuda"], got["cpu"])):
         for k in a:
             check(abs(a[k] - b[k]) <= 1e-5 * abs(b[k]),
-                  f"train step {i} {k}: card {a[k]} vs cpu {b[k]}")
+                  f"{arch} train step {i} {k}: card {a[k]} vs cpu {b[k]}")
     rq = make_requant_step(ctx)
     masks = {n: rq(states[n])["masks"] for n in states}
     for name in masks["cpu"]:
         check(torch.equal(masks["cuda"][name].cpu(), masks["cpu"][name]),
               f"masks after requant differ for {name}")
-    print(f"[train-parity] reduced granite-3-2b f32, 2 BSQ steps: card {got['cuda']} cpu "
+    print(f"[train-parity] reduced {arch} f32, 2 BSQ steps: card {got['cuda']} cpu "
           f"{got['cpu']}; within 1e-5 relative; masks after requant equal; "
-          f"{bgl.launches} bgl_sumsq launches on the card [{card}]", flush=True)
-    return {"card": got["cuda"], "cpu": got["cpu"]}
+          f"{bgl.launches} bgl_sumsq launches on the card == 2 x 2 x {len(ctx.meta)} plane "
+          f"tensors; {routing.differ} of {routing.tokens} routed tokens would have routed "
+          f"otherwise on the CPU [{card}]", flush=True)
+    return {"card": got["cuda"], "cpu": got["cpu"], "bgl_launches": bgl.launches,
+            "near_ties": routing.differ, "routed_tokens": routing.tokens}
 
 
 def _host_snapshot(tree):
@@ -2206,7 +2319,8 @@ def bitserial_kernel_phase(dev, card, time_ms, report):
     path's shapes: granite-3-2b's projections at decode (M 4) and prefill
     (M 512), f32 and bf16, per-tensor and per-group scales; gemma3-12b's 7
     projections in bf16 at decode (M 2) and at its 2 x 4096-token prefill
-    (M 8192).  Each shape through :func:`bitserial_case`; the decode and
+    (M 8192); the MoE slices' projections and heads in bf16 at the M
+    their paths run (``MOE_ROWS``).  Each shape through :func:`bitserial_case`; the decode and
     prefill kernels named once each by the profiler.  Returns the largest
     error."""
     import torch
@@ -2222,6 +2336,11 @@ def bitserial_kernel_phase(dev, card, time_ms, report):
         for i, (K, N) in enumerate(GEMMA3_PROJ):
             report["matmul"].append(bitserial_case(dev, gen, card, time_ms, M, K, N, None,
                                                    torch.bfloat16, profile=i == 4))
+            torch.cuda.empty_cache()
+    for (K, N), ms in MOE_ROWS:
+        for M in ms:
+            report["matmul"].append(bitserial_case(dev, gen, card, time_ms, M, K, N, None,
+                                                   torch.bfloat16))
             torch.cuda.empty_cache()
     # one layer's 7 projections at each main-path shape, in bf16
     for name, M, proj in (("granite-3-2b decode", 4, LAYER_PROJ),
@@ -2373,6 +2492,654 @@ def granite_slice(dev, card, report, engine_cls):
     return cfg, params
 
 
+class CardRouting:
+    """Phase 3f: the card's MoE routing, recorded call by call
+    (``record``), then imposed on the CPU side's calls in the same order
+    (``replay``), as phase 6b imposes the card's activations.  Routing is
+    a step function of the gates, and the card and the CPU sum the gates
+    in other orders: where a token's k-th and (k+1)-th gates lie that
+    close, the two would pick other experts and the outputs jump.  The
+    replay counts the tokens whose own routing would have differed."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.orig = moe, moe._route
+        self.calls = []
+        self.tokens = self.differ = 0
+
+    def record(self):
+        def route(gates, top_k):
+            w, e = self.orig(gates, top_k)
+            self.calls.append(e.detach().cpu())
+            return w, e
+
+        return mock.patch.object(self.moe, "_route", route)
+
+    def replay(self):
+        calls = iter(self.calls)
+
+        def route(gates, top_k):
+            e = next(calls, None)
+            check(e is not None and tuple(e.shape) == tuple(gates.shape[:-1]) + (top_k,),
+                  f"the CPU routes a call the card did not (gates {tuple(gates.shape)})")
+            own = self.orig(gates, top_k)[1]
+            self.differ += int((own.sort(-1).values != e.sort(-1).values).any(-1).sum())
+            self.tokens += e.shape[0] * e.shape[1]
+            return gates.gather(-1, e), e
+
+        return mock.patch.object(self.moe, "_route", route)
+
+
+class RouteLog:
+    """Records the experts of every MoE call while it is entered, without
+    a host sync (device tensors kept), which of each call's tokens are
+    real (a chunk's first ``n_valid`` positions of each lane, a decode
+    step's active lanes: the rest ride along; JAX routes them too), and
+    for each decode step its calls, its cache (a bucket's own, or the
+    pool's), its position where all lanes share one, and the K/V rows its
+    live lanes read.  :meth:`dropped` and :meth:`decode_reads` read them
+    after the run."""
+
+    def __init__(self):
+        from repro_torch.models import moe, transformer
+
+        self.moe, self.tf = moe, transformer
+        self.calls, self.valid, self.steps, self.step = [], None, [], None
+
+    def __enter__(self):
+        import torch
+
+        moe, tf = self.moe, self.tf
+        self.saved = route, chunk, step = moe._route, tf.prefill_chunk, tf.decode_step
+
+        def routed(gates, top_k):
+            w, e = route(gates, top_k)
+            self.calls.append((e, self.valid))
+            if self.step is not None:
+                self.step["calls"].append((e, self.valid))
+            return w, e
+
+        def prefill_chunk(params, cache, tokens, start, n_valid, cfg, **kw):
+            pos = torch.arange(tokens.shape[1], device=tokens.device)
+            self.valid = pos[None, :] < n_valid.to(tokens.device, copy=True)[:, None]
+            try:
+                return chunk(params, cache, tokens, start, n_valid, cfg, **kw)
+            finally:
+                self.valid = None
+
+        def decode_step(params, cache, tokens, pos, cfg, active=None, **kw):
+            # a copy: the pool updates its active mask in place as lanes finish
+            self.valid = None if active is None else \
+                active.to(tokens.device, copy=True)[None, :]
+            # a live lane at position p reads p + 1 K/V rows of every layer
+            if torch.is_tensor(pos):
+                rows = (pos.to(tokens.device) + 1).clamp(min=0)
+                rows = (rows if active is None else rows * self.valid[0].long()).sum()
+            else:
+                rows = tokens.shape[0] * (pos + 1)
+            self.step = {"cache": id(cache), "pos": None if torch.is_tensor(pos) else pos,
+                         "kv_rows": rows, "calls": []}
+            self.steps.append(self.step)
+            try:
+                return step(params, cache, tokens, pos, cfg, active=active, **kw)
+            finally:
+                self.valid, self.step = None, None
+
+        moe._route, tf.prefill_chunk, tf.decode_step = routed, prefill_chunk, decode_step
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route, self.tf.prefill_chunk, self.tf.decode_step = self.saved
+
+    def dropped(self, cfg):
+        """(dropped, routed) assignments of real tokens: an assignment is
+        dropped where its rank among its group's picks of that expert (in
+        token order, riding tokens included, as the dispatch ranks them)
+        reaches the call's capacity."""
+        import torch
+
+        dropped = total = 0
+        for e, valid in self.calls:
+            kept, real = self._kept(e, valid, cfg)
+            dropped += int((real & ~kept).sum())
+            total += int(real.sum())
+        return dropped, total
+
+    def _kept(self, e, valid, cfg):
+        """(kept, real) of a call's assignments, (G, T*k) token-major."""
+        import torch
+
+        moe = self.moe
+        G, T, k = e.shape
+        rank = moe._ranks(e, cfg.n_experts)[3]
+        real = (torch.ones_like(rank, dtype=torch.bool) if valid is None else
+                valid.expand(G, T).repeat_interleave(k, dim=1))
+        C = moe.moe_capacity(T, k, cfg.n_experts, cfg.capacity_factor)
+        return (rank < C) & real, real
+
+    def buckets(self):
+        """The decode steps grouped by cache, in the order they began:
+        a bucketed run's buckets (each decodes its own cache), or the one
+        pool of a continuous run."""
+        groups = {}
+        for st in self.steps:
+            groups.setdefault(st["cache"], []).append(st)
+        return list(groups.values())
+
+    def decode_reads(self, cfg, steps):
+        """(experts, calls, kv_rows) of decode ``steps``: summed over
+        their MoE calls, the experts that hold a kept assignment of a real
+        token (the only experts whose weights the step's output needs: an
+        expert without one contributes nothing to the combine); the number
+        of those calls; and the K/V rows their live lanes read."""
+        import torch
+
+        E = cfg.n_experts
+        used, calls = 0, 0
+        for e, valid in (c for st in steps for c in st["calls"]):
+            kept, _ = self._kept(e, valid, cfg)
+            flat = torch.where(kept, e.reshape(kept.shape), E).reshape(-1)
+            hit = torch.zeros(E + 1, dtype=torch.bool, device=e.device).scatter_(0, flat, True)
+            used = used + hit[:E].sum()
+            calls += 1
+        return int(used), calls, int(sum(st["kv_rows"] for st in steps))
+
+
+def moe_weight_bytes(params):
+    """(routed expert bytes, shared expert bytes, router bytes, packed
+    bytes) of a param tree, as served."""
+    from repro_torch.core.packing import packed_leaves
+    from repro_torch.tree import flatten_with_path
+
+    routed = shared = router = 0
+    for name, x in flatten_with_path(params):
+        if "/moe/" in name and hasattr(x, "element_size"):
+            n = x.numel() * x.element_size()
+            if name.endswith("router"):
+                router += n
+            elif "/shared/" in name:
+                shared += n
+            else:
+                routed += n
+    return routed, shared, router, sum(pw.hbm_bytes() for pw in packed_leaves(params))
+
+
+def moe_decode_bounds(log, cfg, weights, steps):
+    """The byte bounds (ms) of the mean decode step of ``steps``, decode
+    steps recorded in ``log`` (:class:`RouteLog`), ``weights`` as
+    :func:`moe_weight_bytes` gives them.  ``routed``: what the step's output needs, read once: the
+    weights of the experts that hold a kept assignment of a real token,
+    the shared experts, the routers, the packed projections and head, and
+    the K/V rows the live lanes read.  ``dense``: the same with every
+    expert's weights, which the dense (E, C) dispatch reads whatever the
+    routing (JAX's design, kept): the cost of that design."""
+    import torch
+
+    routed, shared, router, packed = weights
+    used, calls, kv_rows = log.decode_reads(cfg, steps)
+    check(calls == len(steps) * cfg.n_layers,
+          f"{calls} routed decode calls in {len(steps)} steps of {cfg.n_layers} layers")
+    steps = len(steps)
+    per_expert = routed / (cfg.n_layers * cfg.n_experts)
+    kv = kv_rows / steps * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.resolved_head_dim \
+        * torch.empty((), dtype=cfg.cache_dtype).element_size()
+    fixed = shared + router + packed + kv
+    return {"routed_ms": 1e3 * (used / steps * per_expert + fixed) / HBM_BYTES_PER_S,
+            "dense_ms": 1e3 * (routed + fixed) / HBM_BYTES_PER_S,
+            "experts_per_layer": used / calls, "kv_bytes_per_step": kv, "steps": steps}
+
+
+def moe_prefill_bound_ms(cfg, B, S):
+    """The least time the card could take for a bucketed MoE prefill of
+    ``B`` prompts of ``S`` tokens: its operations at the bf16 rate.  Every
+    slot of the (B, E, C) expert buffer runs an expert FFN (the dense
+    dispatch computes the empty slots too); then the shared experts, the
+    router, the q, k, v and o projections, causal attention, and the head
+    at each prompt's last token."""
+    from repro_torch.models.moe import moe_capacity
+
+    d, f, E, hd = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.resolved_head_dim
+    C = moe_capacity(S, cfg.top_k, E, cfg.capacity_factor)
+    tokens = B * S
+    per_layer = (B * E * C * 2 * 3 * d * f
+                 + tokens * 2 * 3 * d * cfg.n_shared_experts * f
+                 + tokens * 2 * d * E
+                 + tokens * 2 * d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                 + B * cfg.n_heads * 4 * hd * S * (S + 1) // 2)
+    flops = cfg.n_layers * per_layer + B * 2 * d * cfg.padded_vocab
+    return 1e3 * flops / PEAK_FLOPS["bfloat16"]
+
+
+def moe_parity(dev, card):
+    """Phase 3f: full-width qwen2-moe-a2.7b cut to 2 layers, f32, 6-bit
+    packed, the card (kernels) against the CPU (plain versions, the same
+    weights unpacked once to f32): the bucketed engine (prompts of 64 and
+    200 tokens, 8 new each) and the chunked paged-kernel engine (chunks of
+    64, 4 lanes), every logit row within the phase-3 tolerance and
+    identical greedy tokens, the CPU routing as the card did; then two BSQ
+    train steps of reduced qwen2-moe (phase 3c's check)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import PackedWeight, tree_map_with_path, unpack_to_float
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import transformer
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.scheduler import SchedulerPolicy
+
+    cfg = get_config("qwen2-moe-a2.7b").scaled(n_layers=2, dtype="float32",
+                                               kv_cache_dtype="float32")
+    t0 = time.perf_counter()
+    p_gpu = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev,
+                                    pack_bits=N_BITS)
+    p_cpu = tree_map_with_path(
+        lambda _, w: (unpack_to_float(w) if isinstance(w, PackedWeight) else w).cpu(), p_gpu)
+    init_s = time.perf_counter() - t0
+    task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+    reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(80 + i), 1, n)[0, :n]
+                    .astype(np.int32), max_new=8) for i, n in enumerate((64, 200))]
+    n_proj = 4 * cfg.n_layers + 1  # q, k, v, o of each layer and the untied head
+    runs = {
+        "bucketed": {},
+        "chunked-paged": dict(continuous=True, policy=SchedulerPolicy(
+            n_slots=4, chunked_prefill=True, chunk_sizes=(64,), paged=True, block_size=BLOCK,
+            paged_kernel=True)),
+    }
+    rep = {"init_s": init_s}
+    for name, kw in runs.items():
+        routing = CardRouting()
+        out, taps, secs = {}, {}, {}
+        for side, params, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, torch.device("cpu"))):
+            eng = ServeEngine(params, cfg, max_len=208, device=d, **kw)
+            for m in (bsm, fa, pa):
+                m.reset_launches()
+            t0 = time.perf_counter()
+            log = RouteLog()
+            with LogitTap() as tap, (routing.record() if side == "cuda" else routing.replay()), \
+                    log:
+                res = eng.generate(reqs, arrival_steps=[0, 0] if eng.scheduler else None)
+            if side == "cuda":
+                torch.cuda.synchronize()
+                launches = (bsm.launches, fa.launches, pa.launches)
+                dropped, total = log.dropped(cfg)
+                steps = (eng.scheduler.decode_steps, eng.scheduler.prefill_chunks) \
+                    if eng.scheduler else None
+            secs[side] = time.perf_counter() - t0
+            out[side] = {r.uid: r.tokens.tolist() for r in res}
+            taps[side] = tap.rows
+            if eng.scheduler is not None:
+                pool = eng.scheduler.pool
+                check(pool.allocator.free_count == pool.n_blocks,
+                      f"3f {name} {side}: the pool did not drain")
+        check(routing.tokens > 0 and routing.tokens == sum(e.shape[0] * e.shape[1]
+                                                           for e in routing.calls),
+              f"3f {name}: the CPU replayed {routing.tokens} routed tokens of the card's "
+              f"{sum(e.shape[0] * e.shape[1] for e in routing.calls)}")
+        check(routing.differ <= ROUTE_DIFFER_SHARE * routing.tokens,
+              f"3f {name}: {routing.differ} of {routing.tokens} tokens would have routed "
+              f"otherwise on the CPU: more than {ROUTE_DIFFER_SHARE:.0%}")
+        check(len(taps["cuda"]) == len(taps["cpu"]),
+              f"3f {name}: {len(taps['cuda'])} logit calls on the card, {len(taps['cpu'])} on "
+              "the CPU")
+        dlog = max((a - b).abs().max().item() for a, b in zip(taps["cuda"], taps["cpu"]))
+        lmax = max(b.abs().max().item() for b in taps["cpu"])
+        if steps is None:  # bucketed: one prefill call and 7 decode steps per request
+            want = (len(reqs) * 8 * n_proj, len(reqs) * cfg.n_layers, 0)
+        else:
+            want = ((steps[0] + steps[1]) * n_proj, 0, steps[0] * cfg.n_layers)
+        check(launches == want, f"3f {name}: launches (bitserial, flash, paged) {launches}, "
+                                f"expected {want}")
+        print(f"[parity-moe] 2-layer full-width qwen2-moe f32 {name}: card {secs['cuda']:.1f} "
+              f"s, cpu {secs['cpu']:.1f} s; {len(taps['cpu'])} logit calls, max|dlogit| "
+              f"{dlog:.3e} (max|logit| {lmax:.3e}); {len(routing.calls)} routed calls, "
+              f"{routing.differ} of {routing.tokens} tokens would have routed otherwise on the "
+              f"CPU; dropped {dropped} of {total} assignments of real tokens "
+              f"({dropped / total:.2%}); launches "
+              f"(bitserial, flash, paged) {launches}; tokens {out['cuda']} [{card}]", flush=True)
+        check(out["cuda"] == out["cpu"], f"3f {name}: greedy tokens differ card vs cpu: {out}")
+        check(dlog <= 1e-4 * max(1.0, lmax), f"3f {name}: logits differ by {dlog}")
+        rep[name] = {"tokens": out["cuda"], "max_abs_dlogit": dlog, "max_abs_logit": lmax,
+                     "logit_calls": len(taps["cpu"]), "card_s": secs["cuda"],
+                     "cpu_s": secs["cpu"], "near_ties": routing.differ,
+                     "routed_tokens": routing.tokens, "dropped": dropped, "assignments": total,
+                     "launches": list(launches)}
+    del p_gpu, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["train"] = train_parity(dev, card, arch="qwen2-moe-a2.7b")
+    print("[parity-moe] card == cpu: greedy tokens identical, logits within 1e-4 of "
+          "max(1, max|logit|) with the CPU routed as the card; BSQ steps within 1e-5",
+          flush=True)
+    return rep
+
+
+def moe_slice(dev, card, engine_cls):
+    """Phase 4e: full-width, full-depth qwen2-moe-a2.7b (24 layers, 60
+    routed experts top-4 and 4 shared, MHA, untied head), bf16, 6-bit
+    packed attention and head, bf16 experts: bucketed (two buckets of 4,
+    prompts of 128 and 1024 tokens, 32 new each) and continuous (chunked,
+    paged, the paged kernel; 8 lanes, 256 blocks of 32 rows, chunks of
+    256, 16 requests with prompts uniform in [64, 1024] (seed 0) on
+    Poisson arrivals at 0.5 per step, 32 new each), then a profiled
+    decode step with the expert products' device time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import poisson_arrivals
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+    from repro_torch.obs.metrics import percentile
+    from repro_torch.serve import Request
+    from repro_torch.serve.scheduler import SchedulerPolicy
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    n_proj = 4 * cfg.n_layers + 1  # q, k, v, o of each layer and the untied head
+    resident = torch.cuda.memory_allocated()  # what earlier phases left allocated
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                     pack_bits=N_BITS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = moe_weight_bytes(params)
+    routed_bytes, shared_bytes, router_bytes, packed_bytes = weights
+    expert_bytes = routed_bytes + shared_bytes
+    embed_bytes = params["embed"].numel() * 2  # served in bf16
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"[moe] qwen2-moe-a2.7b {cfg.n_layers} layers d_model={cfg.d_model} heads="
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, {cfg.n_experts} experts "
+          f"top-{cfg.top_k} of d_ff={cfg.d_ff} + {cfg.n_shared_experts} shared, cf "
+          f"{cfg.capacity_factor}, vocab {cfg.vocab_size}->{cfg.padded_vocab} {cfg.dtype}: "
+          f"init+pack {init_s:.1f} s; float experts {expert_bytes / 1e9:.4f} GB (routed "
+          f"{routed_bytes / 1e9:.4f}, shared {shared_bytes / 1e9:.4f}), router {router_bytes / 1e6:.2f} MB f32, packed {packed_bytes / 1e9:.4f} GB, "
+          f"embedding {embed_bytes / 1e9:.4f} GB served; init peak {init_peak / 1e9:.3f} GB "
+          f"({resident / 1e9:.3f} GB allocated before it) [{card}]", flush=True)
+    task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+    rep = {"init_s": init_s, "expert_bytes": expert_bytes, "routed_expert_bytes": routed_bytes,
+           "shared_expert_bytes": shared_bytes, "router_bytes": router_bytes,
+           "packed_weight_bytes": packed_bytes, "embed_bytes": embed_bytes,
+           "init_peak_bytes": init_peak, "resident_before_bytes": resident}
+
+    # ---- bucketed
+    lens = [128] * 4 + [1024] * 4
+    reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(90 + i), 1, n)[0, :n]
+                    .astype(np.int32), max_new=Q_MAX_NEW) for i, n in enumerate(lens)]
+    engine = engine_cls(params, cfg, max_len=Q_MAX_LEN, device=dev)
+    engine.generate([Request(uid=100, tokens=reqs[0].tokens[:64], max_new=2)])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.bad = None
+    for m in (bsm, fa, pa):
+        m.reset_launches()
+    log = RouteLog()
+    t0 = time.perf_counter()
+    with log:
+        results = engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    dropped, total = log.dropped(cfg)
+    # each bucket's decode byte bounds, keyed by its first decode position
+    # (its prompt length)
+    d_bounds = {g[0]["pos"]: moe_decode_bounds(log, cfg, weights, g) for g in log.buckets()}
+    del log
+    gen_toks = np.stack([r.tokens for r in sorted(results, key=lambda r: r.uid)])
+    check(gen_toks.shape == (8, Q_MAX_NEW), f"qwen2-moe bucketed tokens {gen_toks.shape}")
+    check(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all(), "token outside the vocab")
+    check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
+    calls = 2  # one prefill call per bucket
+    check(fa.launches == calls * cfg.n_layers and fa.windowed_launches == 0,
+          f"flash launches {fa.launches}, expected {calls} x {cfg.n_layers}")
+    check(bsm.launches == calls * Q_MAX_NEW * n_proj and pa.launches == 0,
+          f"bitserial launches {bsm.launches} (expected {calls} x {Q_MAX_NEW} x {n_proj}), "
+          f"paged {pa.launches}")
+    b = {"wall_s": wall, "tokens": int(gen_toks.size), "tokens_per_s": gen_toks.size / wall,
+         "serve_peak_bytes": peak, "flash_launches": fa.launches,
+         "bitserial_launches": bsm.launches, "dropped": dropped, "assignments": total,
+         "buckets": {}}
+    buckets = {}
+    for r in results:
+        buckets.setdefault(len(reqs[r.uid].tokens), []).append(r)
+    check(sorted(d_bounds) == sorted(buckets),
+          f"decode steps began at {sorted(d_bounds)}, the buckets' prompts are {sorted(buckets)}")
+    for plen, rs in sorted(buckets.items()):
+        ttft = float(np.mean([r.prefill_ms for r in rs]))
+        dms = float(np.mean([r.decode_ms_per_tok for r in rs]))
+        bound, db = moe_prefill_bound_ms(cfg, len(rs), plen), d_bounds[plen]
+        b["buckets"][plen] = {"ttft_ms": ttft, "ttft_bound_ms": bound, "decode_ms_per_step": dms,
+                              "decode_bound_ms": db["routed_ms"],
+                              "decode_dense_bound_ms": db["dense_ms"],
+                              "experts_per_layer_step": db["experts_per_layer"]}
+        print(f"[moe] bucket prompt={plen} x{len(rs)}: TTFT {ttft:.2f} ms (operation bound "
+              f"{bound:.3f}), decode {dms:.3f} ms per step (byte bound {db['routed_ms']:.3f}: "
+              f"{db['experts_per_layer']:.2f} of {cfg.n_experts} experts routed per layer; "
+              f"{db['dense_ms']:.3f} with every expert, the dense dispatch's reads) [{card}]",
+              flush=True)
+    print(f"[moe] bucketed: 8 requests, {gen_toks.size} tokens in {wall:.3f} s = "
+          f"{gen_toks.size / wall:.2f} tok/s; serve peak memory {peak / 1e9:.3f} GB; dropped "
+          f"{dropped} of {total} assignments ({dropped / total:.2%}); flash launches "
+          f"{fa.launches} == {calls} x {cfg.n_layers}; bitserial {bsm.launches} == {calls} x "
+          f"{Q_MAX_NEW} x {n_proj} [{card}]", flush=True)
+    rep["bucketed"] = b
+    rep["profile"] = profile_decode(engine, reqs[4:], cfg, card, steps=2,
+                                    n_experts=cfg.n_experts)
+    # one layer's expert products at a decode step of 8 lanes (C 8), by CUDA
+    # events: every expert's weights read once bound them
+    ein = torch.randn((1, cfg.n_experts, 8, cfg.d_model), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(6)).to(cfg.compute_dtype)
+    lp = transformer.layer_slice(engine.params["blocks"], 0)["p0"]["moe"]
+    for _ in range(3):
+        moe_mod._experts(lp, ein, cfg.mlp_type)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(10):
+        moe_mod._experts(lp, ein, cfg.mlp_type)
+    ev1.record()
+    ev1.synchronize()
+    e_ms = ev0.elapsed_time(ev1) / 10
+    e_bytes = sum(lp[k].numel() * lp[k].element_size() for k in ("w_gate", "w_up", "w_down"))
+    rep["experts_layer"] = {"ms": e_ms, "bound_ms": 1e3 * e_bytes / HBM_BYTES_PER_S,
+                            "bytes": e_bytes}
+    print(f"[moe] one layer's expert products at 8 lanes (G 1, E {cfg.n_experts}, C 8, bf16): "
+          f"{e_ms:.4f} ms by CUDA events, bound {1e3 * e_bytes / HBM_BYTES_PER_S:.4f} ms "
+          f"({e_bytes / 1e9:.3f} GB of weights, {e_bytes / (e_ms * 1e-3) / 1e12:.2f} TB/s) "
+          f"[{card}]", flush=True)
+    del ein, lp
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- continuous
+    n_req = 16
+    lens = np.random.default_rng(0).integers(64, 1025, size=n_req)
+    reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(i), 1, 1024)[0, :n]
+                    .astype(np.int32), max_new=Q_MAX_NEW) for i, n in enumerate(lens)]
+    arrivals = poisson_arrivals(n_req, 0.5, seed=0)
+    policy = SchedulerPolicy(n_slots=SLOTS, chunked_prefill=True, chunk_sizes=(Q_CHUNK,),
+                             paged=True, block_size=BLOCK, n_blocks=Q_N_BLOCKS,
+                             paged_kernel=True)
+    engine = engine_cls(params, cfg, max_len=Q_MAX_LEN, device=dev, continuous=True,
+                        policy=policy)
+    sched, pool = engine.scheduler, engine.scheduler.pool
+    engine.generate([Request(uid=100, tokens=reqs[0].tokens[:64], max_new=2)])  # warm-up
+    torch.cuda.synchronize()
+    sched.reset_telemetry()
+    torch.cuda.reset_peak_memory_stats()
+    engine.bad = None
+    for m in (bsm, fa, pa):
+        m.reset_launches()
+    log = RouteLog()
+    t0 = time.perf_counter()
+    with log:
+        results = engine.generate(reqs, arrival_steps=arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    dropped, total = log.dropped(cfg)
+    check(len(log.buckets()) == 1, f"{len(log.buckets())} decode caches in a continuous run")
+    db = moe_decode_bounds(log, cfg, weights, log.steps)
+    del log
+    steps, chunks = sched.decode_steps, sched.prefill_chunks
+    check(db["steps"] == steps, f"{db['steps']} decode steps routed, the scheduler ran {steps}")
+    got = {r.uid: r for r in results}
+    check(sorted(got) == list(range(n_req)), f"qwen2-moe continuous results for {sorted(got)}")
+    for r in results:
+        check(len(r.tokens) == Q_MAX_NEW
+              and ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all(),
+              f"uid {r.uid}: {len(r.tokens)} tokens, or a token outside the vocab")
+    check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
+    check(pa.launches == steps * cfg.n_layers,
+          f"{pa.launches} paged launches, expected {steps} steps x {cfg.n_layers}")
+    check(bsm.launches == (steps + chunks) * n_proj and fa.launches == 0,
+          f"{bsm.launches} bitserial launches (expected ({steps} + {chunks}) x {n_proj}), "
+          f"{fa.launches} flash (chunked prefill reads the cache)")
+    check(pool.allocator.free_count == pool.n_blocks and pool.allocator.committed == 0,
+          f"blocks leaked: free {pool.allocator.free_count}/{pool.n_blocks}, committed "
+          f"{pool.allocator.committed}")
+    check(engine.obs.recorder.leaked == [], f"leaked spans {engine.obs.recorder.leaked}")
+    ttft = [got[i].prefill_ms for i in range(n_req)]
+    c = {
+        "requests": n_req, "max_new": Q_MAX_NEW, "prompt_lens": lens.tolist(),
+        "arrivals": arrivals, "chunk_sizes": list(policy.chunk_sizes), "wall_s": wall,
+        "tokens": n_req * Q_MAX_NEW, "tokens_per_s": n_req * Q_MAX_NEW / wall,
+        "ttft_ms_p50": percentile(ttft, 50), "ttft_ms_p90": percentile(ttft, 90),
+        "decode_steps": steps, "prefill_chunks": chunks,
+        "decode_ms_per_step": sched.decode_ms_total / max(steps, 1),
+        "mean_occupancy": sched.mean_occupancy(),
+        "mean_block_occupancy": sched.mean_block_occupancy(),
+        "admit_blocked_total": sched._c_blocked.value,
+        "serve_peak_bytes": peak, "cache_bytes": pool.cache_bytes(),
+        "paged_launches": pa.launches, "bitserial_launches": bsm.launches,
+        "dropped": dropped, "assignments": total, "decode_bound_ms": db["routed_ms"],
+        "decode_dense_bound_ms": db["dense_ms"],
+        "experts_per_layer_step": db["experts_per_layer"],
+    }
+    rep["continuous"] = c
+    print(f"[moe] continuous: {n_req} requests x {Q_MAX_NEW} tokens, prompts {lens.min()}-"
+          f"{lens.max()} ({lens.sum()} tokens), Poisson arrivals at 0.5/step over "
+          f"{arrivals[-1]} steps, chunks of {Q_CHUNK}: {c['tokens']} tokens in {wall:.3f} s = "
+          f"{c['tokens_per_s']:.2f} tok/s; TTFT p50 {c['ttft_ms_p50']:.1f} ms, p90 "
+          f"{c['ttft_ms_p90']:.1f} ms; decode {c['decode_ms_per_step']:.3f} ms per step (byte "
+          f"bound {db['routed_ms']:.3f}: {db['experts_per_layer']:.2f} of {cfg.n_experts} "
+          f"experts routed per layer; {db['dense_ms']:.3f} with every expert; {steps} steps, "
+          f"mean occupancy {c['mean_occupancy']:.2f}), {chunks} prefill chunks, admission blocked "
+          f"{c['admit_blocked_total']:.0f} steps [{card}]", flush=True)
+    print(f"[moe] continuous: serve peak memory {peak / 1e9:.3f} GB; KV pool "
+          f"{c['cache_bytes'] / 1e9:.3f} GB ({Q_N_BLOCKS} + 1 blocks x {BLOCK} rows); mean "
+          f"block occupancy {c['mean_block_occupancy']:.2f}; dropped {dropped} of {total} "
+          f"assignments ({dropped / total:.2%}); paged launches {pa.launches} == {steps} x "
+          f"{cfg.n_layers}; bitserial {bsm.launches} == ({steps} + {chunks}) x {n_proj}; pool "
+          f"drained [{card}]", flush=True)
+    del engine, sched, pool, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phi_slice(dev, card, engine_cls):
+    """Phase 4f: phi3.5-moe-42b-a6.6b at its full width (d_model 4096, 32
+    query heads over 8 K/V of 128, 16 experts top-2 of d_ff 6400, vocab
+    32064) cut to 4 of its 32 layers (its 40.3 B expert parameters, never
+    packed, take 80.5 GB in bf16), bf16, 6-bit packed attention and head:
+    the bucketed engine, 4 requests of 256 prompt tokens and 16 new."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import transformer
+    from repro_torch.serve import Request
+
+    full = get_config("phi3.5-moe-42b-a6.6b")
+    cfg = full.scaled(n_layers=4)
+    n_proj = 4 * cfg.n_layers + 1
+    max_new, plen = 16, 256
+    resident = torch.cuda.memory_allocated()  # what earlier phases left allocated
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                     pack_bits=N_BITS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    weights = moe_weight_bytes(params)
+    expert_bytes, packed_bytes = weights[0] + weights[1], weights[3]
+    task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+    reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(95 + i), 1, plen)[0, :plen]
+                    .astype(np.int32), max_new=max_new) for i in range(4)]
+    engine = engine_cls(params, cfg, max_len=plen + max_new, device=dev)
+    engine.generate([Request(uid=100, tokens=reqs[0].tokens[:64], max_new=2)])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.bad = None
+    for m in (bsm, fa, pa):
+        m.reset_launches()
+    log = RouteLog()
+    t0 = time.perf_counter()
+    with log:
+        results = engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    dropped, total = log.dropped(cfg)
+    check(len(log.buckets()) == 1, f"{len(log.buckets())} buckets decoded, expected 1")
+    db = moe_decode_bounds(log, cfg, weights, log.steps)
+    del log
+    gen_toks = np.stack([r.tokens for r in sorted(results, key=lambda r: r.uid)])
+    check(gen_toks.shape == (4, max_new), f"phi3.5-moe tokens of shape {gen_toks.shape}")
+    check(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all(), "token outside the vocab")
+    check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
+    check(fa.launches == cfg.n_layers and bsm.launches == max_new * n_proj
+          and pa.launches == 0,
+          f"launches: flash {fa.launches} (expected {cfg.n_layers}), bitserial {bsm.launches} "
+          f"(expected {max_new} x {n_proj}), paged {pa.launches}")
+    ttft = float(np.mean([r.prefill_ms for r in results]))
+    dms = float(np.mean([r.decode_ms_per_tok for r in results]))
+    bound = db["routed_ms"]
+    ttft_bound = moe_prefill_bound_ms(cfg, len(reqs), plen)
+    rep = {"n_layers": cfg.n_layers, "init_s": init_s, "expert_bytes": expert_bytes,
+           "packed_weight_bytes": packed_bytes, "wall_s": wall, "ttft_ms": ttft,
+           "ttft_bound_ms": ttft_bound,
+           "decode_ms_per_step": dms, "decode_bound_ms": bound,
+           "decode_dense_bound_ms": db["dense_ms"],
+           "experts_per_layer_step": db["experts_per_layer"],
+           "tokens_per_s": gen_toks.size / wall, "serve_peak_bytes": peak,
+           "init_peak_bytes": init_peak, "resident_before_bytes": resident,
+           "flash_launches": fa.launches, "bitserial_launches": bsm.launches,
+           "dropped": dropped, "assignments": total}
+    print(f"[phi] phi3.5-moe-42b-a6.6b at its width (d_model={cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, {cfg.n_experts} experts "
+          f"top-{cfg.top_k} of d_ff={cfg.d_ff}, vocab {cfg.vocab_size}->{cfg.padded_vocab}), "
+          f"{full.n_layers} -> {cfg.n_layers} layers, {cfg.dtype}: init+pack {init_s:.1f} s, "
+          f"float experts {expert_bytes / 1e9:.3f} GB, packed {packed_bytes / 1e9:.4f} GB, init "
+          f"peak {init_peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB allocated before it); 4 x "
+          f"{plen} prompt tokens, {max_new} new: TTFT {ttft:.2f} ms (operation bound "
+          f"{ttft_bound:.3f}), decode {dms:.3f} ms per "
+          f"step (byte bound {bound:.3f}: {db['experts_per_layer']:.2f} of {cfg.n_experts} "
+          f"experts routed per layer; {db['dense_ms']:.3f} with every expert), "
+          f"{gen_toks.size / wall:.2f} tok/s, serve peak "
+          f"{peak / 1e9:.3f} GB; dropped {dropped} of {total} assignments "
+          f"({dropped / total:.2%}); flash {fa.launches} == {cfg.n_layers}, bitserial "
+          f"{bsm.launches} == {max_new} x {n_proj} [{card}]", flush=True)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
 def kernel_entries(report, max_err):
     """The {"kernels": [...]} entries: each kernel's time at its main
     path's shapes (phases 2-2d) beside its bound, its plain version and
@@ -2521,6 +3288,45 @@ def kernel_entries(report, max_err):
         "launches_windowed": gcfg["flash_windowed"],
         "launches_granite": report["slice"]["flash_launches"],
     }
+    # the MoE slices (phases 3f, 4e, 4f): their launches, and the kernels at
+    # their shapes beside the bound and the library call
+    moe, phi = report["qwen2_moe"], report["phi35_moe"]
+    rows = {(r["M"], r["K"], r["N"]): r for r in report["matmul"]
+            if r["dtype"] == "bfloat16" and r["scale"] == "per-tensor"}
+
+    def moe_sum(M, proj, key):  # q, k, v and o of one layer at M
+        return sum(rows[(M,) + kn][key] for kn in proj)
+    q_proj, phi_proj = [QWEN2_PROJ] * 4, [PHI_PROJ[0], PHI_PROJ[1], PHI_PROJ[1], PHI_PROJ[0]]
+    entry.update({
+        "launches_qwen2_moe": moe["bucketed"]["bitserial_launches"]
+        + moe["continuous"]["bitserial_launches"],
+        "launches_phi35_moe": phi["bitserial_launches"],
+        "work_moe": "q, k, v and o of one layer, and the head, at the decode M of the MoE "
+                    "paths: qwen2-moe at 8 lanes, its head also at a bucket of 4; phi3.5-moe "
+                    "at a bucket of 4",
+    })
+    for tag, M, proj, head in (("qwen2", SLOTS, q_proj, QWEN2_HEAD),
+                               ("qwen2", 4, None, QWEN2_HEAD),
+                               ("phi35", 4, phi_proj, PHI_HEAD)):
+        for key in ("ms", "bound_ms", "library_ms"):
+            if proj:
+                entry[f"{key}_{tag}_layer_M{M}"] = moe_sum(M, proj, key)
+            entry[f"{key}_{tag}_head_M{M}"] = rows[(M,) + head][key]
+    for tag, M, proj in (("qwen2", 4096, q_proj), ("qwen2", 2048, q_proj),
+                         ("phi35", 1024, phi_proj)):
+        for key in ("ms", "bound_ms", "library_ms"):
+            pre_entry[f"{key}_{tag}_layer_M{M}"] = moe_sum(M, proj, key)
+    q_paged = next(r for r in report["paged"] if r["dtype"] == "bfloat16" and r["d"] == 128
+                   and r["G"] == 1)
+    p_entry.update({"launches_qwen2_moe": moe["continuous"]["paged_launches"],
+                    "ms_qwen2": q_paged["ms"], "bound_ms_qwen2": q_paged["bound_ms"],
+                    "library_ms_qwen2": q_paged["library_ms"]})
+    q_flash = f_rows[("qwen2-moe-prefill", "bfloat16")]
+    f_entry.update({"launches_qwen2_moe": moe["bucketed"]["flash_launches"],
+                    "launches_phi35_moe": phi["flash_launches"],
+                    "ms_qwen2": q_flash["ms"], "bound_ms_qwen2": q_flash["bound_ms"],
+                    "library_ms_qwen2": q_flash["library_ms"]})
+    b_entry["launches_qwen2_moe_train"] = report["parity_moe"]["train"]["bgl_launches"]
     return [entry, d_entry, pre_entry, p_entry, b_entry, f_entry]
 
 
@@ -2648,8 +3454,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_done("3e")
+    if want("3f"):
+        report["parity_moe"] = moe_parity(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("3f")
 
-    # ------------------------------------------------ 4, 4b, 5, 4d, 4c
+    # -------------------------------------------- 4, 4b, 5, 4d, 4c, 4e, 4f
     CheckedEngine = checked_engine_cls()
     if want("4"):
         cfg, params = granite_slice(dev, card, report, CheckedEngine)
@@ -2668,7 +3479,15 @@ def main() -> int:
         phase_done("4d")
     if want("4c"):
         report["gemma3"] = gemma3_slice(dev, card, CheckedEngine)
+        gc.collect()  # its scheduler and engine refer to each other
+        torch.cuda.empty_cache()
         phase_done("4c")
+    if want("4e"):
+        report["qwen2_moe"] = moe_slice(dev, card, CheckedEngine)
+        phase_done("4e")
+    if want("4f"):
+        report["phi35_moe"] = phi_slice(dev, card, CheckedEngine)
+        phase_done("4f")
 
     # ---------------------------------------------------------------- 6
     if want("6"):

@@ -231,6 +231,22 @@ def pack_stacked_from_float(w: torch.Tensor, n_bits: int) -> PackedWeight:
 PACKABLE_SUFFIXES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
 
 
+# The float matrices that serving holds in the compute dtype, by leaf name:
+# the embedding and every packable projection left unpacked (the MoE experts,
+# never packed, and any projection too small to pack).  Norm scales and the
+# MoE router stay f32.
+SERVED_IN_COMPUTE_DTYPE = frozenset(PACKABLE_SUFFIXES) | {"embed"}
+
+
+def serving_cast(name: str, leaf, dtype: torch.dtype):
+    """``leaf`` as serving holds it: a float matrix named in
+    :data:`SERVED_IN_COMPUTE_DTYPE` cast to ``dtype``, anything else (a
+    PackedWeight, a norm scale, the router) unchanged."""
+    if isinstance(leaf, torch.Tensor) and name.rsplit("/", 1)[-1] in SERVED_IN_COMPUTE_DTYPE:
+        return leaf.to(dtype)
+    return leaf
+
+
 def packable(name: str, shape) -> bool:
     leaf = name.lower().rsplit("/", 1)[-1]
     return (

@@ -22,8 +22,10 @@ preemption), ``--tier`` (SLO classes), ``--spec-decode`` /
 ``--precision-tier`` / ``--economy-planes`` (precision classes) and
 ``--degrade`` / ``--degrade-queue-depth`` / ``--degrade-hysteresis``
 (load-triggered plane shedding).  It serves the reduced config, as the
-JAX launcher does, and runs on the card unless ``--device cpu`` is
-given.  The mesh flags (``--data-parallel``, ``--model-parallel``) exit
+JAX launcher does (``--arch qwen2-moe-a2.7b`` and
+``--arch phi3.5-moe-42b-a6.6b`` serve their MoE layers; with
+``--spec-decode`` they are refused, as in JAX), and runs on the card
+unless ``--device cpu`` is given.  The mesh flags (``--data-parallel``, ``--model-parallel``) exit
 with a one-line "not yet ported" message.
 """
 import argparse

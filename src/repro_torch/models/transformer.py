@@ -13,7 +13,10 @@ Serving prefill (:func:`prefill`) runs attention through the flash
 kernel (``kernels.ops.flash_attention``); :func:`forward` and
 :func:`loss_fn` (training) keep the plain path.
 
-Other layer kinds ("ssm", "rglru", "+cross"), MoE and modality
+Where ``cfg.n_experts > 0`` every layer's FFN is the Mixture-of-Experts
+of ``models.moe`` (``p["moe"]``), on every path: :func:`forward` sums
+its router loss over the layers, the serving paths discard it as JAX's
+do.  Other layer kinds ("ssm", "rglru", "+cross") and modality
 frontends come with later slices of the port and raise here.
 """
 from __future__ import annotations
@@ -23,9 +26,16 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..configs.base import ModelConfig
-from ..core.packing import PackedWeight, pack_model_params, stack_packed
+from ..core.packing import (
+    PackedWeight,
+    pack_model_params,
+    serving_cast,
+    stack_packed,
+    tree_map_with_path,
+)
 from ..device import resolve_device
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .common import (
     cross_entropy,
     dense_init,
@@ -49,8 +59,6 @@ def check_supported(cfg: ModelConfig) -> None:
             f"layer kinds {sorted(set(later))} of {cfg.name} come with a later "
             "slice of the port (SSM, RG-LRU, cross-attention); the port runs the "
             "'attn' and 'local' kinds")
-    if cfg.n_experts:
-        raise NotImplementedError(f"MoE ({cfg.name}) comes with a later slice of the port")
     if cfg.frontend:
         raise NotImplementedError(
             f"the {cfg.frontend} frontend ({cfg.name}) comes with a later slice of the port")
@@ -69,18 +77,45 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     }
     if cfg.d_ff > 0:
         p["norm2"] = rmsnorm_init(cfg.d_model, device)
-        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, device)
+        if cfg.n_experts > 0:
+            p["moe"] = moe_mod.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                        cfg.n_shared_experts, cfg.mlp_type, device)
+        else:
+            p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, device)
     return p
 
 
-def _stack(trees: list):
-    """Stack same-shaped layer trees on a new leading axis."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: _stack([t[k] for t in trees]) for k in t0}
-    if isinstance(t0, PackedWeight):
-        return stack_packed(trees, (len(trees),))
-    return torch.stack(trees)
+def _stack(trees, n: int):
+    """Stack ``n`` same-shaped trees (an iterable, drawn one at a time) on
+    a new leading axis.  Tensor leaves fill a stacked tensor allocated
+    from the first tree, so no list of them is held; PackedWeight leaves
+    (small) are stacked at the end."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        if isinstance(t, PackedWeight):
+            return []
+        return torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+
+    def fill(out, t, i):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                fill(out[k], v, i)
+        elif isinstance(out, list):
+            out.append(t)
+        else:
+            out[i].copy_(t)
+
+    def finish(out):
+        if isinstance(out, dict):
+            return {k: finish(v) for k, v in out.items()}
+        return stack_packed(out, (n,)) if isinstance(out, list) else out
+
+    out = None
+    for i, tree in enumerate(trees):
+        out = alloc(tree) if out is None else out
+        fill(out, tree, i)
+    return finish(out)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
@@ -90,24 +125,35 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     on ``device`` (the card unless ``device="cpu"``) from ``generator``.
 
     With ``pack_bits`` every layer is packed right after it is drawn
-    (``pack_model_params`` on that layer's tree) and the packed layers are
-    stacked at the end, so a full-width model never holds its whole float
-    tree.  The bytes equal ``pack_model_params(init_params(...), bits)``
-    on the same draws."""
+    (``pack_model_params`` on that layer's tree, under its own key path)
+    and stacked into preallocated tensors, so a full-width model never
+    holds its whole float tree.  The packed bytes equal
+    ``pack_model_params(init_params(...), bits)`` on the same draws.  The
+    float matrices that stay unpacked (the MoE experts, which are never
+    packed, and any projection too small to pack) are cast to
+    ``cfg.compute_dtype`` as soon as they are drawn, by
+    ``core.packing.serving_cast``, the rule ``serving_params`` applies;
+    the router and the norm scales stay f32."""
     check_supported(cfg)
     device = resolve_device(device)
 
-    def layer():
+    def layer(path):
         p = _init_layer(generator, cfg, device)
-        return pack_model_params(p, pack_bits) if pack_bits else p
+        if not pack_bits:
+            return p
+
+        # the layer's key path, so that packable() sees "/moe/" as it does
+        # on the whole tree
+        packed = pack_model_params({path: p}, pack_bits)[path]
+        return tree_map_with_path(lambda name, leaf: serving_cast(name, leaf, cfg.compute_dtype),
+                                  packed, path)
 
     params: Params = {"embed": embed_init(generator, cfg.padded_vocab, cfg.d_model, device)}
-    params["blocks"] = _stack([
-        {f"p{i}": layer() for i in range(cfg.pattern_len)}
-        for _ in range(cfg.n_superblocks)
-    ])
+    params["blocks"] = _stack(
+        ({f"p{i}": layer(f"blocks/p{i}") for i in range(cfg.pattern_len)}
+         for _ in range(cfg.n_superblocks)), cfg.n_superblocks)
     if cfg.n_tail_layers:
-        params["tail"] = [layer() for _ in range(cfg.n_tail_layers)]
+        params["tail"] = [layer(f"tail/{i}") for i in range(cfg.n_tail_layers)]
     params["final_norm"] = rmsnorm_init(cfg.d_model, device)
     if not cfg.tie_embeddings:
         head = dense_init(generator, cfg.d_model, cfg.padded_vocab, device, scale=0.02)
@@ -156,11 +202,21 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     return x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
 
 
-def _mlp_residual(p: Params, x: torch.Tensor, cfg: ModelConfig, active_planes) -> torch.Tensor:
-    if cfg.d_ff > 0:
-        h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h2, cfg.mlp_type, cfg.act_bits, active_planes)
-    return x
+def _mlp_residual(p: Params, x: torch.Tensor, cfg: ModelConfig, active_planes):
+    """The FFN sublayer: ``(x + ffn(norm2(x)), aux)``.  ``aux`` is the MoE
+    router loss where the config has experts (the serving paths discard
+    it, as JAX's do), else None.  The experts' weights are float and their activations are not
+    quantised (``moe_apply`` takes neither planes nor ``act_bits``)."""
+    if cfg.d_ff <= 0:
+        return x, None
+    h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if cfg.n_experts > 0:
+        y, aux = moe_mod.moe_apply(
+            p["moe"], h2, top_k=cfg.top_k, n_experts=cfg.n_experts,
+            capacity_factor=cfg.capacity_factor, mlp_kind=cfg.mlp_type,
+            n_shared=cfg.n_shared_experts)
+        return x + y, aux
+    return x + mlp_apply(p["mlp"], h2, cfg.mlp_type, cfg.act_bits, active_planes), None
 
 
 # ---------------------------------------------------------------------------
@@ -170,8 +226,9 @@ def _mlp_residual(p: Params, x: torch.Tensor, cfg: ModelConfig, active_planes) -
 
 def _apply_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
                      active_planes=None, flash: bool = False):
-    """Returns (x, (k, v)) for one "attn" or "local" layer; ``flash``
-    routes its attention through the flash kernel (serving prefill)."""
+    """Returns (x, (k, v), aux) for one "attn" or "local" layer; ``flash``
+    routes its attention through the flash kernel (serving prefill);
+    ``aux`` as :func:`_mlp_residual` gives it."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     out, kv = attn_mod.attention(
         p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -179,20 +236,25 @@ def _apply_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
         window=_window(cfg, kind), active_planes=active_planes, flash=flash,
         scores_dtype=cfg.attn_scores_dtype,
     )
-    return _mlp_residual(p, x + out, cfg, active_planes), kv
+    x, aux = _mlp_residual(p, x + out, cfg, active_planes)
+    return x, kv, aux
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             active_planes=None):
     """Full-sequence forward (training: the plain attention, which has a
-    backward).  Returns (logits (B, S, V) f32, aux_loss)."""
+    backward).  Returns (logits (B, S, V) f32, aux_loss): the MoE router
+    loss summed over the layers in order, zero without experts."""
     check_supported(cfg)
     x = _embed(params, batch["tokens"], cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, _, kind in _layers(params, cfg):
-        x, _ = _apply_layer_fwd(p, x, cfg, kind, active_planes)
+        x, _, aux_i = _apply_layer_fwd(p, x, cfg, kind, active_planes)
+        if aux_i is not None:
+            aux = aux + aux_i
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_apply(_head(params, cfg), x, cfg.logit_softcap, active_planes)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
@@ -278,7 +340,7 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConf
             window=_window(cfg, kind), ring=kind == "local", active=active,
             active_planes=active_planes, block_table=block_table, paged_kernel=paged_kernel,
         )
-        x = _mlp_residual(p, x + out, cfg, active_planes)
+        x, _ = _mlp_residual(p, x + out, cfg, active_planes)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_apply(_head(params, cfg), x, cfg.logit_softcap, active_planes)
     return logits[:, 0], cache
@@ -318,7 +380,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, ma
     cache = init_cache(cfg, B, max_len, cache_dtype, device=tokens.device)
     x = _embed(params, tokens, cfg)
     for p, key, kind in _layers(params, cfg):
-        x, (k, v) = _apply_layer_fwd(p, x, cfg, kind, active_planes, flash=True)
+        x, (k, v), _ = _apply_layer_fwd(p, x, cfg, kind, active_planes, flash=True)
         _seed_layer_cache(*_layer_cache(cache, key), k, v, kind)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_apply(_head(params, cfg), x[:, -1:], cfg.logit_softcap, active_planes)
@@ -365,7 +427,7 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tens
             block_table=None if kind == "local" else block_table, active_planes=active_planes,
             scores_dtype=cfg.attn_scores_dtype,
         )
-        x = _mlp_residual(p, x + out, cfg, active_planes)
+        x, _ = _mlp_residual(p, x + out, cfg, active_planes)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_all_logits:
         return logits_apply(_head(params, cfg), x, cfg.logit_softcap, active_planes), cache

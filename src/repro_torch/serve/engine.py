@@ -34,7 +34,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.bsq import merge_params
-from ..core.packing import PACKABLE_SUFFIXES, PackedWeight, tree_map_with_path, unpack_to_float
+from ..core.packing import PackedWeight, serving_cast, tree_map_with_path, unpack_to_float
 from ..device import resolve_device
 from ..models import transformer
 from ..obs import Observability
@@ -72,23 +72,17 @@ class Result:
     plane_log: Optional[np.ndarray] = None
 
 
-_MATRICES = frozenset(PACKABLE_SUFFIXES) | {"embed"}
-
-
 def serving_params(params, cfg: ModelConfig, device: torch.device):
     """Params on ``device``, with float matrices (embedding, unpacked
-    projections) cast once to the compute dtype.  The model casts them at
-    every use anyway (``w.to(x.dtype)``), so the result is the same;
-    norm scales stay f32 and PackedWeights keep their bytes."""
+    projections) cast once to the compute dtype (``serving_cast``, the
+    rule ``transformer.init_params(pack_bits=)`` applies as it draws).
+    The model casts them at every use anyway (``w.to(x.dtype)``), so the
+    result is the same; norm scales stay f32 and PackedWeights keep their
+    bytes."""
     dt = cfg.compute_dtype
 
     def place(name, leaf):
-        if isinstance(leaf, PackedWeight):
-            return leaf.to(device)
-        leaf = leaf.to(device)
-        if name.rsplit("/", 1)[-1] in _MATRICES:
-            leaf = leaf.to(dt)
-        return leaf
+        return serving_cast(name, leaf.to(device), dt)
 
     return tree_map_with_path(place, params)
 

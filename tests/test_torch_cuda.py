@@ -72,6 +72,13 @@ def _packed(M, K, N, n_bits, groups, seed, dev):
     (2, 3840, 15360, 6, None), (2, 15360, 3840, 6, None), (1024, 3840, 15360, 6, None),
     # K 200 (25 byte-rows: a partial K step) with ragged N
     (4, 200, 136, 6, None), (64, 200, 144, 6, None),
+    # the MoE slices' shapes at the M their paths run: qwen2-moe-a2.7b's
+    # untied head (N 152064) at a bucket of 4 and at 8 lanes (it runs on each
+    # lane's last token only); phi3.5-moe's q/o, k/v and head (N 32256) at a
+    # bucket of 4, and its k/v at the 4 x 256-token prefill
+    (4, 2048, 152064, 6, None), (8, 2048, 152064, 6, None),
+    (4, 4096, 4096, 6, None), (4, 4096, 1024, 6, None), (1024, 4096, 1024, 6, None),
+    (4, 4096, 32256, 6, None),
 ])
 def test_kernel_matches_plain_version_and_active_is_truncate(cuda, M, K, N, n_bits, groups,
                                                              dtype):
@@ -206,6 +213,10 @@ def _paged_case(B, KV, G, d, bs, nb_lane, dtype, seed, dev):
     (64, 32, 12, None, 12, [383, 127, -1, 200, 5]),
     # every lane inactive
     (64, 32, 4, None, 12, [-1, -1, -1, -1, -1]),
+    # the MoE slices' d 128 on 33 table entries (1056 rows): qwen2-moe's
+    # MHA (G 1) and phi3.5-moe's G 4
+    (128, 32, 1, None, 33, [-1, 0, 31, 700, 1023]),
+    (128, 32, 4, None, 33, [1023, 300, -1, 64, 0]),
 ])
 def test_paged_kernel_matches_plain_version(cuda, d, bs, G, window, nb_lane, pos, dtype):
     B, KV = len(pos), 2
@@ -414,6 +425,10 @@ def test_bsq_train_steps_on_card_match_cpu(cuda):
     (2, 65, 64, 17, False, 2),
     (8, 4096, 64, 1024, True, 4),
     (2, 4096, 256, None, True, 2),
+    # the MoE slices at d 128: one lane of qwen2-moe's 1024-token bucket
+    # (16 heads, MHA) and of phi3.5-moe's 256 (32 query heads over 8)
+    (16, 1024, 128, None, True, 1),
+    (32, 256, 128, None, True, 4),
 ])
 def test_flash_kernel_matches_plain_version(cuda, BH, S, d, window, causal, G, dtype):
     gen = torch.Generator(device=cuda).manual_seed(S + d)

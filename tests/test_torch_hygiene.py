@@ -98,7 +98,9 @@ def test_unported_paths_say_so():
     with pytest.raises(NotImplementedError, match="later slice"):
         transformer.init_params(reduced_config("recurrentgemma-9b"), torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
-        transformer.init_params(reduced_config("phi3.5-moe-42b-a6.6b"), torch.Generator(), "cpu")
+        transformer.init_params(reduced_config("mamba2-130m"), torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        transformer.init_params(reduced_config("musicgen-large"), torch.Generator(), "cpu")
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
