@@ -41,13 +41,22 @@ failure exits non-zero and none is caught:
    ``scaled_dot_product_attention`` call on K/V already gathered into
    lane-contiguous form (a yardstick only; kernel and SDPA as the median
    of 5 timings, since calls of tens of microseconds swing up to 2x);
-2c. hold the bgl_sumsq kernel (per-row sum of squares, the BSQ
-   regulariser's) against its plain version at the training slice's
-   shapes and two ragged ones, f32 and bf16, and at the paper pipeline's
-   ResNet-20 plane views ((9, C) for its 9 tensor sizes, f32), within
-   1e-5 of each row's plain value, check a second call bitwise equal, and
-   time the kernel, the plain version and one ``torch.linalg.vector_norm``
-   call;
+2c. hold the grouped bgl_sumsq kernel (per-row sums of squares, the BSQ
+   regulariser's) against its plain version one view at a time at the
+   training slice's shapes and two ragged ones, f32 and bf16, and at the
+   plane views of the paper pipeline's ResNet-20, reduced qwen2-moe and
+   train_lm_bsq's lm-100m (f32), within 1e-5 of each row's plain value, a
+   second call bitwise equal, timed beside one ``torch.linalg.vector_norm``
+   call; then grouped, one launch per BSQ step's regulariser call
+   (granite-3-2b's 16 views, 16.04 GB; ResNet-20's 44; reduced
+   qwen2-moe's 24; lm-100m's 18, 5.81 GB), forward within 1e-5 per row,
+   bitwise each view's one-view call and a second call, and the backward
+   kernel (one launch) bitwise the plain ``x * (2 g)[:, None]`` and
+   ``torch._foreach_mul``; each timed beside its bound, the one-view calls
+   summed (forward) or the plain per-view ops (backward), one library call
+   (``torch._foreach_norm`` over the row views forward,
+   ``torch._foreach_mul`` backward; yardsticks only) and the wrapper's
+   host time;
 2d. hold the flash-attention kernel against its plain version at the
    prefill shapes (granite-3-2b's bucket, gemma3-12b's 2 x 4096 tokens
    causal and with window 1024, a non-causal case, a ragged length,
@@ -134,7 +143,8 @@ failure exits non-zero and none is caught:
    from that checkpoint to step 8 (requant at 8; its next checkpoint
    would be at 12: the card's machine takes at most 45 GiB of disk
    writes, and a checkpoint is 32 GB).  The bgl_sumsq launches are
-   checked exactly (and no serving kernel launches), every step's loss
+   checked exactly (one grouped forward and one backward launch per
+   step, and no serving kernel launches), every step's loss
    finite, the resume's restore held bit for bit against a host copy of
    the state saved at step 4; then the final scheme, ``export_packed``,
    a profile of two train steps, and 4 requests served from the
@@ -148,8 +158,9 @@ failure exits non-zero and none is caught:
 6c. the paper's pipeline through ``repro_torch.examples.resnet20_bsq_paper``
    at its defaults (width 16, batch 64, 60 BSQ steps, requant every 20),
    then 30 steps of the DoReFa finetune under the found scheme: the
-   bgl_sumsq launches checked exactly (44 per BSQ step, none while
-   finetuning), no serving kernel, every loss finite; ms per step beside
+   bgl_sumsq launches checked exactly (one forward and one backward per
+   BSQ step over its 44 views, none while finetuning), no serving kernel,
+   every loss finite; ms per step beside
    the step's bound, peak memory, bits/param, compression, per-layer
    bits, held-out top-1, and a profile of three BSQ steps;
 6d. the LM examples at their defaults, each one's kernel launches
@@ -161,7 +172,8 @@ failure exits non-zero and none is caught:
    entries, the runtime-plane entry with phase 4d's launches, flash and
    paged also carry ``vs_library``, their time over the library call's:
    below 1 beats it; the bitserial, flash, paged and bgl_sumsq entries
-   add the MoE phases' launches and the kernels at their shapes), the
+   add the MoE phases' launches and the kernels at their shapes; the
+   bgl_sumsq forward and backward entries carry the grouped times), the
    card's name and power limit, and the final ``{"ok": true, ...}``
    line.
 
@@ -169,6 +181,7 @@ Exits non-zero without a CUDA device, and when the repo's ``src`` is not
 beside it.  The per-shape table goes to ``chiprun_out/chip_smoke.json``.
 """
 import gc
+import importlib
 import json
 import re
 import shutil
@@ -234,14 +247,14 @@ ROUTE_DIFFER_SHARE = 0.01
 BGL_EMBED, BGL_QO, BGL_KV, BGL_MLP = (9, 101_187_584), (18, 4_194_304), (18, 1_048_576), \
     (18, 16_777_216)
 BGL_SHAPES = [BGL_MLP, BGL_QO, BGL_KV, BGL_EMBED, (7, 1_000_003), (1, 33)]
-# the 16 launches of one train step: wp and wn of the embedding, wq, wo, wk,
-# wv and the three MLP projections
+# the 16 views of one train step's regulariser call (one grouped launch): wp
+# and wn of the embedding, wq, wo, wk, wv and the three MLP projections
 BGL_STEP = [BGL_EMBED] * 2 + [BGL_QO] * 4 + [BGL_KV] * 4 + [BGL_MLP] * 6
 BGL_TOL = 1e-5  # of each row's plain value: f32 sums of non-negative terms
 # ... and the paper pipeline's plane views (phases 2c, 6b, 6c): each of
 # ResNet-20's 22 quantised tensors (width 16, in name order) is one group
-# of 9 planes, a (9, numel) view; a BSQ step launches the kernel on wp and
-# wn of each, 44 launches over 270,896 parameters
+# of 9 planes, a (9, numel) view; a BSQ step's regulariser call groups wp
+# and wn of each, 44 views over 270,896 parameters, in one launch
 RESNET_TENSOR_C = [432, 640] + [2304] * 6 + [4608, 9216, 512] + [9216] * 4 \
     + [18432, 36864, 2048] + [36864] * 4
 RESNET_BGL_SHAPES = sorted({(9, C) for C in RESNET_TENSOR_C})
@@ -1402,12 +1415,69 @@ def profile_continuous(engine, reqs, card):
             "top": [{"name": k, "ms": t, "count": n} for k, (t, n) in top]}
 
 
-def bgl_kernel_phase(dev, card, time_ms):
-    """Phase 2c: the bgl_sumsq kernel against its plain version at the
-    training slice's plane views and two ragged shapes, f32 and bf16, and
-    at the paper pipeline's ResNet-20 plane views, f32."""
+def bgl_bound(xs, backward=False):
+    """(ms, "bytes" or "operations"): the least the card could take for the
+    sums of squares of the views ``xs`` (each read once, the f32 sums
+    written once; two flops per element at the f32 rate) or for their
+    gradients (each read once and its gradient written once, g read once;
+    two flops per element)."""
+    n = sum(x.numel() for x in xs)
+    rows = sum(x.shape[0] for x in xs)
+    nbytes = sum(x.numel() * x.element_size() for x in xs) * (2 if backward else 1) + 4 * rows
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * n / PEAK_FLOPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bgl_group_views():
+    """The views of the grouped rows: one BSQ step's regulariser call each
+    (every wp, then every wn), f32: 2-layer full-width granite-3-2b (16
+    views, 16.04 GB), ResNet-20 width 16 (44, 19.5 MB), reduced
+    qwen2-moe-a2.7b (24, per-(layer, expert) groups for the routed
+    experts) and phase 6d's train_lm_bsq model, lm-100m (18, 12 stacked
+    layers, 5.81 GB).  The last two are the shapes of their BSQ states,
+    built as phases 3f and 6d build them (lm-100m's on the meta device,
+    so no memory); the rows get random values."""
     import torch
 
+    from repro_torch.configs import reduced_config
+    from repro_torch.core import BSQConfig
+    from repro_torch.examples.train_lm_bsq import LM_100M
+    from repro_torch.optim import SGDM
+    from repro_torch.train import init_bsq_state, state_reps
+
+    regularizer = importlib.import_module("repro_torch.core.regularizer")
+
+    def views(cfg, bsq_cfg, device):
+        state, ctx = init_bsq_state(torch.Generator().manual_seed(0), cfg, bsq_cfg, SGDM(),
+                                    device)
+        reps = list(state_reps(state, ctx).values())
+        return [tuple(regularizer._rows(getattr(r, k), r.group_axes).shape)
+                for k in ("wp", "wn") for r in reps]
+
+    return {"granite-step": BGL_STEP,
+            "resnet20-step": [(9, C) for C in RESNET_TENSOR_C] * 2,
+            "qwen2-moe-reduced": views(reduced_config("qwen2-moe-a2.7b"),
+                                       BSQConfig(n_init=8, compute_dtype=torch.float32), "cpu"),
+            "lm-100m-step": views(LM_100M, BSQConfig(n_init=8, mode="static",
+                                                     compute_dtype=torch.float32), "meta")}
+
+
+def bgl_kernel_phase(dev, card, time_ms, report):
+    """Phase 2c: the grouped bgl_sumsq kernel, one view at a time at the
+    training slice's plane views and two ragged shapes (f32 and bf16) and
+    at the plane views of ResNet-20, reduced qwen2-moe and lm-100m (f32);
+    then grouped (:func:`bgl_group_views`), one launch per BSQ step's
+    regulariser call, and its backward, one launch too: forward within
+    BGL_TOL of the plain version per row, each view's sums bitwise its
+    single-view call's, a second call bitwise; backward bitwise the plain
+    ``x * (2 g)[:, None]`` and ``torch._foreach_mul``.  Each grouped row is
+    timed beside its bound, the per-view calls it replaces summed (the
+    one-view kernel forward, the plain per-view ops backward) and one
+    library call (``torch._foreach_norm`` over its row views forward,
+    ``torch._foreach_mul`` backward; yardsticks the port never calls)."""
+    import torch
+
+    from repro_torch.kernels import bgl_sumsq as bgl
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1415,6 +1485,10 @@ def bgl_kernel_phase(dev, card, time_ms):
     cases = [("granite", shape, dt) for shape in BGL_SHAPES
              for dt in (torch.float32, torch.bfloat16)]
     cases += [("resnet20", shape, torch.float32) for shape in RESNET_BGL_SHAPES]
+    groups = bgl_group_views()
+    cases += [(model, shape, torch.float32)
+              for model, group in (("qwen2-moe", "qwen2-moe-reduced"), ("lm-100m", "lm-100m-step"))
+              for shape in sorted(set(groups[group]))]
     for model, (R, C), dt in cases:
         dname = str(dt).split(".")[-1]
         x = torch.randn((R, C), generator=gen, device=dev).to(dt)
@@ -1436,21 +1510,100 @@ def bgl_kernel_phase(dev, card, time_ms):
             "library_ms": time_ms(lambda: torch.linalg.vector_norm(x, dim=1,
                                                                    dtype=torch.float32)),
         }
-        # the least the card could take: x read once, the sums written once;
-        # two flops per element at the f32 rate
-        t_bytes = (x.numel() * x.element_size() + 4 * R) / HBM_BYTES_PER_S
-        t_ops = 2.0 * x.numel() / PEAK_FLOPS["float32"]
-        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row["bound_ms"], row["bound_by"] = bgl_bound([x])
         rows.append(row)
         print(f"[bgl] {model} ({R}, {C}) {dname}: max rel err {rel:.3e} (abs {err:.3e} of "
               f"{row['max_plain']:.4e}); kernel {row['ms']:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
               f"vector_norm {row['library_ms']:.4f} ms [{card}]", flush=True)
         del x, got, want
-    print(f"[bgl] kernel == plain within {BGL_TOL} relative per row; second calls bitwise "
-          "equal", flush=True)
-    return rows
+    print(f"[bgl] one view a time: kernel == plain within {BGL_TOL} relative per row; second "
+          "calls bitwise equal", flush=True)
+    report["bgl"] = rows
+
+    def host_ms(fn, n=20):
+        """The wrapper's host time per call (the calls queue behind each other)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = (time.perf_counter() - t0) * 1e3 / n
+        torch.cuda.synchronize()
+        return t
+
+    single = {(r["R"], r["C"]): r for r in rows if r["dtype"] == "float32"}
+    grouped = []
+    for name, shapes in groups.items():
+        xs = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+        n_rows = sum(x.shape[0] for x in xs)
+        bgl.reset_launches()
+        got = ops.bgl_sumsq_grouped(xs)
+        check(bgl.launches == 1, f"{name}: {bgl.launches} launches for {len(xs)} views")
+        want = ref.bgl_sumsq_grouped_ref(xs)
+        torch.cuda.synchronize()
+        rel = ((got - want).abs() / want).max().item()
+        err = (got - want).abs().max().item()
+        check(bool(torch.isfinite(got).all()) and rel <= BGL_TOL,
+              f"bgl grouped {name} vs plain: max relative error {rel} > {BGL_TOL}")
+        check(torch.equal(got, ops.bgl_sumsq_grouped(xs)), f"bgl grouped {name}: a second "
+                                                            "call differs")
+        check(torch.equal(got, torch.cat([ops.bgl_sumsq(x) for x in xs])),
+              f"bgl grouped {name}: a view's sums differ from its single-view call's")
+        del want
+        g = torch.rand((n_rows,), generator=gen, device=dev)
+        gs = torch.split(g, [x.shape[0] for x in xs])
+        bgl.reset_launches()
+        grads = bgl.bgl_sumsq_grouped_backward_cuda(xs, g)
+        check(bgl.backward_launches == 1, f"{name}: {bgl.backward_launches} backward launches")
+        for i, (x, gi) in enumerate(zip(xs, gs)):
+            check(torch.equal(grads[i], ref.bgl_sumsq_grad_ref(x, gi)),
+                  f"bgl grouped backward {name} view {i}: not the plain bits")
+        again = bgl.bgl_sumsq_grouped_backward_cuda(xs, g)
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+              f"bgl grouped backward {name}: a second call differs")
+        # the library yardstick of the backward: one _foreach_mul over the
+        # views by (2 g)[:, None] per view (2 g made once, outside the timing)
+        g2 = [t[:, None] for t in torch.split(2 * g, [x.shape[0] for x in xs])]
+        lib_grads = torch._foreach_mul(xs, g2)
+        check(all(torch.equal(a, b) for a, b in zip(grads, lib_grads)),
+              f"bgl grouped backward {name}: _foreach_mul gives other bits than the kernel")
+        del grads, again, lib_grads
+        row_views = [x[r] for x in xs for r in range(x.shape[0])]
+        spin = 4_000_000  # about 2 ms: longer than any of these calls' host side
+        fwd = {"ms": time_ms(lambda: ops.bgl_sumsq_grouped(xs), spin=spin),
+               "per_view_ms": sum(single[s]["ms"] for s in shapes),
+               "plain_ms": time_ms(lambda: ref.bgl_sumsq_grouped_ref(xs), iters=5, spin=spin),
+               "library_ms": time_ms(lambda: torch._foreach_norm(row_views), spin=spin)}
+        fwd["bound_ms"], fwd["bound_by"] = bgl_bound(xs)
+        fwd["host_ms"] = host_ms(lambda: ops.bgl_sumsq_grouped(xs))
+        plain_bwd = time_ms(lambda: [ref.bgl_sumsq_grad_ref(x, gi) for x, gi in zip(xs, gs)],
+                            iters=5, spin=spin)
+        bwd = {"ms": time_ms(lambda: bgl.bgl_sumsq_grouped_backward_cuda(xs, g), spin=spin),
+               "per_view_ms": plain_bwd, "plain_ms": plain_bwd,
+               "library_ms": time_ms(lambda: torch._foreach_mul(xs, g2), spin=spin)}
+        bwd["bound_ms"], bwd["bound_by"] = bgl_bound(xs, backward=True)
+        bwd["host_ms"] = host_ms(lambda: bgl.bgl_sumsq_grouped_backward_cuda(xs, g))
+        nbytes = sum(x.numel() * x.element_size() for x in xs)
+        rec = {"group": name, "views": len(xs), "rows": n_rows, "bytes": nbytes,
+               "max_rel_err": rel, "max_abs_err": err, "forward": fwd, "backward": bwd,
+               "backward_max_abs_err": 0.0}  # bitwise the plain version: checked above
+        grouped.append(rec)
+        print(f"[bgl] grouped {name}: {len(xs)} views, {n_rows} rows, {nbytes / 1e6:.1f} MB "
+              f"f32, 1 launch: max rel err {rel:.3e}; forward {fwd['ms']:.4f} ms ("
+              f"{fwd['bound_ms'] / fwd['ms']:.1%} of its bound {fwd['bound_ms']:.4f} ms, "
+              f"{fwd['bound_by']}), the "
+              f"{len(xs)} one-view calls summed "
+              f"{fwd['per_view_ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, _foreach_norm "
+              f"{fwd['library_ms']:.4f} ms, host {1e3 * fwd['host_ms']:.1f} us per call; "
+              f"backward {bwd['ms']:.4f} ms ({bwd['bound_ms'] / bwd['ms']:.1%} of its bound "
+              f"{bwd['bound_ms']:.4f} ms), the per-view plain ops {bwd['plain_ms']:.4f} ms, "
+              f"_foreach_mul {bwd['library_ms']:.4f} ms, host {1e3 * bwd['host_ms']:.1f} us per "
+              f"call [{card}]", flush=True)
+        del xs, row_views, got, g, gs, g2
+    print(f"[bgl] grouped: one launch each way per group; forward within {BGL_TOL} per row, "
+          "bitwise its one-view calls and a second call; backward bitwise the plain "
+          "x * (2 g)[:, None], _foreach_mul and a second call", flush=True)
+    report["bgl_grouped"] = grouped
 
 
 def train_parity(dev, card, arch="granite-3-2b"):
@@ -1494,8 +1647,11 @@ def train_parity(dev, card, arch="granite-3-2b"):
     check(routing.differ <= ROUTE_DIFFER_SHARE * routing.tokens,
           f"{routing.differ} of {routing.tokens} tokens would have routed otherwise on the CPU: "
           f"more than {ROUTE_DIFFER_SHARE:.0%}")
-    check(bgl.launches == 2 * 2 * len(ctx.meta),
-          f"{bgl.launches} bgl_sumsq launches on the card, expected {2 * 2 * len(ctx.meta)}")
+    # one grouped launch per regulariser evaluation (one per step) and one
+    # for its backward
+    check((bgl.launches, bgl.backward_launches) == (2, 2),
+          f"{bgl.launches} bgl_sumsq launches and {bgl.backward_launches} backward launches "
+          "on the card over 2 steps, expected 2 and 2")
     for i, (a, b) in enumerate(zip(got["cuda"], got["cpu"])):
         for k in a:
             check(abs(a[k] - b[k]) <= 1e-5 * abs(b[k]),
@@ -1507,10 +1663,12 @@ def train_parity(dev, card, arch="granite-3-2b"):
               f"masks after requant differ for {name}")
     print(f"[train-parity] reduced {arch} f32, 2 BSQ steps: card {got['cuda']} cpu "
           f"{got['cpu']}; within 1e-5 relative; masks after requant equal; "
-          f"{bgl.launches} bgl_sumsq launches on the card == 2 x 2 x {len(ctx.meta)} plane "
-          f"tensors; {routing.differ} of {routing.tokens} routed tokens would have routed "
+          f"{bgl.launches} + {bgl.backward_launches} bgl_sumsq launches (forward + backward) on "
+          f"the card over 2 steps, each over all {2 * len(ctx.meta)} plane views; "
+          f"{routing.differ} of {routing.tokens} routed tokens would have routed "
           f"otherwise on the CPU [{card}]", flush=True)
     return {"card": got["cuda"], "cpu": got["cpu"], "bgl_launches": bgl.launches,
+            "bgl_backward_launches": bgl.backward_launches,
             "near_ties": routing.differ, "routed_tokens": routing.tokens}
 
 
@@ -1552,14 +1710,16 @@ def profile_train(state, ctx, dev, card, steps=2):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     bgl = [(t, n) for k, (t, n) in by_name.items() if "bgl_" in k]
     bgl_ms = sum(t for t, _ in bgl) / steps
+    bgl_bwd_ms = sum(t for k, (t, _) in by_name.items() if "bgl_grad" in k) / steps
     print(f"[profile] BSQ train step, 2-layer full-width granite-3-2b, batch 8 x 64: wall "
           f"{wall_ms:.2f} ms under the profiler, device busy {busy:.2f} ms (idle "
           f"{1 - busy / wall_ms:.1%}); bgl_sumsq {bgl_ms:.3f} ms per step ({bgl_ms / busy:.1%} "
-          f"of the busy time, {sum(n for _, n in bgl) / steps:.0f} kernels) [{card}]")
+          f"of the busy time, {sum(n for _, n in bgl) / steps:.0f} kernels; the backward "
+          f"{bgl_bwd_ms:.3f} ms of it) [{card}]")
     for name, (t, n) in top:
         print(f"[profile]   {t / steps:9.3f} ms/step {n / steps:6.0f}x  {name[:90]}")
     return state, {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
-                   "bgl_ms_per_step": bgl_ms,
+                   "bgl_ms_per_step": bgl_ms, "bgl_backward_ms_per_step": bgl_bwd_ms,
                    "top": [{"name": k, "ms_per_step": t / steps, "count_per_step": n / steps}
                            for k, (t, n) in top]}
 
@@ -1661,8 +1821,7 @@ def bsq_slice(dev, card):
         ckpt_mod.save, ckpt_mod.restore_latest = orig_save, orig_restore_latest
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = {"bgl_sumsq": bgl.launches, "bitserial_matmul": bsm.launches,
-                "paged_attention": pa.launches, "flash_attention": fa.launches}
+    launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
     state, ctx, scheme = out["state"], out["ctx"], out["scheme"]
     hist = hist + out["history"]
@@ -1671,8 +1830,10 @@ def bsq_slice(dev, card):
           f"checkpoints after the resumed run: {ckpt_mod.available_steps(str(workdir))}")
     n_rep = len(ctx.meta)
     check(n_rep == 8, f"{n_rep} quantised tensors, expected 8")
-    check(launches["bgl_sumsq"] == 2 * n_rep * TRAIN_STEPS,
-          f"{launches['bgl_sumsq']} bgl_sumsq launches, expected 16 x {TRAIN_STEPS}")
+    # one grouped launch over the 16 plane views per step, one backward
+    check(launches["bgl_sumsq"] == launches["bgl_sumsq_backward"] == TRAIN_STEPS,
+          f"{launches['bgl_sumsq']} bgl_sumsq launches and {launches['bgl_sumsq_backward']} "
+          f"backward launches, expected {TRAIN_STEPS} each")
     check(launches["bitserial_matmul"] == launches["paged_attention"]
           == launches["flash_attention"] == 0,
           f"training launched serving kernels: {launches}")
@@ -1691,7 +1852,9 @@ def bsq_slice(dev, card):
           f"{step_ms:.1f} (median of steps 2-4 and 6-8; steps 1 and 5 "
           f"{1e3 * dts[0]:.1f} and {1e3 * dts[TRAIN_INTERVAL]:.1f}); peak memory "
           f"{peak / 1e9:.2f} GB; {nq:,} quantised parameters; bgl_sumsq launches "
-          f"{launches['bgl_sumsq']} == 16 x {TRAIN_STEPS} [{card}]", flush=True)
+          f"{launches['bgl_sumsq']} + {launches['bgl_sumsq_backward']} backward == "
+          f"{TRAIN_STEPS} + {TRAIN_STEPS}, each over {2 * n_rep} plane views [{card}]",
+          flush=True)
     for h in hist:
         print(f"[train]   step {h['step']}: ce {h['ce']:.4f} reg {h['reg']:.2f} total "
               f"{h['total']:.4f} grad_norm {h['grad_norm']:.4f} lr {h['lr']:.4g} dt "
@@ -1747,9 +1910,11 @@ def bsq_slice(dev, card):
     check(((toks >= 0) & (toks < cfg.vocab_size)).all(), "served token outside the vocab")
     check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
     expected = n_new * cfg.n_layers * 7
-    check(bsm.launches == expected and bgl.launches == 0 and fa.launches == cfg.n_layers,
+    check(bsm.launches == expected and bgl.launches == bgl.backward_launches == 0
+          and fa.launches == cfg.n_layers,
           f"serving launches: bitserial {bsm.launches} (expected {expected}), bgl "
-          f"{bgl.launches}, flash {fa.launches} (expected one prefill x {cfg.n_layers})")
+          f"{bgl.launches} + {bgl.backward_launches}, flash {fa.launches} (expected one prefill "
+          f"x {cfg.n_layers})")
     print(f"[serve-bsq] 4 requests x {n_new} tokens from the exported packed weights in "
           f"{serve_s:.3f} s: tokens {toks.tolist()}; bitserial launches {bsm.launches} == "
           f"{n_new} x {cfg.n_layers} x 7; flash launches {fa.launches} [{card}]", flush=True)
@@ -1768,8 +1933,9 @@ def _launch_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
 
-    return {"bgl_sumsq": bgl.launches, "bitserial_matmul": bsm.launches,
-            "paged_attention": pa.launches, "flash_attention": fa.launches}
+    return {"bgl_sumsq": bgl.launches, "bgl_sumsq_backward": bgl.backward_launches,
+            "bitserial_matmul": bsm.launches, "paged_attention": pa.launches,
+            "flash_attention": fa.launches}
 
 
 def _reset_launches() -> None:
@@ -1890,9 +2056,11 @@ def resnet_parity(dev, card):
         check(torch.equal(masks["cuda"][name].cpu(), masks["cpu"][name]),
               f"masks after requant differ for {name}")
     launches = _launch_counts()
-    expected = 3 * 2 * len(RESNET_TENSOR_C)  # the free-running loss and two steps
-    check(launches["bgl_sumsq"] == expected,
-          f"{launches['bgl_sumsq']} bgl_sumsq launches on the card, expected {expected}")
+    # one grouped launch each for the free-running loss and two steps; a
+    # backward launch for each step
+    check((launches["bgl_sumsq"], launches["bgl_sumsq_backward"]) == (3, 2),
+          f"{launches['bgl_sumsq']} bgl_sumsq launches and {launches['bgl_sumsq_backward']} "
+          "backward launches on the card, expected 3 and 2")
     print(f"[resnet-parity] ResNet-20 width {RESNET_WIDTH}, f32, batch {RESNET_BATCH}, 2 BSQ "
           f"steps card vs cpu: losses {[r['loss'] for r in steps]} within 1e-5 relative; plane "
           f"gradients within {max(r['max_plane_grad_rel_err'] for r in steps):.3e} of max "
@@ -1902,7 +2070,8 @@ def resnet_parity(dev, card):
           f"other level, {forced['derivative_flips']} took the other derivative; free-running "
           f"first loss card {free['cuda']:.7f} cpu {free['cpu']:.7f} "
           f"(gap {abs(free['cuda'] - free['cpu']) / free['cpu']:.3e} relative); "
-          f"{bgl.launches} bgl_sumsq launches [{card}]", flush=True)
+          f"{bgl.launches} + {bgl.backward_launches} bgl_sumsq launches (forward + backward, "
+          f"each over {2 * len(RESNET_TENSOR_C)} views) [{card}]", flush=True)
     return {"steps": steps, "forced": forced, "free_loss": free, "launches": launches}
 
 
@@ -1963,15 +2132,19 @@ def profile_resnet(dev, card, steps=3):
     busy = sum(t for t, _ in by_name.values()) / steps
     kernels = sum(n for _, n in by_name.values()) / steps
     bgl_ms = sum(t for k, (t, _) in by_name.items() if "bgl_" in k) / steps
+    bgl_bwd_ms = sum(t for k, (t, _) in by_name.items() if "bgl_grad" in k) / steps
+    bgl_n = sum(n for k, (_, n) in by_name.items() if "bgl_" in k) / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     print(f"[profile] ResNet-20 BSQ step (width {RESNET_WIDTH}, batch {RESNET_BATCH}): wall "
           f"{wall_ms:.2f} ms under the profiler, device busy {busy:.3f} ms (idle "
           f"{1 - busy / wall_ms:.1%}), {kernels:.0f} device kernels per step; bgl_sumsq "
-          f"{bgl_ms:.3f} ms per step [{card}]", flush=True)
+          f"{bgl_ms:.3f} ms per step in {bgl_n:.0f} kernels (the backward {bgl_bwd_ms:.3f} ms) "
+          f"[{card}]", flush=True)
     for name, (t, n) in top:
         print(f"[profile]   {t / steps:9.3f} ms/step {n / steps:6.0f}x  {name[:90]}")
     return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
             "kernels_per_step": kernels, "bgl_ms_per_step": bgl_ms,
+            "bgl_backward_ms_per_step": bgl_bwd_ms, "bgl_kernels_per_step": bgl_n,
             "top": [{"name": k, "ms_per_step": t / steps, "count_per_step": n / steps}
                     for k, (t, n) in top]}
 
@@ -2000,10 +2173,11 @@ def paper_slice(dev, card):
     scheme, hist = out["scheme"], out["history"]
     sizes = sorted(scheme.group_numel[k] * scheme.bits[k].size for k in scheme.bits)
     check(sizes == sorted(RESNET_TENSOR_C), f"quantised tensor sizes {sizes}")
-    expected = 2 * len(scheme.bits) * RESNET_STEPS
-    check(bsq_launches["bgl_sumsq"] == expected,
-          f"{bsq_launches['bgl_sumsq']} bgl_sumsq launches, expected {expected} "
-          f"(2 x {len(scheme.bits)} tensors x {RESNET_STEPS} steps)")
+    expected = RESNET_STEPS  # one grouped launch over the 44 views per step, one backward
+    check(bsq_launches["bgl_sumsq"] == bsq_launches["bgl_sumsq_backward"] == expected,
+          f"{bsq_launches['bgl_sumsq']} bgl_sumsq launches and "
+          f"{bsq_launches['bgl_sumsq_backward']} backward launches, expected {expected} each "
+          f"(one per BSQ step over 2 x {len(scheme.bits)} views)")
     check(bsq_launches["bitserial_matmul"] == bsq_launches["paged_attention"]
           == bsq_launches["flash_attention"] == 0,
           f"the BSQ pipeline launched serving kernels: {bsq_launches}")
@@ -2038,8 +2212,9 @@ def paper_slice(dev, card):
           f"{paper.REQUANT_INTERVAL}: {RESNET_STEPS} steps in {bsq_s:.2f} s, {step_ms:.2f} ms per "
           f"step (median of steps 2-{RESNET_STEPS}; step 1 {1e3 * hist[0]['dt']:.1f}; bound "
           f"{bound_ms:.4f} ms, {bound_by}: {flops / 1e9:.2f} GFLOP at the f32 rate), peak "
-          f"{bsq_peak / 1e6:.1f} MB; bgl_sumsq launches {bsq_launches['bgl_sumsq']} == "
-          f"{expected} [{card}]", flush=True)
+          f"{bsq_peak / 1e6:.1f} MB; bgl_sumsq launches {bsq_launches['bgl_sumsq']} + "
+          f"{bsq_launches['bgl_sumsq_backward']} backward == {expected} + {expected} [{card}]",
+          flush=True)
     for h in hist:
         if "bits_per_param" in h:
             print(f"[paper]   step {h['step']}: loss {h['loss']:.4f} ce {h['ce']:.4f} acc "
@@ -2098,11 +2273,10 @@ def lm_examples(dev, card):
               f"launches {rec['launches']} as counted [{card}]", flush=True)
         return out
 
-    def bgl_per_step(out):
-        return 2 * len(out["scheme"].bits)
+    def bgl(steps):  # one grouped launch and one backward per BSQ step
+        return {"bgl_sumsq": steps, "bgl_sumsq_backward": steps}
 
-    q = run("quickstart", lambda: quickstart.main([]),
-            lambda o: {"bgl_sumsq": bgl_per_step(o) * 200})
+    q = run("quickstart", lambda: quickstart.main([]), lambda o: bgl(200))
     check(all(np.isfinite([h["ce"], h["reg"]]).all() for h in q["history"]),
           f"quickstart: non-finite history {q['history']}")
     report["quickstart"]["bits_per_param"] = q["scheme"].bits_per_param
@@ -2110,7 +2284,7 @@ def lm_examples(dev, card):
 
     def served(o):
         n_layers, n_new = o["cfg"].n_layers, 32
-        return {"bgl_sumsq": bgl_per_step(o) * 120,
+        return {**bgl(120),
                 "bitserial_matmul": n_new * n_layers * 7,  # each model call, 7 projections
                 "flash_attention": n_layers}  # one prefill of the single bucket
 
@@ -2127,7 +2301,7 @@ def lm_examples(dev, card):
     del s
 
     f = run("fault_tolerance", lambda: fault_tolerance.main([]),
-            lambda o: {"bgl_sumsq": 16 * 30})  # 8 quantised tensors, 20 + 10 steps
+            lambda o: bgl(30))  # 20 + 10 steps
     check((f["phase1_step"], f["resumed_from"], f["phase2_step"]) == (20, 20, 30)
           and 2 not in f["survivors"], f"fault_tolerance: {f}")
     report["fault_tolerance"].update(resumed_from=f["resumed_from"], status=f["status"])
@@ -2136,7 +2310,7 @@ def lm_examples(dev, card):
     t = run("train_lm_bsq",
             lambda: train_lm_bsq.main(["--steps", "40", "--requant-interval", "20",
                                        "--workdir", ""]),
-            lambda o: {"bgl_sumsq": bgl_per_step(o) * 40})
+            lambda o: bgl(40))
     check([h["step"] for h in t["history"]] == [20, 40]
           and all(np.isfinite(h["total"]) for h in t["history"]),
           f"train_lm_bsq history {t['history']}")
@@ -3230,34 +3404,55 @@ def kernel_entries(report, max_err):
     entry["launches_bsq_serve"] = report["bsq"]["serve_bitserial_launches"]
     entry["launches_gemma3"] = report["gemma3"]["bucketed"]["bitserial_launches"]
     p_entry["launches_gemma3"] = report["gemma3"]["continuous"]["paged_launches"]
-    b_rows = {(r["R"], r["C"], r["dtype"]): r for r in report["bgl"]}
-    step_rows = [b_rows[shape + ("float32",)] for shape in BGL_STEP]
+    # the grouped kernels (phase 2c) at one BSQ step's regulariser call of
+    # the training slice (phase 6's launches), of the paper pipeline (6c),
+    # of reduced qwen2-moe (3f) and of train_lm_bsq (6d)
+    grp = {r["group"]: r for r in report["bgl_grouped"]}
+    lm, rn, qm = grp["granite-step"], grp["resnet20-step"], grp["qwen2-moe-reduced"]
+    lm100 = grp["lm-100m-step"]
     b_entry = {
         "name": "bgl_sumsq", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bgl_sumsq.cu",
         "replaces": "src/repro/kernels/bgl_norm.py:40",
         "launches": report["bsq"]["launches"]["bgl_sumsq"],
-        "max_abs_err": max(r["max_abs_err"] for r in report["bgl"]),
-        "max_rel_err": max(r["max_rel_err"] for r in report["bgl"]),
-        "ms": sum(r["ms"] for r in step_rows), "plain_ms": sum(r["plain_ms"] for r in step_rows),
-        "bound_ms": sum(r["bound_ms"] for r in step_rows),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in step_rows)
-        else "operations",
-        "library_ms": sum(r["library_ms"] for r in step_rows),
-        "work": "the 16 launches of one BSQ train step of 2-layer full-width granite-3-2b: "
-                "wp and wn of its 8 plane tensors, f32, 16.04 GB",
-    }
-    # the paper pipeline's step (phase 6c): wp and wn of ResNet-20's 22 tensors
-    r_rows = [b_rows[(9, C, "float32")] for C in RESNET_TENSOR_C for _ in range(2)]
-    b_entry.update({
+        "backward_launches": report["bsq"]["launches"]["bgl_sumsq_backward"],
+        "max_abs_err": max(r["max_abs_err"] for r in report["bgl"] + report["bgl_grouped"]),
+        "max_rel_err": max(r["max_rel_err"] for r in report["bgl"] + report["bgl_grouped"]),
+        **{k: lm["forward"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "per_view_ms")},
+        "work": "one grouped launch: the 16 plane views (wp and wn of 8 tensors) of one BSQ "
+                "train step of 2-layer full-width granite-3-2b, f32, 16.04 GB; per_view_ms "
+                "sums 16 one-view calls; library_ms is one torch._foreach_norm over the 270 "
+                "rows",
         "launches_resnet": report["paper"]["launches"]["bgl_sumsq"],
-        "ms_resnet_step": sum(r["ms"] for r in r_rows),
-        "plain_ms_resnet_step": sum(r["plain_ms"] for r in r_rows),
-        "bound_ms_resnet_step": sum(r["bound_ms"] for r in r_rows),
-        "library_ms_resnet_step": sum(r["library_ms"] for r in r_rows),
-        "work_resnet": "the 44 launches of one BSQ step of ResNet-20 (width 16): wp and wn of "
-                       "its 22 tensors, (9, numel) each, f32, 270,896 parameters, 19.5 MB",
-    })
+        **{f"{k}_resnet_step": rn["forward"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                          "library_ms", "per_view_ms")},
+        "work_resnet": "one grouped launch: the 44 views of one BSQ step of ResNet-20 (width "
+                       "16), wp and wn of its 22 tensors, (9, numel) each, f32, 19.5 MB",
+        "launches_qwen2_moe_train": report["parity_moe"]["train"]["bgl_launches"],
+        **{f"{k}_qwen2_moe_reduced": qm["forward"][k] for k in ("ms", "bound_ms",
+                                                                "per_view_ms")},
+        **{f"{k}_lm_100m_step": lm100["forward"][k] for k in ("ms", "bound_ms", "library_ms",
+                                                              "per_view_ms")},
+    }
+    bb_entry = {
+        "name": "bgl_sumsq_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bgl_sumsq.cu",
+        "replaces": "src/repro/kernels/bgl_norm.py:40",
+        "launches": report["bsq"]["launches"]["bgl_sumsq_backward"],
+        "max_abs_err": max(r["backward_max_abs_err"] for r in report["bgl_grouped"]),
+        **{k: lm["backward"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")},
+        "work": "the gradient 2 x g[row] of the 16 granite-3-2b views in one launch, f32, "
+                "16.04 GB read and written; the gradient of kernel 4's function, which the "
+                "JAX package leaves to autodiff; plain_ms is the per-view elementwise ops it "
+                "replaces; library_ms is one torch._foreach_mul by (2 g)[:, None] per view",
+        "launches_resnet": report["paper"]["launches"]["bgl_sumsq_backward"],
+        **{f"{k}_resnet_step": rn["backward"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                           "library_ms")},
+        **{f"{k}_lm_100m_step": lm100["backward"][k] for k in ("ms", "bound_ms", "library_ms")},
+        "launches_qwen2_moe_train": report["parity_moe"]["train"]["bgl_backward_launches"],
+    }
     # one gemma3-12b prefill call's attention: 40 windowed and 8 causal
     # launches at B = 2, S = 4096 (bf16), the bucketed run's main path
     f_rows = {(r["case"], r["dtype"]): r for r in report["flash"]}
@@ -3326,8 +3521,7 @@ def kernel_entries(report, max_err):
                     "launches_phi35_moe": phi["flash_launches"],
                     "ms_qwen2": q_flash["ms"], "bound_ms_qwen2": q_flash["bound_ms"],
                     "library_ms_qwen2": q_flash["library_ms"]})
-    b_entry["launches_qwen2_moe_train"] = report["parity_moe"]["train"]["bgl_launches"]
-    return [entry, d_entry, pre_entry, p_entry, b_entry, f_entry]
+    return [entry, d_entry, pre_entry, p_entry, b_entry, bb_entry, f_entry]
 
 
 def main() -> int:
@@ -3393,20 +3587,21 @@ def main() -> int:
     # ---------------------------------------------------- 2, 2b, 2c, 2d
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
 
-    def time_ms(fn, iters=10):
+    def time_ms(fn, iters=10, spin=500_000):
         """Median device time of fn with the L2 flushed before each call.
 
-        A spin of the card (about 0.25 ms) after the flush keeps the
-        device busy until the host has queued the whole call, so the
-        start event never waits on the host: a call of a few microseconds
-        whose Python wrapper takes longer than the flush would otherwise
-        time the host."""
+        A spin of the card (``spin`` cycles, about 0.25 ms by default)
+        after the flush keeps the device busy until the host has queued
+        the whole call, so the start event never waits on the host: a
+        call of a few microseconds whose Python wrapper takes longer than
+        the flush would otherwise time the host.  A call whose host side
+        takes longer (a group of tens of views) asks for a longer spin."""
         fn()
         fn()
         times = []
         for _ in range(iters):
             flush.zero_()
-            torch.cuda._sleep(500_000)
+            torch.cuda._sleep(spin)
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
             fn()
@@ -3428,7 +3623,7 @@ def main() -> int:
         report["paged"] = paged_kernel_phase(dev, card, time_ms, median_ms)
         phase_done("2b")
     if want("2c"):
-        report["bgl"] = bgl_kernel_phase(dev, card, time_ms)
+        bgl_kernel_phase(dev, card, time_ms, report)
         phase_done("2c")
     if want("2d"):
         report["flash"] = flash_kernel_phase(dev, card, time_ms)

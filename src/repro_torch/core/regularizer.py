@@ -6,14 +6,16 @@ Paper Eq. 5:  L = L_CE + alpha * sum_l  (#Para_l * #Bit_l / #Para_total) * B_GL(
 
 Norms are taken per (bit, group) over all non-group weight axes; masked
 (inactive) planes contribute nothing.  The per-(bit, group) sums of
-squares go through ``kernels.ops.bgl_sumsq``: the hand-written kernel on
-the card, the plain version on the CPU (the JAX package's regulariser
-computes the same sums in jnp).
+squares of every tensor's ``wp`` and ``wn`` go through one
+``kernels.ops.bgl_sumsq_grouped`` call per evaluation: one launch of the
+hand-written kernel on the card (and one of its backward), the plain
+version on the CPU (the JAX package's regulariser computes the same sums
+in jnp, ``sum wp^2 + sum wn^2``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -34,13 +36,27 @@ def _rows(planes: torch.Tensor, group_axes) -> torch.Tensor:
     return planes.reshape(planes.shape[0] * n_groups, -1)
 
 
-def bit_group_norms(rep: BitRep) -> torch.Tensor:
-    """L2 norm of ``[wp_b; wn_b]`` per (bit, group): shape ``(n_bits, *group_shape)``."""
+def _sumsq(reps: List[BitRep]) -> Tuple[torch.Tensor, ...]:
+    """Per tensor, ``sum wp^2 + sum wn^2`` per (bit, group), flat in (bit,
+    group) order: one grouped call over ``[wp_1 .. wp_n, wn_1 .. wn_n]``,
+    its two halves added in one op, split per tensor."""
+    wp = [_rows(r.wp, r.group_axes) for r in reps]
+    wn = [_rows(r.wn, r.group_axes) for r in reps]
+    flat = ops.bgl_sumsq_grouped(wp + wn)
+    half = flat.shape[0] // 2
+    return torch.split(flat[:half] + flat[half:], [x.shape[0] for x in wp])
+
+
+def _norms(rep: BitRep, sq: torch.Tensor) -> torch.Tensor:
     gshape = tuple(rep.w_shape[i] for i in sorted(rep.group_axes))
-    sq = ops.bgl_sumsq(_rows(rep.wp, rep.group_axes)) + ops.bgl_sumsq(_rows(rep.wn, rep.group_axes))
     sq = sq.reshape((rep.n_bits,) + gshape)
     mask = rep.mask.reshape((rep.n_bits,) + gshape)
     return torch.sqrt(sq + _EPS) * mask.to(sq.dtype)
+
+
+def bit_group_norms(rep: BitRep) -> torch.Tensor:
+    """L2 norm of ``[wp_b; wn_b]`` per (bit, group): shape ``(n_bits, *group_shape)``."""
+    return _norms(rep, _sumsq([rep])[0])
 
 
 def bgl(rep: BitRep) -> torch.Tensor:
@@ -58,15 +74,17 @@ def memory_reweighed_bgl(
     ``#Bit`` per group comes from the *current* active mask (updated at
     every re-quantisation, constant in between), detached.  With
     ``reweigh=False`` it is the plain sum of B_GL terms (the Fig. 2
-    ablation baseline).
+    ablation baseline).  The sums of squares of every tensor are one
+    grouped call; the per-tensor epilogue follows.
     """
     if total_params is None:
         total_params = sum(total_numel(r) for r in reps.values())
-    total = None
-    for r in reps.values():
-        g = bgl(r).to(torch.float32)  # (group_shape)
-        if total is None:
-            total = torch.zeros((), dtype=torch.float32, device=g.device)
+    if not reps:
+        return torch.zeros((), dtype=torch.float32)
+    sqs = _sumsq(list(reps.values()))
+    total = torch.zeros((), dtype=torch.float32, device=sqs[0].device)
+    for r, sq in zip(reps.values(), sqs):
+        g = torch.sum(_norms(r, sq), dim=0).to(torch.float32)  # (group_shape)
         if reweigh:
             n_el = numel_per_group(r)
             # group-broadcast shape, as in the JAX code: against the
@@ -77,7 +95,7 @@ def memory_reweighed_bgl(
             total = total + torch.sum(weight * g)
         else:
             total = total + torch.sum(g)
-    return torch.zeros((), dtype=torch.float32) if total is None else total
+    return total
 
 
 def scheme_summary(reps: Dict[str, BitRep]) -> Dict[str, torch.Tensor]:

@@ -8,8 +8,9 @@ the scheme BSQ found.  PyTorch port of ``examples/resnet20_bsq_paper.py``.
 :func:`main` runs BSQ from 8 bits: the STE reconstruction, the forward
 with ``train=False, act_bits=4``, CE plus alpha times the memory-
 reweighed bit-level group Lasso (whose per-(bit, group) sums of squares
-run through the ``bgl_sumsq`` kernel on the card: two launches per
-quantised tensor, 44 per step), SGDM, the planes trimmed to [0, 2], a
+run through the grouped ``bgl_sumsq`` kernel on the card: one launch
+over wp and wn of all 22 quantised tensors per step, and one for its
+backward), SGDM, the planes trimmed to [0, 2], a
 static requantisation every 20 steps, and the per-layer scheme at the
 end.  :func:`finetune` trains the float weights through
 ``core.qat.finetune_loss_fn`` under that frozen scheme.

@@ -87,31 +87,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
 
 
-class _BglSumsq(torch.autograd.Function):
-    """Per-row sum of squares, the kernel on the card and the plain
-    version on the CPU; the backward is ``2 x g[:, None]`` on both (the
-    JAX package differentiates its jnp sum the same way; there is no
-    backward kernel)."""
+class _BglSumsqGrouped(torch.autograd.Function):
+    """Per-row sums of squares of a group of (R_i, C_i) views, one flat
+    output: the grouped kernel on the card, the plain version on the CPU.
+    The backward, ``2 x_i g[row]`` for each view that needs it, is one
+    kernel launch on the card and the plain version's bits (the JAX
+    package differentiates its jnp sum the same way; it has no backward
+    kernel)."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        if x.device.type == "cuda":
-            from .bgl_sumsq import bgl_sumsq_cuda
+    def forward(ctx, *xs):
+        ctx.save_for_backward(*xs)
+        if xs[0].device.type == "cuda":
+            from .bgl_sumsq import bgl_sumsq_grouped_cuda
 
-            return bgl_sumsq_cuda(x)
-        return ref.bgl_sumsq_ref(x)
+            return bgl_sumsq_grouped_cuda(xs)
+        return ref.bgl_sumsq_grouped_ref(xs)
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        g2 = (2.0 * g)[:, None]
-        if x.dtype == torch.bfloat16:
-            return (x.float() * g2).to(x.dtype)
-        return x * g2.to(x.dtype)
+        xs = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        if xs[0].device.type == "cuda":
+            from .bgl_sumsq import bgl_sumsq_grouped_backward_cuda
+
+            return tuple(bgl_sumsq_grouped_backward_cuda(xs, g, needs))
+        gs = torch.split(g, [x.shape[0] for x in xs])
+        return tuple(ref.bgl_sumsq_grad_ref(x, gi) if need else None
+                     for x, gi, need in zip(xs, gs, needs))
+
+
+def bgl_sumsq_grouped(xs) -> torch.Tensor:
+    """(R_i, C_i) views -> flat (sum R_i,) f32 per-row sums of squares:
+    the rows of ``xs[0]``, then those of ``xs[1]``, ...  Rows are (bit,
+    group) pairs of the bit-level group Lasso; on the card the whole
+    group is one launch (one dtype per group).  Differentiable."""
+    return _BglSumsqGrouped.apply(*xs)
 
 
 def bgl_sumsq(x: torch.Tensor) -> torch.Tensor:
-    """(R, C) -> (R,) f32 per-row sum of squares; rows are (bit, group)
-    pairs of the bit-level group Lasso.  Differentiable."""
-    return _BglSumsq.apply(x)
+    """(R, C) -> (R,) f32 per-row sum of squares: the one-view group of
+    :func:`bgl_sumsq_grouped`.  Differentiable."""
+    return _BglSumsqGrouped.apply(x)

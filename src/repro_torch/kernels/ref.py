@@ -94,6 +94,23 @@ def bgl_sumsq_ref(x: torch.Tensor) -> torch.Tensor:
     return x.pow(2).sum(1)
 
 
+def bgl_sumsq_grouped_ref(xs) -> torch.Tensor:
+    """:func:`bgl_sumsq_ref` of each (R_i, C_i) input, concatenated: the
+    rows of ``xs[0]``, then those of ``xs[1]``, ..."""
+    return torch.cat([bgl_sumsq_ref(x) for x in xs])
+
+
+def bgl_sumsq_grad_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gradient ``2 x g[:, None]`` of :func:`bgl_sumsq_ref` for the
+    output gradient ``g`` (R,): ``x * (2 g)[:, None]`` in x's dtype, and
+    for bf16 the f32 product rounded to bf16 once (the JAX package
+    differentiates its jnp sum the same way)."""
+    g2 = (2.0 * g)[:, None]
+    if x.dtype == torch.bfloat16:
+        return (x.float() * g2).to(x.dtype)
+    return x * g2.to(x.dtype)
+
+
 def flash_attention_ref(q, k, v, *, causal=True, window=None, sm_scale=None):
     """Naive f32 softmax attention over (BH, S, d): scores in f32, the
     causal and window mask filled with -1e30, softmax, then ``p`` cast to

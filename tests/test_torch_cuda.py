@@ -15,7 +15,8 @@ the largest |output|:
   bf16 2e-2 (the kernel rounds K to q's dtype and p to V's dtype, the
   plain version computes in f32);
 * bgl_sumsq: 1e-5 of each row's plain value (f32 sums of non-negative
-  terms in another order; bf16 widens exactly to f32 in both);
+  terms in another order; bf16 widens exactly to f32 in both); its
+  backward bitwise (the plain version's one product per element);
 * flash attention: f32 1e-5 (an online softmax over key tiles against a
   one-pass one); bf16 2e-2 (the kernel rounds the unnormalised p to V's
   dtype, the plain version the normalised one).
@@ -370,12 +371,81 @@ def test_bgl_sumsq_unaligned_view_and_launch_count(cuda):
     g = torch.randn(5, device=cuda)
     (gx,) = torch.autograd.grad(tops.bgl_sumsq(xg), xg, g)
     assert torch.equal(gx, xg.detach() * (2.0 * g)[:, None])
-    assert tbgl.launches == 2
+    assert (tbgl.launches, tbgl.backward_launches) == (2, 1)
     with pytest.raises(TypeError, match="dtype"):
         tbgl.bgl_sumsq_cuda(x.half())
     with pytest.raises(ValueError, match="contiguous"):
         tbgl.bgl_sumsq_cuda(torch.randn(8, 6, device=cuda).t())
-    assert tbgl.launches == 2
+    assert (tbgl.launches, tbgl.backward_launches) == (2, 1)
+
+
+def _bgl_group(dev, dtype, seed):
+    """Ragged views, views that start off a 16-byte boundary (slices of one
+    flat buffer), a 1-element row beside a 1e6-element row, several chunks
+    per row, and an empty view."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.randn(1 + 5 * 4099 + 3 * 33, generator=gen, device=dev).to(dtype)
+    xs = [torch.randn(s, generator=gen, device=dev).to(dtype)
+          for s in ((1, 1), (1, 1_000_000), (9, 432), (7, 1_000_003), (18, 65_536),
+                    (0, 8), (2, 8), (9, 36_864))]
+    xs += [base[1:1 + 5 * 4099].view(5, 4099), base[1 + 5 * 4099:].view(3, 33)]
+    return xs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bgl_grouped_kernel_matches_plain_and_is_bitwise_alone_and_again(cuda, dtype):
+    """One launch for the group, within 1e-5 of each row's plain value;
+    each view's sums the same bits alone as in the group; a second call
+    the same bits."""
+    xs = _bgl_group(cuda, dtype, 7)
+    tbgl.reset_launches()
+    got = tops.bgl_sumsq_grouped(xs)
+    assert tbgl.launches == 1 and got.shape == (sum(x.shape[0] for x in xs),)
+    want = tref.bgl_sumsq_grouped_ref(xs)
+    assert ((got - want).abs() / want).max().item() <= 1e-5
+    assert torch.equal(got, tops.bgl_sumsq_grouped(xs))
+    alone = torch.cat([tops.bgl_sumsq(x) for x in xs])
+    assert torch.equal(got, alone)
+    assert tbgl.launches == 2 + len(xs) - 1  # the (0, 8) view alone launches nothing
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bgl_grouped_backward_is_the_plain_bits_in_one_launch(cuda, dtype):
+    """``x * (2 g)[:, None]`` (bf16: the f32 product rounded once) for
+    every view that needs it, in one launch, from a strided and from an
+    expanded (stride 0) gradient."""
+    xs = [x.detach().requires_grad_(i % 3 != 2) for i, x in enumerate(_bgl_group(cuda, dtype, 8))]
+    need = [x for x in xs if x.requires_grad]
+    rows = sum(x.shape[0] for x in xs)
+    for g in (torch.randn(2 * rows, device=cuda)[::2], torch.ones((), device=cuda).expand(rows)):
+        tbgl.reset_launches()
+        grads = torch.autograd.grad(tops.bgl_sumsq_grouped(xs), need, g)
+        assert (tbgl.launches, tbgl.backward_launches) == (1, 1)
+        gs = dict(zip(map(id, xs), torch.split(g, [x.shape[0] for x in xs])))
+        for x, gx in zip(need, grads):
+            assert gx.dtype == dtype and gx.shape == x.shape
+            assert torch.equal(gx, (x.detach().float() * (2.0 * gs[id(x)])[:, None]).to(dtype))
+
+
+def test_bgl_grouped_raises_and_splits_long_tables(cuda):
+    """A mixed-dtype group, a CPU view and a strided view raise before any
+    launch; a table longer than one launch's parameters takes one launch
+    per MAX_SEGMENTS views, with the same sums as one view at a time."""
+    a, b = torch.randn(4, 8, device=cuda), torch.randn(2, 8, device=cuda)
+    tbgl.reset_launches()
+    with pytest.raises(TypeError, match="one dtype"):
+        tbgl.bgl_sumsq_grouped_cuda([a, b.bfloat16()])
+    with pytest.raises(ValueError, match="CUDA"):
+        tbgl.bgl_sumsq_grouped_cuda([a, b.cpu()])
+    with pytest.raises(ValueError, match="contiguous"):
+        tbgl.bgl_sumsq_grouped_cuda([a, torch.randn(8, 6, device=cuda).t()])
+    assert tbgl.launches == 0
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    xs = [torch.randn((1 + i % 9, 1 + 37 * i), generator=gen, device=cuda)
+          for i in range(2 * tbgl.MAX_SEGMENTS + 8)]
+    got = tops.bgl_sumsq_grouped(xs)
+    assert tbgl.launches == 3
+    assert torch.equal(got, torch.cat([tops.bgl_sumsq(x) for x in xs]))
 
 
 def test_bsq_train_steps_on_card_match_cpu(cuda):
@@ -399,7 +469,8 @@ def test_bsq_train_steps_on_card_match_cpu(cuda):
                                             for k, v in b.items()})
         for k in ("ce", "reg", "total"):
             assert abs(m_gpu[k].item() - m_cpu[k].item()) <= 1e-5 * abs(m_cpu[k].item()), k
-    assert tbgl.launches == 2 * 2 * len(ctx.meta)
+    # one grouped launch per regulariser evaluation, and one for its backward
+    assert (tbgl.launches, tbgl.backward_launches) == (2, 2)
     rq = make_requant_step(ctx)
     masks_cpu, masks_gpu = rq(state_cpu)["masks"], rq(state_gpu)["masks"]
     for name in masks_cpu:

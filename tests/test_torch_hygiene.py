@@ -25,6 +25,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.launch.serve", "repro_torch.bridge",
             "repro_torch.kernels.paged_attention", "repro_torch.serve.slots",
             "repro_torch.serve.scheduler", "repro_torch.kernels.bgl_sumsq",
+            "repro_torch.kernels.ref", "repro_torch.kernels._build",
             "repro_torch.core.bitrep", "repro_torch.core.ste", "repro_torch.core.regularizer",
             "repro_torch.core.requant", "repro_torch.core.scheme", "repro_torch.core.bsq",
             "repro_torch.optim.optimizers", "repro_torch.data.pipeline",

@@ -118,14 +118,15 @@ def test_decoupled_reg_clip_runs_the_kernel_twice_and_stays_finite(jax_run):
 
     state, ctx = _port(jax_run)
     calls = []
-    orig = ops.bgl_sumsq
-    ops.bgl_sumsq = lambda x: calls.append(x.shape) or orig(x)
+    orig = ops.bgl_sumsq_grouped
+    ops.bgl_sumsq_grouped = lambda xs: calls.append(len(xs)) or orig(xs)
     try:
         step = make_bsq_train_step(ctx, SGDM(), step_decay(0.2, [2]), decouple_reg_clip=True)
         state, m = step(state, _torch_batch(_batches(1)[0]))
     finally:
-        ops.bgl_sumsq = orig
-    assert len(calls) == 2 * 2 * len(ctx.meta)  # wp and wn, task+reg and reg-only
+        ops.bgl_sumsq_grouped = orig
+    # one grouped call (wp and wn of every tensor) each for task+reg and reg-only
+    assert calls == [2 * len(ctx.meta)] * 2
     assert all(np.isfinite(float(v)) for v in m.values())
 
 
