@@ -18,7 +18,9 @@ failure exits non-zero and none is caught:
    the MoE slices' projections and heads in bf16 at the M their paths
    run: qwen2-moe-a2.7b's 2048 x 2048 at M 8, 2048 and 4096 and its 2048
    x 152064 head at M 4 and 8, phi3.5-moe's 4096 x 4096 and 4096 x 1024
-   at M 4 and 1024 and its 4096 x 32256 head at M 4), check a second call
+   at M 4 and 1024 and its 4096 x 32256 head at M 4; recurrentgemma-9b's
+   4096 x 4096, 4096 x 256 (its one K/V head), 4096 x 12288 and 12288 x
+   4096 at its decode M 8), check a second call
    bitwise equal, ``active=a`` bitwise against
    ``truncate_packed`` for every a, and that decode runs the split-K
    kernel and bf16 prefill the wgmma tile (the profiler names both; a
@@ -61,7 +63,8 @@ failure exits non-zero and none is caught:
    prefill shapes (granite-3-2b's bucket, gemma3-12b's 2 x 4096 tokens
    causal and with window 1024, a non-causal case, a ragged length,
    qwen2-moe's 4 x 1024 tokens at d 128 MHA, phi3.5-moe's 4 x 256 at d
-   128 G 4),
+   128 G 4, recurrentgemma-9b's 2 x 4096 tokens at d 256 G 16, window
+   2048),
    f32 within 1e-5 and bf16 within 2e-2 of max |plain|, a second call
    bitwise equal, and time the kernel, the plain version and one
    ``scaled_dot_product_attention`` call (a yardstick only); 2b and 2d
@@ -94,6 +97,13 @@ failure exits non-zero and none is caught:
    counted), every logit row within the phase-3 tolerance, identical
    greedy tokens, launches exact, the share of dropped assignments
    printed; then phase 3c's two BSQ steps on reduced qwen2-moe;
+3g. the recurrent mixers, f32, card against CPU: mamba2-130m at full
+   width and depth (24 SSD layers, nothing packable) and recurrentgemma-9b
+   at full width cut to one superblock (rglru, rglru, local; 6-bit packed,
+   the CPU holding the weights unpacked) with its 256000-row tied head:
+   ``forward``, the bucketed engine (prefill and 8 decode steps) and the
+   chunked paged-kernel engine (4 lanes, chunks of 64); every logit row
+   within the phase-3 tolerance, identical greedy tokens, launches exact;
 4. full-width 40-layer granite-3-2b, bf16, 6-bit packed, served by the
    bucketed ServeEngine (8 requests, two buckets, 32 tokens each), with
    the bitserial and flash launch counts checked exactly;
@@ -137,6 +147,23 @@ failure exits non-zero and none is caught:
    experts, never packed, would take 80.5 GB in bf16), bf16, 6-bit
    packed: bucketed, 4 requests of 256 prompt tokens, 16 new, launches
    exact;
+4g. full-width, full-depth recurrentgemma-9b (38 layers: 12 x (rglru,
+   rglru, local) + 2 rglru; one K/V head of 256, window 2048, GeGLU,
+   256000-row tied head), bf16, 6-bit packed attention and MLP, the
+   RG-LRU matrices held in bf16 (checked): bucketed (2 x 4096 and 2 x 1024
+   prompt tokens, 32 new; the 4096 ones wrap the rings in prefill) and
+   continuous (chunks of 256, the paged policy, 8 lanes, 16 requests with
+   prompts uniform in [512, 3072] on Poisson arrivals); launches exact
+   (bitserial on the 162 packed projections of each model call, flash once
+   per prefill call and local layer, paged never); TTFT beside its
+   operation bound, decode ms per step beside its byte bound (every weight
+   once, the RG-LRU state read and written, the ring rows), tokens/s, peak
+   memory, weight bytes, a profiled decode step;
+4h. full-width, full-depth mamba2-130m (24 SSD layers), bf16: bucketed (4 x
+   256 and 4 x 1024 prompt tokens, multiples of its ssm_chunk) and
+   continuous (chunks of 256, the paged policy, 8 lanes, 16 requests with
+   prompts in [64, 1024]); the same numbers, and every kernel's launch
+   count 0 (the model has none on its path);
 6. the BSQ training slice: full-width granite-3-2b cut to 2 layers,
    trained through ``repro_torch.launch.train.run``: 4 steps with a
    requant and a checkpoint at step 4, then a second run that resumes
@@ -172,7 +199,8 @@ failure exits non-zero and none is caught:
    entries, the runtime-plane entry with phase 4d's launches, flash and
    paged also carry ``vs_library``, their time over the library call's:
    below 1 beats it; the bitserial, flash, paged and bgl_sumsq entries
-   add the MoE phases' launches and the kernels at their shapes; the
+   add the MoE and recurrent phases' launches and the kernels at their
+   shapes; the
    bgl_sumsq forward and backward entries carry the grouped times), the
    card's name and power limit, and the final ``{"ok": true, ...}``
    line.
@@ -217,6 +245,20 @@ PHI_PROJ = [(4096, 4096), (4096, 1024)]
 PHI_HEAD = (4096, 32256)
 MOE_ROWS = [(QWEN2_PROJ, (8, 2048, 4096)), (QWEN2_HEAD, (4, 8))] \
     + [(kn, (4, 1024)) for kn in PHI_PROJ] + [(PHI_HEAD, (4,))]
+# recurrentgemma-9b's 7 packed projections of a local layer (q, k, v, o, and
+# the GeGLU gate, up, down), as (K, N): its one K/V head of 256 makes k and v
+# 4096 x 256 (an rglru layer packs only the MLP); timed in bf16 at M 8, the
+# decode M of its continuous run (8 lanes)
+RG_PROJ = [(4096, 4096), (4096, 256), (4096, 256), (4096, 4096), (4096, 12288),
+           (4096, 12288), (12288, 4096)]
+RG_ROWS = [(kn, (8,)) for kn in sorted(set(RG_PROJ))]
+# phase 3g holds the card to the CPU within phase 3's tolerance, or within
+# this many times the logit change that a one-step f32 nudge of every
+# embedding value causes on the CPU, whichever is larger: full-depth mamba2
+# amplifies rounding past 1e-4 of its logits (PERF.md §6)
+ROUNDING_FACTOR = 4
+# the recurrent slices' serving runs (phases 4g, 4h): chunks of 256, 32 new
+R_CHUNK, R_MAX_NEW = 256, 32
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of max |plain|, see phase 2
 # paged attention, of max |plain|: f32, an online softmax against a
 # one-pass one; bf16, the kernel rounds K to q's dtype and p to V's dtype
@@ -589,6 +631,9 @@ def flash_kernel_phase(dev, card, time_ms):
         # 16 heads) and phi3.5-moe's 4 x 256 (32 query heads over 8 K/V)
         ("qwen2-moe-prefill", 4 * 16, 4 * 16, 1024, 128, None, True),
         ("phi35-moe-prefill", 4 * 32, 4 * 8, 256, 128, None, True),
+        # recurrentgemma-9b's 2 x 4096-token bucket: 16 query heads on one
+        # K/V head (G 16) of d 256, window 2048
+        ("recurrentgemma-local", 2 * 16, 2 * 1, 4096, 256, 2048, True),
     ]
     gen = torch.Generator(device=dev).manual_seed(5)
     rows = []
@@ -2511,7 +2556,7 @@ def bitserial_kernel_phase(dev, card, time_ms, report):
             report["matmul"].append(bitserial_case(dev, gen, card, time_ms, M, K, N, None,
                                                    torch.bfloat16, profile=i == 4))
             torch.cuda.empty_cache()
-    for (K, N), ms in MOE_ROWS:
+    for (K, N), ms in MOE_ROWS + RG_ROWS:
         for M in ms:
             report["matmul"].append(bitserial_case(dev, gen, card, time_ms, M, K, N, None,
                                                    torch.bfloat16))
@@ -2519,7 +2564,8 @@ def bitserial_kernel_phase(dev, card, time_ms, report):
     # one layer's 7 projections at each main-path shape, in bf16
     for name, M, proj in (("granite-3-2b decode", 4, LAYER_PROJ),
                           ("gemma3-12b decode", 2, GEMMA3_PROJ),
-                          ("gemma3-12b prefill", 8192, GEMMA3_PROJ)):
+                          ("gemma3-12b prefill", 8192, GEMMA3_PROJ),
+                          ("recurrentgemma-9b local decode", 8, RG_PROJ)):
         rows = layer_rows(report, M, proj)
         ms, lib = sum(r["ms"] for r in rows), sum(r["library_ms"] for r in rows)
         flop = sum(2.0 * r["M"] * r["K"] * r["N"] for r in rows)
@@ -3314,6 +3360,427 @@ def phi_slice(dev, card, engine_cls):
     return rep
 
 
+def layer_counts(cfg):
+    """How many layers of each kind the config's depth holds."""
+    kinds = list(cfg.layer_pattern) * cfg.n_superblocks \
+        + list(cfg.layer_pattern[:cfg.n_tail_layers])
+    return {k: kinds.count(k) for k in set(kinds)}
+
+
+def recurrent_weight_bytes(params):
+    """(packed bytes, recurrent matrices' bytes, embedding (the tied head)
+    bytes, other float bytes, matrix parameters) of a param tree as it is
+    held; the matrix parameters count every packed projection's K x N
+    and every recurrent matrix, the operands of a token's products."""
+    from repro_torch.core.packing import RECURRENT_MATRICES, PackedWeight
+    from repro_torch.tree import flatten_with_path
+
+    packed = recurrent = embed = other = mparams = 0
+    for name, x in flatten_with_path(params):
+        if isinstance(x, PackedWeight):
+            packed += x.hbm_bytes()
+            mparams += x.planes.numel() // (x.n_bits * x.planes.shape[-2]) * x.k
+            continue
+        n = x.numel() * x.element_size()
+        if name.rsplit("/", 1)[-1] in RECURRENT_MATRICES:
+            recurrent += n
+            mparams += x.numel()
+        elif name == "embed":
+            embed += n
+        else:
+            other += n
+    return packed, recurrent, embed, other, mparams
+
+
+def recurrent_state_bytes(cfg, elt):
+    """Bytes of one lane's recurrent state (f32) and conv tails (``elt``
+    bytes each) over the whole depth."""
+    from repro_torch.models.ssm import ssm_dims
+
+    n = layer_counts(cfg)
+    _, H, conv_dim = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim, cfg.ssm_state)
+    state = n.get("ssm", 0) * H * cfg.ssm_head_dim * cfg.ssm_state * 4 \
+        + n.get("rglru", 0) * cfg.d_model * 4
+    conv = n.get("ssm", 0) * (cfg.ssm_conv - 1) * conv_dim * elt + n.get("rglru", 0) * 3 \
+        * cfg.d_model * elt
+    return state, conv
+
+
+def recurrent_decode_bound(weights, cfg, lanes, ring_rows):
+    """The byte bound (ms) of one decode step of ``lanes`` lanes: every
+    weight held read once (packed planes, the recurrent matrices, the tied
+    head, the vectors and norms), each lane's recurrent state and conv
+    tails read and written, and ``ring_rows`` K/V rows of each local layer
+    read per lane.  Returns (ms, bytes by part)."""
+    packed, recurrent, embed, other, _ = weights
+    elt = 2  # bf16 caches
+    state, conv = recurrent_state_bytes(cfg, elt)
+    ring = layer_counts(cfg).get("local", 0) * ring_rows * 2 * cfg.n_kv_heads \
+        * cfg.resolved_head_dim * elt
+    parts = {"packed": packed, "recurrent_matrices": recurrent, "head": embed, "other": other,
+             "state_rw": 2 * lanes * (state + conv), "ring_read": lanes * ring}
+    return 1e3 * sum(parts.values()) / HBM_BYTES_PER_S, parts
+
+
+def recurrent_prefill_bound_ms(cfg, mparams, B, S):
+    """The operation bound (ms) of a bucketed prefill of ``B`` prompts of
+    ``S`` tokens at the bf16 rate: every matrix product of every token
+    (``mparams`` multiply-adds each), the windowed attention's live
+    (query, key) pairs, and the head on each prompt's last token; the
+    scans' elementwise work is left out (a looser bound)."""
+    live = sum(min(i + 1, cfg.window) for i in range(S))
+    attn = layer_counts(cfg).get("local", 0) * 4.0 * cfg.resolved_head_dim * cfg.n_heads * live
+    flop = B * (2.0 * mparams * S + attn + 2.0 * cfg.padded_vocab * cfg.d_model)
+    return 1e3 * flop / PEAK_FLOPS["bfloat16"]
+
+
+def recurrent_parity(dev, card):
+    """Phase 3g: the recurrent mixers card against CPU, f32: mamba2-130m at
+    full width and depth (24 layers, d_model 768, 24 heads of 64, state
+    128; nothing packable) and recurrentgemma-9b at full width cut to one
+    superblock (rglru, rglru, local; 6-bit packed, the CPU holding the
+    same weights unpacked to f32) with its full 256000-row tied head.
+    Each: ``forward`` over 2 prompts, the bucketed engine (prefill and 8
+    decode steps) and the chunked paged-kernel engine (4 lanes, chunks of
+    64); every logit row within the phase-3 tolerance, identical greedy
+    tokens, launches exact (mamba2 none; recurrentgemma the flash kernel
+    once per prefill call on its local layer, the bitserial kernel on its
+    13 packed projections per model call, the paged kernel never)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import PackedWeight, tree_map_with_path, unpack_to_float
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import transformer
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.scheduler import SchedulerPolicy
+
+    f32 = dict(dtype="float32", kv_cache_dtype="float32")
+    archs = {  # arch: (config, pack bits, forward tokens, bucketed prompt, chunked prompts)
+        "mamba2-130m": (get_config("mamba2-130m").scaled(**f32), None, 256, 200,
+                        (100, 256, 150, 64)),
+        "recurrentgemma-9b": (get_config("recurrentgemma-9b").scaled(n_layers=3, **f32), N_BITS,
+                              128, 300, (100, 256, 150, 64)),
+    }
+    rep = {}
+    for arch, (cfg, bits, s_fwd, plen, lens) in archs.items():
+        t0 = time.perf_counter()
+        p_gpu = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(2), dev,
+                                        pack_bits=bits)
+        p_cpu = tree_map_with_path(
+            lambda _, w: (unpack_to_float(w) if isinstance(w, PackedWeight) else w).cpu(), p_gpu)
+        init_s = time.perf_counter() - t0
+        task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+
+        def req(uid, n, max_new):
+            return Request(uid=uid, tokens=task.sample(np.random.default_rng(40 + uid), 1, n)[
+                0, :n].astype(np.int32), max_new=max_new)
+
+        n_local = layer_counts(cfg).get("local", 0)
+        # packed projections per model call: q, k, v, o of each local layer
+        # and the GeGLU MLP of every layer (the head is the float embedding)
+        n_proj = 4 * n_local + 3 * cfg.n_layers if bits else 0
+        toks = task.sample(np.random.default_rng(39), 2, s_fwd)[:, :s_fwd].astype(np.int64)
+        # the CPU run again with every embedding value (the input and the
+        # tied head) moved one f32 step up or down at random: how far
+        # rounding alone moves this model's logits at this depth
+        sign = torch.rand(p_cpu["embed"].shape, generator=torch.Generator().manual_seed(4)) < 0.5
+        nudged = dict(p_cpu, embed=torch.nextafter(
+            p_cpu["embed"], torch.where(sign, torch.tensor(float("inf")),
+                                        torch.tensor(float("-inf")))))
+        sides = {}
+        for side, params, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, torch.device("cpu")),
+                                ("nudged", nudged, torch.device("cpu"))):
+            bsm.reset_launches()
+            with torch.inference_mode():
+                logits, _ = transformer.forward(params, {"tokens": torch.from_numpy(toks).to(d)},
+                                                cfg)
+            sides[side] = logits.float().cpu()
+            if d is dev:
+                check(bsm.launches == n_proj, f"3g {arch} forward: {bsm.launches} bitserial "
+                      f"launches, expected {n_proj}")
+        del nudged
+        dlog = (sides["cuda"] - sides["cpu"]).abs().max().item()
+        lmax = sides["cpu"].abs().max().item()
+        noise = (sides["nudged"] - sides["cpu"]).abs().max().item()
+        # phase 3's tolerance, or ROUNDING_FACTOR x the rounding noise where
+        # the model amplifies rounding past it (mamba2's SSD turns a change
+        # of dt into one of exp(sum of dt a) over the chunk)
+        tol = max(TOL["float32"] * max(1.0, lmax), ROUNDING_FACTOR * noise)
+        print(f"[parity-recurrent] {arch} forward over 2 x {s_fwd} tokens: max|dlogit| card vs "
+              f"cpu {dlog:.3e} (max|logit| {lmax:.3e}); one-step embedding nudge on the cpu moves "
+              f"the logits {noise:.3e}; tolerance {tol:.3e} [{card}]", flush=True)
+        check(dlog <= tol, f"3g {arch} forward: logits differ by {dlog} > {tol}")
+        rep[arch] = {"init_s": init_s, "tolerance": tol, "rounding_noise": noise,
+                     "forward": {"max_abs_dlogit": dlog, "max_abs_logit": lmax,
+                                 "tokens": int(toks.size)}}
+        del sides
+        runs = {
+            "bucketed": ([req(0, plen, 9), req(1, plen, 9)], None, {}, 1),
+            "chunked-paged": ([req(2 + i, n, 8) for i, n in enumerate(lens)], [0, 0, 1, 2],
+                              dict(continuous=True, policy=SchedulerPolicy(
+                                  n_slots=4, chunked_prefill=True, chunk_sizes=(64,),
+                                  paged=True, block_size=BLOCK, paged_kernel=True)), 0),
+        }
+        for name, (reqs, arrivals, kw, prefill_calls) in runs.items():
+            out, taps, secs = {}, {}, {}
+            for side, params, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, torch.device("cpu"))):
+                eng = ServeEngine(params, cfg, max_len=512, device=d, **kw)
+                for m in (bsm, fa, pa):
+                    m.reset_launches()
+                t0 = time.perf_counter()
+                with LogitTap() as tap:
+                    res = eng.generate(reqs, arrival_steps=arrivals)
+                if d is dev:
+                    torch.cuda.synchronize()
+                    launches = (bsm.launches, fa.launches, fa.windowed_launches, pa.launches)
+                    calls = len(tap.rows)  # one logit row set per model call
+                secs[side] = time.perf_counter() - t0
+                out[side] = {r.uid: r.tokens.tolist() for r in res}
+                taps[side] = tap.rows
+                if eng.scheduler is not None:
+                    pool = eng.scheduler.pool
+                    check(pool.allocator.free_count == pool.n_blocks,
+                          f"3g {arch} {name} {side}: the pool did not drain")
+            check(len(taps["cuda"]) == len(taps["cpu"]),
+                  f"3g {arch} {name}: {len(taps['cuda'])} logit calls on the card, "
+                  f"{len(taps['cpu'])} on the CPU")
+            dlog = max((a - b).abs().max().item() for a, b in zip(taps["cuda"], taps["cpu"]))
+            lmax = max(b.abs().max().item() for b in taps["cpu"])
+            want = (calls * n_proj, prefill_calls * n_local, prefill_calls * n_local, 0)
+            check(launches == want, f"3g {arch} {name}: launches (bitserial, flash, windowed, "
+                  f"paged) {launches}, expected {want}")
+            print(f"[parity-recurrent] {arch} {cfg.n_layers} layers full width f32 {name}: card "
+                  f"{secs['cuda']:.1f} s, cpu {secs['cpu']:.1f} s; {len(taps['cpu'])} logit "
+                  f"calls, max|dlogit| {dlog:.3e} (max|logit| {lmax:.3e}); launches (bitserial, "
+                  f"flash, windowed, paged) {launches}; tokens {out['cuda']} [{card}]",
+                  flush=True)
+            check(out["cuda"] == out["cpu"],
+                  f"3g {arch} {name}: greedy tokens differ card vs cpu: {out}")
+            check(dlog <= max(tol, TOL["float32"] * max(1.0, lmax)),
+                  f"3g {arch} {name}: logits differ by {dlog} > {tol}")
+            rep[arch][name] = {"tokens": out["cuda"], "max_abs_dlogit": dlog,
+                               "max_abs_logit": lmax, "logit_calls": len(taps["cpu"]),
+                               "card_s": secs["cuda"], "cpu_s": secs["cpu"],
+                               "launches": list(launches)}
+        del p_gpu, p_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[parity-recurrent] card == cpu: forward, bucketed and chunked logits within 1e-4 "
+          f"of max(1, max|logit|) or {ROUNDING_FACTOR} x the rounding noise, greedy tokens "
+          f"identical", flush=True)
+    return rep
+
+
+def recurrent_slice(dev, card, engine_cls, arch):
+    """Phase 4g (recurrentgemma-9b) or 4h (mamba2-130m): the model at full
+    width and depth, bf16, drawn with ``init_params(pack_bits=6)`` on the
+    card (recurrentgemma's attention and GeGLU MLP packed; mamba2 has
+    nothing packable), served bucketed (recurrentgemma 2 x 4096 and 2 x
+    1024 prompt tokens, the 4096 ones wrapping its 2048-slot rings in
+    prefill; mamba2 4 x 256 and 4 x 1024, multiples of its ssm_chunk; 32
+    new each) and continuous (chunks of 256, the paged policy with the
+    paged kernel asked for; 8 lanes, 16 requests with prompts uniform in
+    [512, 3072] or [64, 1024] (seed 0) on Poisson arrivals at 0.5 per
+    step, 32 new each), then a profiled decode step.  Launches exact:
+    the bitserial kernel on every packed projection of every model call,
+    the flash kernel once per prefill call and local layer (windowed),
+    the paged kernel never (rings and recurrent state bypass paging);
+    mamba2 launches no kernel at all.  The engine must hold the recurrent
+    matrices in bf16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import RECURRENT_MATRICES
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import poisson_arrivals
+    from repro_torch.models import transformer
+    from repro_torch.obs.metrics import percentile
+    from repro_torch.serve import Request
+    from repro_torch.serve.scheduler import SchedulerPolicy
+    from repro_torch.tree import flatten_with_path
+
+    tag = {"recurrentgemma-9b": "rgemma", "mamba2-130m": "mamba2"}[arch]
+    bucket_lens, (lo, hi) = {"recurrentgemma-9b": ([4096, 4096, 1024, 1024], (512, 3072)),
+                             "mamba2-130m": ([256] * 4 + [1024] * 4, (64, 1024))}[arch]
+    max_new = R_MAX_NEW
+    cfg = get_config(arch)
+    n_local = layer_counts(cfg).get("local", 0)
+    # packed projections per model call: q, k, v, o of each local layer and
+    # the GeGLU MLP of every layer (the tied head is the float embedding)
+    n_proj = 4 * n_local + (3 * cfg.n_layers if cfg.d_ff else 0)
+    resident = torch.cuda.memory_allocated()  # what earlier phases left allocated
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                     pack_bits=N_BITS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+
+    # ---- bucketed
+    reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(110 + i), 1, n)[0, :n]
+                    .astype(np.int32), max_new=max_new) for i, n in enumerate(bucket_lens)]
+    engine = engine_cls(params, cfg, max_len=max(bucket_lens) + max_new, device=dev)
+    held = {}
+    for name, x in flatten_with_path(engine.params):
+        if name.rsplit("/", 1)[-1] in RECURRENT_MATRICES:
+            held.setdefault(name.rsplit("/", 1)[-1], set()).add(x.dtype)
+    check(held and all(d == {torch.bfloat16} for d in held.values()),
+          f"{arch}: the engine holds the recurrent matrices as {held}, not bf16")
+    weights = recurrent_weight_bytes(engine.params)
+    packed_bytes, rec_bytes, embed_bytes, other_bytes, mparams = weights
+    print(f"[{tag}] {arch} {cfg.n_layers} layers {dict(sorted(layer_counts(cfg).items()))} "
+          f"d_model={cfg.d_model} vocab {cfg.vocab_size}->{cfg.padded_vocab} {cfg.dtype}: "
+          f"init+pack {init_s:.1f} s, init peak {init_peak / 1e9:.3f} GB ({resident / 1e9:.3f} "
+          f"GB allocated before it); served: packed {packed_bytes / 1e9:.4f} GB, recurrent "
+          f"matrices {rec_bytes / 1e9:.4f} GB in bf16 ({', '.join(sorted(held))}), tied head "
+          f"{embed_bytes / 1e9:.4f} GB, other float {other_bytes / 1e9:.4f} GB; "
+          f"{mparams / 1e9:.3f} B matrix parameters [{card}]", flush=True)
+    rep = {"init_s": init_s, "init_peak_bytes": init_peak, "resident_before_bytes": resident,
+           "packed_weight_bytes": packed_bytes, "recurrent_matrix_bytes": rec_bytes,
+           "embed_bytes": embed_bytes, "other_float_bytes": other_bytes,
+           "matrix_params": mparams, "recurrent_matrices_bf16": sorted(held)}
+    engine.generate([Request(uid=100, tokens=reqs[0].tokens[:64], max_new=2)])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.bad = None
+    for m in (bsm, fa, pa):
+        m.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gen_toks = np.stack([r.tokens for r in sorted(results, key=lambda r: r.uid)])
+    check(gen_toks.shape == (len(reqs), max_new), f"{arch} bucketed tokens {gen_toks.shape}")
+    check(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all(), "token outside the vocab")
+    check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
+    calls = len(set(bucket_lens))  # prefill calls: one per bucket
+    want = (calls * max_new * n_proj, calls * n_proj, calls * n_local, calls * n_local, 0)
+    got = (bsm.launches, bsm.prefill_launches, fa.launches, fa.windowed_launches, pa.launches)
+    check(got == want, f"{arch} bucketed launches (bitserial, its prefill, flash, windowed, "
+          f"paged) {got}, expected {want}")
+    rep["bucketed"] = {"wall_s": wall, "tokens": int(gen_toks.size),
+                       "tokens_per_s": gen_toks.size / wall, "serve_peak_bytes": peak,
+                       "bitserial_launches": bsm.launches,
+                       "bitserial_prefill_launches": bsm.prefill_launches,
+                       "flash_launches": fa.launches, "flash_windowed": fa.windowed_launches,
+                       "paged_launches": pa.launches, "buckets": {}}
+    for plen in sorted(set(bucket_lens)):
+        rs = [r for r in results if len(reqs[r.uid].tokens) == plen]
+        ttft = float(np.mean([r.prefill_ms for r in rs]))
+        dms = float(np.mean([r.decode_ms_per_tok for r in rs]))
+        bound, parts = recurrent_decode_bound(weights, cfg, len(rs),
+                                              min(plen + max_new // 2, cfg.window))
+        tb = recurrent_prefill_bound_ms(cfg, mparams, len(rs), plen)
+        rep["bucketed"]["buckets"][plen] = {
+            "requests": len(rs), "ttft_ms": ttft, "ttft_bound_ms": tb,
+            "decode_ms_per_step": dms, "decode_bound_ms": bound, "decode_bound_bytes": parts}
+        print(f"[{tag}] bucket prompt={plen} x{len(rs)}: TTFT {ttft:.2f} ms (operation bound "
+              f"{tb:.3f}), decode {dms:.3f} ms per step (byte bound {bound:.4f}: "
+              + ", ".join(f"{k} {v / 1e9:.4f} GB" for k, v in parts.items()) + f") [{card}]",
+              flush=True)
+    print(f"[{tag}] bucketed: {len(reqs)} requests, {gen_toks.size} tokens in {wall:.3f} s = "
+          f"{gen_toks.size / wall:.2f} tok/s; serve peak memory {peak / 1e9:.3f} GB; launches "
+          f"bitserial {bsm.launches} == {calls} x {max_new} x {n_proj} ({bsm.prefill_launches} "
+          f"prefill), flash {fa.launches} == {calls} x {n_local} ({fa.windowed_launches} "
+          f"windowed), paged {pa.launches} [{card}]", flush=True)
+    short = min(bucket_lens)  # the shorter bucket's prefill, then 2 profiled steps
+    rep["profile"] = profile_decode(engine, [r for r in reqs if len(r.tokens) == short], cfg,
+                                    card, steps=2)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- continuous
+    n_req = 16
+    lens = np.random.default_rng(0).integers(lo, hi + 1, size=n_req)
+    reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(i), 1, hi)[0, :n]
+                    .astype(np.int32), max_new=max_new) for i, n in enumerate(lens)]
+    arrivals = poisson_arrivals(n_req, 0.5, seed=0)
+    policy = SchedulerPolicy(n_slots=SLOTS, chunked_prefill=True, chunk_sizes=(R_CHUNK,),
+                             paged=True, block_size=BLOCK, paged_kernel=True)
+    engine = engine_cls(params, cfg, max_len=hi + max_new, device=dev, continuous=True,
+                        policy=policy)
+    sched, pool = engine.scheduler, engine.scheduler.pool
+    engine.generate([Request(uid=100, tokens=reqs[0].tokens[:64], max_new=2)])  # warm-up
+    torch.cuda.synchronize()
+    sched.reset_telemetry()
+    torch.cuda.reset_peak_memory_stats()
+    engine.bad = None
+    for m in (bsm, fa, pa):
+        m.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.generate(reqs, arrival_steps=arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps, chunks = sched.decode_steps, sched.prefill_chunks
+    got = {r.uid: r for r in results}
+    check(sorted(got) == list(range(n_req)), f"{arch} continuous results for {sorted(got)}")
+    for r in results:
+        check(len(r.tokens) == max_new and ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all(),
+              f"uid {r.uid}: {len(r.tokens)} tokens, or a token outside the vocab")
+    check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
+    want = ((steps + chunks) * n_proj, 0, 0)
+    check((bsm.launches, fa.launches, pa.launches) == want,
+          f"{arch} continuous launches (bitserial, flash, paged) "
+          f"{(bsm.launches, fa.launches, pa.launches)}, expected {want} ({steps} steps + "
+          f"{chunks} chunks) x {n_proj}; chunked prefill reads the cache, no layer pages")
+    check(pool.allocator.free_count == pool.n_blocks and pool.allocator.committed == 0,
+          f"blocks leaked: free {pool.allocator.free_count}/{pool.n_blocks}, committed "
+          f"{pool.allocator.committed}")
+    check(engine.obs.recorder.leaked == [], f"leaked spans {engine.obs.recorder.leaked}")
+    ttft = [got[i].prefill_ms for i in range(n_req)]
+    occ = sched.mean_occupancy()  # the mean share of the lanes live per step
+    ring_rows = float(np.mean([min(n + max_new // 2, cfg.window) for n in lens]))
+    bound, parts = recurrent_decode_bound(weights, cfg, occ * pool.n_slots, ring_rows)
+    rep["continuous"] = {
+        "requests": n_req, "max_new": max_new, "prompt_lens": lens.tolist(),
+        "arrivals": arrivals, "chunk_sizes": list(policy.chunk_sizes), "wall_s": wall,
+        "tokens": n_req * max_new, "tokens_per_s": n_req * max_new / wall,
+        "ttft_ms_p50": percentile(ttft, 50), "ttft_ms_p90": percentile(ttft, 90),
+        "decode_steps": steps, "prefill_chunks": chunks,
+        "decode_ms_per_step": sched.decode_ms_total / max(steps, 1),
+        "decode_bound_ms": bound, "decode_bound_bytes": parts, "mean_occupancy": occ,
+        "admit_blocked_total": sched._c_blocked.value, "serve_peak_bytes": peak,
+        "cache_bytes": pool.cache_bytes(), "ring_bytes": pool.ring_bytes(),
+        "bitserial_launches": bsm.launches, "flash_launches": fa.launches,
+        "paged_launches": pa.launches,
+    }
+    c = rep["continuous"]
+    print(f"[{tag}] continuous: {n_req} requests x {max_new} tokens, prompts {lens.min()}-"
+          f"{lens.max()} ({lens.sum()} tokens), Poisson arrivals at 0.5/step over "
+          f"{arrivals[-1]} steps, chunks of {R_CHUNK}: {c['tokens']} tokens in {wall:.3f} s = "
+          f"{c['tokens_per_s']:.2f} tok/s; TTFT p50 {c['ttft_ms_p50']:.1f} ms, p90 "
+          f"{c['ttft_ms_p90']:.1f} ms; decode {c['decode_ms_per_step']:.3f} ms per step (byte "
+          f"bound {bound:.4f} at the mean occupancy {occ:.2f} of {pool.n_slots} lanes; {steps} "
+          f"steps), {chunks} prefill "
+          f"chunks; serve peak memory {peak / 1e9:.3f} GB, cache {c['cache_bytes'] / 1e9:.4f} "
+          f"GB ({c['ring_bytes'] / 1e9:.4f} GB rings); launches bitserial {bsm.launches} == "
+          f"({steps} + {chunks}) x {n_proj}, flash {fa.launches}, paged {pa.launches}; pool "
+          f"drained [{card}]", flush=True)
+    if not n_proj and not n_local:
+        print(f"[{tag}] {arch} has no kernel on its path: nothing packable (in_proj and "
+              f"out_proj are outside the packable projections, the head is the float tied "
+              f"embedding) and no attention layer; every launch count is 0 [{card}]",
+              flush=True)
+    del engine, params, sched, pool  # the scheduler and engine refer to each other
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
 def kernel_entries(report, max_err):
     """The {"kernels": [...]} entries: each kernel's time at its main
     path's shapes (phases 2-2d) beside its bound, its plain version and
@@ -3521,6 +3988,34 @@ def kernel_entries(report, max_err):
                     "launches_phi35_moe": phi["flash_launches"],
                     "ms_qwen2": q_flash["ms"], "bound_ms_qwen2": q_flash["bound_ms"],
                     "library_ms_qwen2": q_flash["library_ms"]})
+    # the recurrent slices (phases 3g, 4g, 4h): recurrentgemma-9b's launches,
+    # a local layer's 7 projections at its decode M 8, and its windowed
+    # flash launch (G 16, d 256) at the 2 x 4096-token bucket; mamba2-130m's
+    # (none: 4h checks every count is 0)
+    rg = report["recurrentgemma"]
+    entry["launches_recurrentgemma"] = rg["bucketed"]["bitserial_launches"] \
+        + rg["continuous"]["bitserial_launches"]
+    entry["launches_recurrentgemma_parity"] = sum(
+        r["launches"][0] for r in report["parity_recurrent"]["recurrentgemma-9b"].values()
+        if isinstance(r, dict) and "launches" in r)
+    for key in ("ms", "bound_ms", "library_ms", "plain_ms"):
+        entry[f"{key}_recurrentgemma_local_layer_M8"] = sum(r[key] for r in
+                                                            layer_rows(report, 8, RG_PROJ))
+    entry["work_recurrentgemma"] = ("q, k, v, o and the GeGLU gate, up and down of one "
+                                    "recurrentgemma-9b local layer at M 8 (8 lanes), bf16; "
+                                    "k and v are 4096 x 256")
+    r_flash = f_rows[("recurrentgemma-local", "bfloat16")]
+    f_entry.update({"launches_recurrentgemma": rg["bucketed"]["flash_launches"],
+                    "launches_recurrentgemma_windowed": rg["bucketed"]["flash_windowed"],
+                    "ms_recurrentgemma": r_flash["ms"],
+                    "bound_ms_recurrentgemma": r_flash["bound_ms"],
+                    "library_ms_recurrentgemma": r_flash["library_ms"],
+                    "plain_ms_recurrentgemma": r_flash["plain_ms"]})
+    p_entry["launches_recurrentgemma"] = rg["continuous"]["paged_launches"]
+    mb = report["mamba2"]
+    for e, key in ((entry, "bitserial_launches"), (p_entry, "paged_launches"),
+                   (f_entry, "flash_launches")):
+        e["launches_mamba2"] = mb["bucketed"][key] + mb["continuous"][key]
     return [entry, d_entry, pre_entry, p_entry, b_entry, bb_entry, f_entry]
 
 
@@ -3630,7 +4125,7 @@ def main() -> int:
         phase_done("2d")
     del flush
 
-    # ---------------------------------------------------------- 3, 3b-3d
+    # ---------------------------------------------------------- 3, 3b-3g
     if want("3"):
         cfg2, p_gpu, p_cpu = granite_parity(dev, card, report)
         report["parity"]["continuous_tokens"] = continuous_parity(cfg2, p_gpu, p_cpu, dev, card)
@@ -3654,8 +4149,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_done("3f")
+    if want("3g"):
+        report["parity_recurrent"] = recurrent_parity(dev, card)
+        phase_done("3g")
 
-    # -------------------------------------------- 4, 4b, 5, 4d, 4c, 4e, 4f
+    # ------------------------------------ 4, 4b, 5, 4d, 4c, 4e, 4f, 4g, 4h
     CheckedEngine = checked_engine_cls()
     if want("4"):
         cfg, params = granite_slice(dev, card, report, CheckedEngine)
@@ -3683,6 +4181,13 @@ def main() -> int:
     if want("4f"):
         report["phi35_moe"] = phi_slice(dev, card, CheckedEngine)
         phase_done("4f")
+    if want("4g"):
+        report["recurrentgemma"] = recurrent_slice(dev, card, CheckedEngine,
+                                                   "recurrentgemma-9b")
+        phase_done("4g")
+    if want("4h"):
+        report["mamba2"] = recurrent_slice(dev, card, CheckedEngine, "mamba2-130m")
+        phase_done("4h")
 
     # ---------------------------------------------------------------- 6
     if want("6"):

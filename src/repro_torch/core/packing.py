@@ -231,11 +231,20 @@ def pack_stacked_from_float(w: torch.Tensor, n_bits: int) -> PackedWeight:
 PACKABLE_SUFFIXES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
 
 
+# The recurrent mixers' matrices (``models.ssm``, ``models.rglru``): float,
+# never packable (JAX's PACKABLE_SUFFIXES leaves them out), and read at every
+# step of the model.
+RECURRENT_MATRICES = frozenset({"in_proj", "out_proj", "w_x", "w_gate_branch", "w_rgate",
+                                "w_igate", "w_out"})
+
 # The float matrices that serving holds in the compute dtype, by leaf name:
-# the embedding and every packable projection left unpacked (the MoE experts,
-# never packed, and any projection too small to pack).  Norm scales and the
-# MoE router stay f32.
-SERVED_IN_COMPUTE_DTYPE = frozenset(PACKABLE_SUFFIXES) | {"embed"}
+# the embedding, every packable projection left unpacked (the MoE experts,
+# never packed, and any projection too small to pack) and the recurrent
+# mixers' matrices.  The model casts each at every use (``x @ w.to(x.dtype)``,
+# as JAX does), so one cast up front gives the same bits.  Norm scales, the
+# MoE router and the recurrent mixers' vectors and conv weights (decode
+# convolves in f32) stay f32.
+SERVED_IN_COMPUTE_DTYPE = frozenset(PACKABLE_SUFFIXES) | {"embed"} | RECURRENT_MATRICES
 
 
 def serving_cast(name: str, leaf, dtype: torch.dtype):

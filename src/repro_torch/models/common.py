@@ -124,6 +124,36 @@ def mlp_apply(p: Params, x: torch.Tensor, kind: str, act_bits: int = 32,
 
 
 # ---------------------------------------------------------------------------
+# Depthwise causal conv of the recurrent mixers (models.ssm, models.rglru)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv_window(window: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       S: int) -> torch.Tensor:
+    """The S outputs of a depthwise causal conv over ``window`` (B, W-1+S,
+    C), the W-1 positions before them first: ``w`` (W, C) and ``b`` (C,)
+    cast to the window's dtype, the taps summed in order as JAX's
+    ``sum(...)`` does."""
+    out = sum(window[:, i:i + S, :] * w[i][None, None].to(window.dtype)
+              for i in range(w.shape[0]))
+    return out + b.to(window.dtype)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along S of ``x`` (B, S, C), zero-padded."""
+    return causal_conv_window(F.pad(x, (0, 0, w.shape[0] - 1, 0)), w, b, x.shape[1])
+
+
+def conv_tail(window: torch.Tensor, n_valid: torch.Tensor, rows: int) -> torch.Tensor:
+    """Each lane's conv tail after a chunk: the ``rows`` entries of
+    ``window`` (B, rows + C, C') ending at its last real token, so a lane
+    with ``n_valid = 0`` keeps its old tail."""
+    B = window.shape[0]
+    idx = n_valid[:, None] + torch.arange(rows, device=window.device)[None, :]  # (B, rows)
+    return window.gather(1, idx[..., None].expand(B, rows, window.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
 # Embedding / logits
 # ---------------------------------------------------------------------------
 

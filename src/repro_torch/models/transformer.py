@@ -1,13 +1,17 @@
-"""Decoder-only LM over the dense "attn" and "local" layer kinds:
-PyTorch port of ``repro.models.transformer``.
+"""Decoder-only LM assembled from a per-layer kind pattern: PyTorch port
+of ``repro.models.transformer``.
 
 The param tree keeps the JAX layout: ``embed``, ``blocks/p{i}/...``
 stacked on a leading superblock axis, an optional ``tail`` list for
 depths the pattern does not divide, ``final_norm`` and (untied)
 ``lm_head``.  Layers run one after another in a Python loop where the
-JAX package scans.  Decode caches are updated in place.  "attn" layers
-keep a full-length (or paged) KV cache, "local" layers a ring buffer of
-``min(window, max_len)`` slots per lane.
+JAX package scans.  Decode caches are updated in place.  The layer kinds
+are "attn" (a full-length, or paged, KV cache), "local" (sliding-window
+attention over a ring buffer of ``min(window, max_len)`` slots per
+lane), "ssm" (the Mamba-2 SSD block of ``models.ssm``) and "rglru" (the
+RG-LRU block of ``models.rglru``); a recurrent layer's cache is a
+carried ``state`` (f32) and the ``conv`` tail of its causal conv (in the
+cache dtype), fixed-size per lane, so it bypasses paging.
 
 Serving prefill (:func:`prefill`) runs attention through the flash
 kernel (``kernels.ops.flash_attention``); :func:`forward` and
@@ -16,8 +20,8 @@ kernel (``kernels.ops.flash_attention``); :func:`forward` and
 Where ``cfg.n_experts > 0`` every layer's FFN is the Mixture-of-Experts
 of ``models.moe`` (``p["moe"]``), on every path: :func:`forward` sums
 its router loss over the layers, the serving paths discard it as JAX's
-do.  Other layer kinds ("ssm", "rglru", "+cross") and modality
-frontends come with later slices of the port and raise here.
+do.  "+cross" layers (cross-attention) and modality frontends come
+with a later slice of the port and raise here.
 """
 from __future__ import annotations
 
@@ -36,8 +40,11 @@ from ..core.packing import (
 from ..device import resolve_device
 from . import attention as attn_mod
 from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .common import (
     cross_entropy,
+    dense_apply,
     dense_init,
     embed_apply,
     embed_init,
@@ -53,12 +60,12 @@ Params = Dict[str, Any]
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run."""
-    later = [k for k in cfg.layer_pattern if k not in ("attn", "local")]
-    if later:
+    cross = [k for k in cfg.layer_pattern if "+" in k]
+    if cross:
         raise NotImplementedError(
-            f"layer kinds {sorted(set(later))} of {cfg.name} come with a later "
-            "slice of the port (SSM, RG-LRU, cross-attention); the port runs the "
-            "'attn' and 'local' kinds")
+            f"layer kinds {sorted(set(cross))} of {cfg.name} come with a later slice of "
+            "the port (cross-attention); the port runs the 'attn', 'local', 'ssm' and "
+            "'rglru' kinds")
     if cfg.frontend:
         raise NotImplementedError(
             f"the {cfg.frontend} frontend ({cfg.name}) comes with a later slice of the port")
@@ -69,12 +76,18 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    hd = cfg.resolved_head_dim
-    p: Params = {
-        "norm1": rmsnorm_init(cfg.d_model, device),
-        "mixer": attn_mod.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, hd, device),
-    }
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, device) -> Params:
+    p: Params = {"norm1": rmsnorm_init(cfg.d_model, device)}
+    if kind in ("attn", "local"):
+        p["mixer"] = attn_mod.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.resolved_head_dim, device)
+    elif kind == "ssm":
+        p["mixer"] = ssm_mod.ssm_init(gen, cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                                      cfg.ssm_state, cfg.ssm_conv, device)
+    elif kind == "rglru":
+        p["mixer"] = rglru_mod.rglru_init(gen, cfg.d_model, cfg.d_model, device)
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
     if cfg.d_ff > 0:
         p["norm2"] = rmsnorm_init(cfg.d_model, device)
         if cfg.n_experts > 0:
@@ -130,15 +143,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     holds its whole float tree.  The packed bytes equal
     ``pack_model_params(init_params(...), bits)`` on the same draws.  The
     float matrices that stay unpacked (the MoE experts, which are never
-    packed, and any projection too small to pack) are cast to
-    ``cfg.compute_dtype`` as soon as they are drawn, by
-    ``core.packing.serving_cast``, the rule ``serving_params`` applies;
-    the router and the norm scales stay f32."""
+    packed, the recurrent mixers' matrices, which are not packable, and
+    any projection too small to pack) are cast to ``cfg.compute_dtype``
+    as soon as they are drawn, by ``core.packing.serving_cast``, the rule
+    ``serving_params`` applies; the router, the norm scales and the
+    recurrent mixers' vectors and conv weights stay f32."""
     check_supported(cfg)
     device = resolve_device(device)
 
-    def layer(path):
-        p = _init_layer(generator, cfg, device)
+    def layer(path, kind):
+        p = _init_layer(generator, cfg, kind, device)
         if not pack_bits:
             return p
 
@@ -150,10 +164,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
 
     params: Params = {"embed": embed_init(generator, cfg.padded_vocab, cfg.d_model, device)}
     params["blocks"] = _stack(
-        ({f"p{i}": layer(f"blocks/p{i}") for i in range(cfg.pattern_len)}
+        ({f"p{i}": layer(f"blocks/p{i}", kind) for i, kind in enumerate(cfg.layer_pattern)}
          for _ in range(cfg.n_superblocks)), cfg.n_superblocks)
     if cfg.n_tail_layers:
-        params["tail"] = [layer(f"tail/{i}") for i in range(cfg.n_tail_layers)]
+        params["tail"] = [layer(f"tail/{i}", cfg.layer_pattern[i])
+                          for i in range(cfg.n_tail_layers)]
     params["final_norm"] = rmsnorm_init(cfg.d_model, device)
     if not cfg.tie_embeddings:
         head = dense_init(generator, cfg.d_model, cfg.padded_vocab, device, scale=0.02)
@@ -224,20 +239,36 @@ def _mlp_residual(p: Params, x: torch.Tensor, cfg: ModelConfig, active_planes):
 # ---------------------------------------------------------------------------
 
 
+def _ssm_kw(cfg: ModelConfig):
+    return dict(expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim, state=cfg.ssm_state)
+
+
 def _apply_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
                      active_planes=None, flash: bool = False):
-    """Returns (x, (k, v), aux) for one "attn" or "local" layer; ``flash``
-    routes its attention through the flash kernel (serving prefill);
-    ``aux`` as :func:`_mlp_residual` gives it."""
+    """Returns (x, cache seed, aux) for one layer.  The seed is what
+    :func:`_seed_layer_cache` writes: ``{"k", "v"}`` of an attention
+    layer, ``{"state", "conv_tail_src"}`` (the last W-1 normed inputs) of
+    an "ssm" layer, ``{"state", "conv_tail"}`` of an "rglru" one.
+    ``flash`` routes attention through the flash kernel (serving
+    prefill); ``aux`` as :func:`_mlp_residual` gives it."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    out, kv = attn_mod.attention(
-        p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-        window=_window(cfg, kind), active_planes=active_planes, flash=flash,
-        scores_dtype=cfg.attn_scores_dtype,
-    )
+    if kind == "ssm":
+        out, hT = ssm_mod.ssm_apply(p["mixer"], h, chunk=cfg.ssm_chunk, **_ssm_kw(cfg))
+        # the conv tail is recomputed from these at the prefill->decode handoff
+        seed = {"state": hT, "conv_tail_src": h[:, -(cfg.ssm_conv - 1):]}
+    elif kind == "rglru":
+        out, (hT, conv_tail) = rglru_mod.rglru_apply(p["mixer"], h)
+        seed = {"state": hT, "conv_tail": conv_tail}
+    else:
+        out, (k, v) = attn_mod.attention(
+            p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            window=_window(cfg, kind), active_planes=active_planes, flash=flash,
+            scores_dtype=cfg.attn_scores_dtype,
+        )
+        seed = {"k": k, "v": v}
     x, aux = _mlp_residual(p, x + out, cfg, active_planes)
-    return x, kv, aux
+    return x, seed, aux
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -264,7 +295,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# KV caches + decode
+# KV / recurrent caches + decode
 # ---------------------------------------------------------------------------
 
 
@@ -272,11 +303,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=No
                paged_blocks: Optional[int] = None, block_size: Optional[int] = None,
                drop_row: bool = False):
     """Zero decode cache for ``batch`` lanes: per layer kind,
-    ``blocks/p{i}/{k,v}`` of shape (n_superblocks, batch, rows, n_kv,
-    head_dim), plus the tail list.  "attn" layers hold ``max_len`` rows
-    (``drop_row``: one more, the spare row of ``models.attention``);
-    "local" layers hold a ring of ``Wc = min(window, max_len)`` slots, as
-    JAX's ``_init_layer_cache`` does.
+    ``blocks/p{i}/...`` with a leading superblock axis, plus the tail
+    list.  Attention layers hold ``k``/``v`` of shape (batch, rows, n_kv,
+    head_dim): "attn" layers ``max_len`` rows (``drop_row``: one more, the
+    spare row of ``models.attention``), "local" layers a ring of ``Wc =
+    min(window, max_len)`` slots, as JAX's ``_init_layer_cache`` does.
+    "ssm" layers hold ``state`` (batch, heads, head_dim, state) f32 and
+    ``conv`` (batch, ssm_conv - 1, conv_dim); "rglru" layers ``state``
+    (batch, d_model) f32 and ``conv`` (batch, 3, d_model); ``conv`` in
+    ``dtype``.
 
     With ``paged_blocks``/``block_size`` each "attn" K/V leaf is instead a
     pool of ``paged_blocks + 1`` blocks of ``block_size`` rows shared by
@@ -291,6 +326,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=No
     heads = (cfg.n_kv_heads, cfg.resolved_head_dim)
 
     def layer(kind, lead=()):
+        if kind == "ssm":
+            _, H, conv_dim = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                                              cfg.ssm_state)
+            return {"state": torch.zeros(lead + (batch, H, cfg.ssm_head_dim, cfg.ssm_state),
+                                         dtype=torch.float32, device=device),
+                    "conv": torch.zeros(lead + (batch, cfg.ssm_conv - 1, conv_dim),
+                                        dtype=dtype, device=device)}
+        if kind == "rglru":
+            return {"state": torch.zeros(lead + (batch, cfg.d_model), dtype=torch.float32,
+                                         device=device),
+                    "conv": torch.zeros(lead + (batch, 3, cfg.d_model), dtype=dtype,
+                                        device=device)}
         if kind == "local":
             shape = (batch, min(cfg.window, max_len)) + heads
         elif paged_blocks is not None:
@@ -308,11 +355,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=No
 
 
 def _layer_cache(cache, key):
+    """One layer's cache leaves, as views that in-place writes reach."""
     if key[0] == "blocks":
-        c = cache["blocks"][key[2]]
-        return c["k"][key[1]], c["v"][key[1]]
-    c = cache["tail"][key[1]]
-    return c["k"], c["v"]
+        return {name: t[key[1]] for name, t in cache["blocks"][key[2]].items()}
+    return cache["tail"][key[1]]
+
+
+def _store_recurrent(c, state: torch.Tensor, conv: torch.Tensor, active=None) -> None:
+    """Write a recurrent layer's new ``state`` and ``conv`` into its cache
+    ``c`` IN PLACE.  ``active`` ((B,) bool) keeps the old values of the
+    lanes that are not decoding, bitwise: idle lanes would integrate
+    garbage without bound, and a lane mid-way through a chunked prefill
+    would lose its carried state."""
+    if active is not None:
+        state = torch.where(active.reshape((-1,) + (1,) * (state.ndim - 1)), state, c["state"])
+        conv = torch.where(active[:, None, None], conv.to(c["conv"].dtype), c["conv"])
+    c["state"].copy_(state)
+    c["conv"].copy_(conv)
 
 
 def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig,
@@ -320,26 +379,37 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConf
                 block_table: Optional[torch.Tensor] = None, paged_kernel: bool = False):
     """One decode step for the whole model.  ``tokens`` (B, 1); ``pos`` a
     scalar shared by every lane or a (B,) tensor of per-slot positions.
-    Writes each layer's new K/V row into ``cache`` IN PLACE and returns
-    (logits (B, V) f32, cache).
+    Writes each layer's new K/V row, or its new recurrent state and conv
+    tail, into ``cache`` IN PLACE and returns (logits (B, V) f32, cache).
 
-    ``active`` ((B,) bool, per-slot only) freezes the cache rows of lanes
-    that are not decoding.  ``block_table`` ((B, blocks_per_lane) int32)
-    selects the paged pool layout of :func:`init_cache`;
-    ``paged_kernel=True`` reads it through the paged-attention kernel.
+    ``active`` ((B,) bool, per-slot only) freezes the cache rows, or the
+    recurrent state and conv tail, of lanes that are not decoding.
+    ``block_table`` ((B, blocks_per_lane) int32) selects the paged pool
+    layout of :func:`init_cache`; ``paged_kernel=True`` reads it through
+    the paged-attention kernel.
     The step's tensor shapes depend only on B and the table's width, and
     nothing here syncs the host.  "local" layers write and read their
-    ring buffer (slot ``pos % Wc``) and ignore the table."""
+    ring buffer (slot ``pos % Wc``) and ignore the table; recurrent layers
+    are position-free and ignore ``pos`` and the table."""
     x = _embed(params, tokens, cfg)
     for p, key, kind in _layers(params, cfg):
-        ck, cv = _layer_cache(cache, key)
+        c = _layer_cache(cache, key)
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        out = attn_mod.decode_attention(
-            p["mixer"], h, ck, cv, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-            window=_window(cfg, kind), ring=kind == "local", active=active,
-            active_planes=active_planes, block_table=block_table, paged_kernel=paged_kernel,
-        )
+        if kind == "ssm":
+            out, state, conv = ssm_mod.ssm_decode(p["mixer"], h, c["state"], c["conv"],
+                                                  **_ssm_kw(cfg))
+            _store_recurrent(c, state, conv, active)
+        elif kind == "rglru":
+            out, state, conv = rglru_mod.rglru_decode(p["mixer"], h, c["state"], c["conv"])
+            _store_recurrent(c, state, conv, active)
+        else:
+            out = attn_mod.decode_attention(
+                p["mixer"], h, c["k"], c["v"], pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                window=_window(cfg, kind), ring=kind == "local", active=active,
+                active_planes=active_planes, block_table=block_table,
+                paged_kernel=paged_kernel,
+            )
         x, _ = _mlp_residual(p, x + out, cfg, active_planes)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_apply(_head(params, cfg), x, cfg.logit_softcap, active_planes)
@@ -351,11 +421,27 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConf
 # ---------------------------------------------------------------------------
 
 
-def _seed_layer_cache(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      kind: str) -> None:
-    """Write the prompt's K/V into a fresh layer cache: rows [0, S) of an
-    "attn" cache; the last ``min(Wc, S)`` positions into their slots
-    ``pos % Wc`` of a "local" ring."""
+def _seed_layer_cache(p: Params, cfg: ModelConfig, kind: str, seed, c) -> None:
+    """Write a layer's prefill seed (:func:`_apply_layer_fwd`) into its
+    fresh (zero) cache ``c``: the prompt's K/V into rows [0, S) of an
+    "attn" cache, or its last ``min(Wc, S)`` positions into their slots
+    ``pos % Wc`` of a "local" ring; a recurrent layer's final state, and
+    its conv tail, left-padded with zeros when the prompt is shorter than
+    the tail.  An "ssm" layer's tail is the xBC part of the last W-1
+    normed inputs through ``in_proj``, recomputed here as JAX does."""
+    if kind in ("ssm", "rglru"):
+        if kind == "ssm":
+            d_inner, _, conv_dim = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_expand,
+                                                    cfg.ssm_head_dim, cfg.ssm_state)
+            proj = dense_apply(seed["conv_tail_src"], p["mixer"]["in_proj"])
+            tail = proj[..., d_inner:d_inner + conv_dim]
+        else:
+            tail = seed["conv_tail"]
+        c["state"].copy_(seed["state"])
+        c["conv"][:, c["conv"].shape[1] - tail.shape[1]:] = tail.to(c["conv"].dtype)
+        return
+    k, v = seed["k"], seed["v"]
+    ck, cv = c["k"], c["v"]
     S = k.shape[1]
     if kind == "local":
         wc = ck.shape[1]
@@ -371,8 +457,11 @@ def _seed_layer_cache(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor, v: to
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, max_len: int,
             cache_dtype=None, active_planes=None):
     """Full-sequence prefill that also fills a fresh decode cache, with
-    every layer's attention through the flash kernel (one launch per
-    layer on the card).  Returns (last-token logits (B, V) f32, cache)."""
+    every attention layer through the flash kernel (one launch per layer
+    on the card).  Returns (last-token logits (B, V) f32, cache).  An
+    "ssm" layer runs ``ssm_apply`` at ``cfg.ssm_chunk``, which (as in
+    JAX) refuses a prompt longer than the chunk that is not a multiple of
+    it."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     if S > max_len:
@@ -380,8 +469,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, ma
     cache = init_cache(cfg, B, max_len, cache_dtype, device=tokens.device)
     x = _embed(params, tokens, cfg)
     for p, key, kind in _layers(params, cfg):
-        x, (k, v), _ = _apply_layer_fwd(p, x, cfg, kind, active_planes, flash=True)
-        _seed_layer_cache(*_layer_cache(cache, key), k, v, kind)
+        x, seed, _ = _apply_layer_fwd(p, x, cfg, kind, active_planes, flash=True)
+        _seed_layer_cache(p, cfg, kind, seed, _layer_cache(cache, key))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_apply(_head(params, cfg), x[:, -1:], cfg.logit_softcap, active_planes)
     return logits[:, 0], cache
@@ -401,10 +490,12 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tens
     ``tokens`` (B, C), one chunk per lane; ``start`` (B,) the chunk's
     first position; ``n_valid`` (B,) its real tokens (the rest pad).  The
     chunk's K/V land in the lane's rows [start, start + n_valid) of the
-    pooled ``cache``, IN PLACE.  Lanes that are not prefilling ride along
-    with ``n_valid = 0`` and ``start = max_len``: their compute is garbage
-    and their cache rows are untouched.  ``block_table`` routes the
-    writes through the paged pool (the caller grants the blocks first).
+    pooled ``cache``, IN PLACE, and recurrent layers advance their carried
+    state and conv tail.  Lanes that are not prefilling ride along with
+    ``n_valid = 0`` and ``start = max_len``: their compute is garbage and
+    their cache rows, state and conv tail are untouched.  ``block_table``
+    routes the writes through the paged pool (the caller grants the
+    blocks first).
 
     Returns (last_logits (B, V) f32, cache): ``last_logits[b]`` is the
     logits at lane b's last real token of the chunk (garbage for lanes
@@ -418,15 +509,24 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tens
     on the card) runs every packed projection at that many planes."""
     x = _embed(params, tokens, cfg)
     for p, key, kind in _layers(params, cfg):
-        ck, cv = _layer_cache(cache, key)
+        c = _layer_cache(cache, key)
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        out = attn_mod.prefill_chunk_attention(
-            p["mixer"], h, ck, cv, start, n_valid, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-            window=_window(cfg, kind), ring=kind == "local",
-            block_table=None if kind == "local" else block_table, active_planes=active_planes,
-            scores_dtype=cfg.attn_scores_dtype,
-        )
+        if kind == "ssm":
+            out, state, conv = ssm_mod.ssm_prefill_chunk(p["mixer"], h, c["state"], c["conv"],
+                                                         n_valid, **_ssm_kw(cfg))
+            _store_recurrent(c, state, conv)
+        elif kind == "rglru":
+            out, state, conv = rglru_mod.rglru_prefill_chunk(p["mixer"], h, c["state"],
+                                                             c["conv"], n_valid)
+            _store_recurrent(c, state, conv)
+        else:
+            out = attn_mod.prefill_chunk_attention(
+                p["mixer"], h, c["k"], c["v"], start, n_valid, n_heads=cfg.n_heads,
+                n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                window=_window(cfg, kind), ring=kind == "local",
+                block_table=None if kind == "local" else block_table,
+                active_planes=active_planes, scores_dtype=cfg.attn_scores_dtype,
+            )
         x, _ = _mlp_residual(p, x + out, cfg, active_planes)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_all_logits:

@@ -565,3 +565,41 @@ def test_ring_engines_on_card_match_cpu(cuda):
         for i in range(2):
             np.testing.assert_array_equal(out["cuda"][i][uid], out["cpu"][i][uid])
         np.testing.assert_array_equal(out["cuda"][0][uid], out["cuda"][1][uid])
+
+
+@pytest.mark.parametrize("arch,pack_bits", [("mamba2-130m", None), ("recurrentgemma-9b", 6)])
+def test_recurrent_engines_on_card_match_cpu(cuda, arch, pack_bits):
+    """Reduced mamba2-130m (float: it has no packable weight) and reduced
+    recurrentgemma-9b (6-bit packed, window 16) at f32: the bucketed
+    engine and the chunked paged-kernel continuous engine give the CPU's
+    greedy tokens, the RG-LRU model decoding past every ring's wrap; its
+    prefill runs the flash kernel on its local layers (one windowed
+    launch each per call), and neither model launches the paged kernel
+    (rings and recurrent state bypass paging)."""
+    cfg = reduced_config(arch)
+    params = transformer.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda,
+                                     pack_bits=pack_bits)
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new=20) for i, n in enumerate((5, 23, 23, 9))]
+    arrivals = [0, 0, 2, 3]
+    kw = dict(continuous=True, n_slots=2, paged=True, block_size=8, paged_kernel=True)
+    n_local = cfg.layer_pattern.count("local") * cfg.n_superblocks
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tpack.tree_to(params, dev)
+        tflash.reset_launches()
+        tpaged.reset_launches()
+        bucketed = ServeEngine(p, cfg, max_len=64, device=dev).generate(reqs)
+        eng = ServeEngine(p, cfg, max_len=64, device=dev, **kw)
+        chunked = eng.generate(reqs, arrival_steps=arrivals)
+        if dev.type == "cuda":
+            # three buckets (5, 23, 9 tokens): one prefill call each
+            assert tflash.launches == tflash.windowed_launches == 3 * n_local
+            assert tpaged.launches == 0
+        out[dev.type] = ({r.uid: r.tokens for r in bucketed}, {r.uid: r.tokens for r in chunked})
+        assert eng.scheduler.pool.allocator.free_count == eng.scheduler.pool.n_blocks
+    for uid in range(len(reqs)):
+        for i in range(2):
+            np.testing.assert_array_equal(out["cuda"][i][uid], out["cpu"][i][uid])
+        np.testing.assert_array_equal(out["cuda"][0][uid], out["cuda"][1][uid])

@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.models.resnet", "repro_torch.core.qat", "repro_torch.train.ft",
             "repro_torch.examples.resnet20_bsq_paper", "repro_torch.examples.quickstart",
             "repro_torch.examples.serve_quantized", "repro_torch.examples.train_lm_bsq",
-            "repro_torch.examples.fault_tolerance"} <= set(mods)
+            "repro_torch.examples.fault_tolerance", "repro_torch.models.ssm",
+            "repro_torch.models.rglru"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -97,9 +98,7 @@ def test_unported_paths_say_so():
         with pytest.raises(SystemExit, match="not yet ported"):
             launcher.main(argv + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="later slice"):
-        transformer.init_params(reduced_config("recurrentgemma-9b"), torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        transformer.init_params(reduced_config("mamba2-130m"), torch.Generator(), "cpu")
+        transformer.init_params(reduced_config("llama-3.2-vision-11b"), torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         transformer.init_params(reduced_config("musicgen-large"), torch.Generator(), "cpu")
 
