@@ -20,7 +20,10 @@ failure exits non-zero and none is caught:
    x 152064 head at M 4 and 8, phi3.5-moe's 4096 x 4096 and 4096 x 1024
    at M 4 and 1024 and its 4096 x 32256 head at M 4; recurrentgemma-9b's
    4096 x 4096, 4096 x 256 (its one K/V head), 4096 x 12288 and 12288 x
-   4096 at its decode M 8), check a second call
+   4096 at its decode M 8; llama-3.2-vision-11b's 4096 x 14336, 14336 x
+   4096 and 4096 x 128256 head at M 4 and its cross K/V projection, 4096
+   x 1024, at M 1600 and 6400; musicgen-large's shapes are granite's M 4
+   rows), check a second call
    bitwise equal, ``active=a`` bitwise against
    ``truncate_packed`` for every a, and that decode runs the split-K
    kernel and bf16 prefill the wgmma tile (the profiler names both; a
@@ -36,8 +39,9 @@ failure exits non-zero and none is caught:
 2b. hold the paged-attention kernel against its plain version at the
    continuous slices' shapes (granite-3-2b's d 64, G 4: f32, bf16, one
    windowed case; gemma3-12b's global layers, d 256, G 2: f32, bf16; the
-   MoE slices' d 128 at G 1 (qwen2-moe, MHA) and G 4 (phi3.5-moe): f32,
-   bf16; ragged positions with inactive lanes), check that scrambled stale
+   MoE slices' d 128 at G 1 (qwen2-moe, MHA) and G 4 (phi3.5-moe, and
+   llama-3.2-vision-11b): f32, bf16; musicgen-large's d 64 at G 1; ragged
+   positions with inactive lanes), check that scrambled stale
    table entries and NaN in never-live blocks leave its output bitwise
    unchanged, and time the kernel, the plain version and one
    ``scaled_dot_product_attention`` call on K/V already gathered into
@@ -64,7 +68,8 @@ failure exits non-zero and none is caught:
    causal and with window 1024, a non-causal case, a ragged length,
    qwen2-moe's 4 x 1024 tokens at d 128 MHA, phi3.5-moe's 4 x 256 at d
    128 G 4, recurrentgemma-9b's 2 x 4096 tokens at d 256 G 16, window
-   2048),
+   2048, llama-3.2-vision-11b's 4 x 1024 at d 128 G 4, musicgen-large's 4
+   x 1024 at d 64 MHA),
    f32 within 1e-5 and bf16 within 2e-2 of max |plain|, a second call
    bitwise equal, and time the kernel, the plain version and one
    ``scaled_dot_product_attention`` call (a yardstick only); 2b and 2d
@@ -104,6 +109,16 @@ failure exits non-zero and none is caught:
    ``forward``, the bucketed engine (prefill and 8 decode steps) and the
    chunked paged-kernel engine (4 lanes, chunks of 64); every logit row
    within the phase-3 tolerance, identical greedy tokens, launches exact;
+3h. the frontends, f32, card against CPU: llama-3.2-vision-11b at full
+   width cut to one superblock (4 "attn" + 1 "attn+cross"), 6-bit packed
+   (the CPU holding the weights unpacked), 1600 random cross tokens per
+   lane: ``forward``, ``prefill`` and 8 ``decode_step`` calls with the
+   cross embeds, ``prefill_chunk`` and paged-kernel ``decode_step`` with
+   them, one decode step at a device-tensor ``active_planes`` bitwise the
+   step on ``truncate_packed`` weights; musicgen-large at full width cut
+   to 2 layers, ``embeds`` through ``prefill`` and ``decode_step``; every
+   logit row within the phase-3 tolerance, greedy tokens identical,
+   launches exact;
 4. full-width 40-layer granite-3-2b, bf16, 6-bit packed, served by the
    bucketed ServeEngine (8 requests, two buckets, 32 tokens each), with
    the bitserial and flash launch counts checked exactly;
@@ -164,6 +179,24 @@ failure exits non-zero and none is caught:
    continuous (chunks of 256, the paged policy, 8 lanes, 16 requests with
    prompts in [64, 1024]); the same numbers, and every kernel's launch
    count 0 (the model has none on its path);
+4i. full-width, full-depth llama-3.2-vision-11b (40 layers, 8 of them
+   "attn+cross"), bf16, 6-bit packed: the model API with the cross
+   sublayers live (buckets of 4 x 128 and 4 x 1024 prompt tokens, 1600
+   cross tokens per request, 32 new tokens through ``prefill`` and
+   ``decode_step(cross_embeds=)``; the cross K and V are projected anew at
+   every step, as in JAX), then the continuous paged-kernel engine (8
+   lanes, 16 requests, prompts uniform in [128, 1024] on Poisson
+   arrivals; text only, as JAX's engine serves it); launches exact (313
+   bitserial per model call with the cross sublayers, 281 without, 40
+   flash per prefill, 40 paged per decode step); TTFT and decode ms per
+   step beside their bounds, tokens/s, peak memory, weight bytes and a
+   profiled decode step with the cross K/V products' device time;
+4j. full-width, full-depth musicgen-large (48 MHA layers of 32 heads of
+   64), bf16, 6-bit packed: ``prefill`` of 4 x 1024 embed frames and 32
+   ``decode_step`` calls fed (4, 1, 2048) embeds, then the bucketed engine
+   on tokens (4 x 256 and 4 x 1024) and the continuous paged-kernel engine
+   (prompts in [64, 1024]); launches exact (289 bitserial per model call,
+   48 flash per prefill, 48 paged per decode step);
 6. the BSQ training slice: full-width granite-3-2b cut to 2 layers,
    trained through ``repro_torch.launch.train.run``: 4 steps with a
    requant and a checkpoint at step 4, then a second run that resumes
@@ -252,6 +285,28 @@ MOE_ROWS = [(QWEN2_PROJ, (8, 2048, 4096)), (QWEN2_HEAD, (4, 8))] \
 RG_PROJ = [(4096, 4096), (4096, 256), (4096, 256), (4096, 4096), (4096, 12288),
            (4096, 12288), (12288, 4096)]
 RG_ROWS = [(kn, (8,)) for kn in sorted(set(RG_PROJ))]
+# llama-3.2-vision-11b (phases 2, 4i): a layer's q, k, v, o (32 query heads
+# on 8 K/V heads of 128) and SwiGLU gate, up, down, as (K, N), and its untied
+# head, at the decode M of a bucket of 4 (q, k, v, o are phi3.5-moe's M 4
+# rows); its cross sublayers' k and v project every cross token of every
+# lane at every model call, prefill and decode: M 1600 (one request) and
+# 6400 (a bucket of 4)
+VISION, AUDIO = "llama-3.2-vision-11b", "musicgen-large"
+VISION_PROJ = [(4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096), (4096, 14336),
+               (4096, 14336), (14336, 4096)]
+VISION_HEAD = (4096, 128256)
+VISION_CROSS_KV = (4096, 1024)
+VISION_CROSS_M = (1600, 6400)
+# musicgen-large (phases 2, 4j): q, k, v, o (32 MHA heads of 64), the GELU
+# MLP's up and down and its 2048-row head at M 4; every one of these shapes
+# is a granite-3-2b row of phase 2 at M 4
+MUSICGEN_PROJ = [(2048, 2048)] * 4 + [(2048, 8192), (8192, 2048)]
+MUSICGEN_HEAD = (2048, 2048)
+FRONTEND_ROWS = [((4096, 14336), (4,)), ((14336, 4096), (4,)), (VISION_HEAD, (4,)),
+                 (VISION_CROSS_KV, VISION_CROSS_M)]
+# the frontends' serving runs (phases 4i, 4j): 32 new tokens, prompts up to
+# 1024 tokens, continuous on 8 lanes with 256 blocks of 32 rows, chunks of 256
+F_MAX_NEW, F_MAX_LEN, F_N_BLOCKS = 32, 1024 + 32, 256
 # phase 3g holds the card to the CPU within phase 3's tolerance, or within
 # this many times the logit change that a one-step f32 nudge of every
 # embedding value causes on the CPU, whichever is larger: full-depth mamba2
@@ -487,6 +542,13 @@ def paged_kernel_phase(dev, card, time_ms, median_ms):
             rows.append(paged_case(dev, card, time_ms, median_ms, dt, None, KV=KV, G=G, d=128,
                                    nb_lane=-(-Q_MAX_LEN // BLOCK), n_blocks=Q_N_BLOCKS,
                                    pos=[-1, 0, 31, 300, 1023, 700, -1, 64]))
+    # musicgen-large's d 64 MHA (32 K/V heads of one query head) on phase 4j's
+    # table (33 entries per lane, 256 blocks); llama-vision's d 128 G 4 is
+    # phi3.5-moe's row above
+    for dt in (torch.float32, torch.bfloat16):
+        rows.append(paged_case(dev, card, time_ms, median_ms, dt, None, KV=32, G=1, d=64,
+                               nb_lane=-(-F_MAX_LEN // BLOCK), n_blocks=F_N_BLOCKS,
+                               pos=[-1, 0, 31, 300, 1023, 700, -1, 64]))
     print("[paged] kernel == plain within tolerance; inactive lanes exact zeros; stale "
           "entries and NaN never-live blocks leave it bitwise unchanged", flush=True)
     return rows
@@ -634,6 +696,10 @@ def flash_kernel_phase(dev, card, time_ms):
         # recurrentgemma-9b's 2 x 4096-token bucket: 16 query heads on one
         # K/V head (G 16) of d 256, window 2048
         ("recurrentgemma-local", 2 * 16, 2 * 1, 4096, 256, 2048, True),
+        # the frontends' 4 x 1024-token prefills: llama-3.2-vision-11b's 32
+        # query heads on 8 K/V heads of 128, musicgen-large's 32 MHA heads of 64
+        ("llama-vision-prefill", 4 * 32, 4 * 8, 1024, 128, None, True),
+        ("musicgen-prefill", 4 * 32, 4 * 32, 1024, 64, None, True),
     ]
     gen = torch.Generator(device=dev).manual_seed(5)
     rows = []
@@ -2556,7 +2622,7 @@ def bitserial_kernel_phase(dev, card, time_ms, report):
             report["matmul"].append(bitserial_case(dev, gen, card, time_ms, M, K, N, None,
                                                    torch.bfloat16, profile=i == 4))
             torch.cuda.empty_cache()
-    for (K, N), ms in MOE_ROWS + RG_ROWS:
+    for (K, N), ms in MOE_ROWS + RG_ROWS + FRONTEND_ROWS:
         for M in ms:
             report["matmul"].append(bitserial_case(dev, gen, card, time_ms, M, K, N, None,
                                                    torch.bfloat16))
@@ -2565,14 +2631,17 @@ def bitserial_kernel_phase(dev, card, time_ms, report):
     for name, M, proj in (("granite-3-2b decode", 4, LAYER_PROJ),
                           ("gemma3-12b decode", 2, GEMMA3_PROJ),
                           ("gemma3-12b prefill", 8192, GEMMA3_PROJ),
-                          ("recurrentgemma-9b local decode", 8, RG_PROJ)):
+                          ("recurrentgemma-9b local decode", 8, RG_PROJ),
+                          ("llama-3.2-vision-11b decode", 4, VISION_PROJ),
+                          ("musicgen-large decode", 4, MUSICGEN_PROJ)):
         rows = layer_rows(report, M, proj)
         ms, lib = sum(r["ms"] for r in rows), sum(r["library_ms"] for r in rows)
         flop = sum(2.0 * r["M"] * r["K"] * r["N"] for r in rows)
         report.setdefault("layers", {})[name] = {
             "ms": ms, "library_ms": lib, "bound_ms": sum(r["bound_ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows), "tflops": flop / (ms * 1e-3) / 1e12}
-        print(f"[kernel] one {name} layer (7 projections, M={M}, bf16): kernel {ms:.4f} ms, "
+        print(f"[kernel] one {name} layer ({len(proj)} projections, M={M}, bf16): kernel "
+              f"{ms:.4f} ms, "
               f"bound {report['layers'][name]['bound_ms']:.4f} ms, torch.matmul(dequantised) "
               f"{lib:.4f} ms (kernel/library {ms / lib:.2f}), "
               f"{report['layers'][name]['tflops']:.1f} TFLOP/s [{card}]", flush=True)
@@ -3781,6 +3850,582 @@ def recurrent_slice(dev, card, engine_cls, arch):
     return rep
 
 
+def frontend_proj(cfg, cross):
+    """Packed projections per model call of a frontend config: q, k, v, o
+    and the MLP's (SwiGLU 3, GELU 2) of every layer, the cross sublayer's
+    four on each "+cross" layer when ``cross`` (cross embeds given), and
+    the untied head."""
+    n_cross = sum(c for k, c in layer_counts(cfg).items() if "+cross" in k)
+    mlp = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
+    return cfg.n_layers * (4 + mlp) + (4 * n_cross if cross else 0) \
+        + (0 if cfg.tie_embeddings else 1)
+
+
+def frontend_bounds(cfg, weights, B, S, T, pos=None):
+    """The least time (ms) of one model call of ``B`` lanes at the bf16 rate
+    and 3.35 TB/s: a prefill of ``S`` tokens (``pos`` None) or a decode
+    step at position ``pos``, ``T`` cross tokens per lane (0: none).
+    Operations: every projection of every token, the cross K/V projections
+    of every cross token (every call: they keep no cache), 4 d flops per
+    live (query, key) pair and head of the causal and the cross attention,
+    the head on each lane's last token.  Bytes: the packed weights read
+    once (with the cross sublayers' only when ``T``), the head, the cross
+    embeds, the prompt's embeddings or the step's K/V rows, the logits.
+    Returns (ms, bound_by, flop, bytes)."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    mlp = (3 if cfg.mlp_type in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    self_mm = cfg.n_layers * (2 * d * H * hd + 2 * d * KV * hd + mlp)
+    n_cross = sum(c for k, c in layer_counts(cfg).items() if "+cross" in k) if T else 0
+    cross_qo, cross_kv = 2 * d * H * hd, 2 * d * KV * hd
+    packed, cross_packed = weights
+    elt = 2
+    if pos is None:
+        live = S * (S + 1) // 2
+        flop = B * (2.0 * S * (self_mm + n_cross * cross_qo) + 2.0 * T * n_cross * cross_kv
+                    + 4.0 * hd * H * (cfg.n_layers * live + n_cross * S * T)
+                    + 2.0 * d * cfg.padded_vocab)
+        rows = B * S * d * elt  # the prompt's embeddings (or embeds) read once
+    else:
+        flop = B * (2.0 * (self_mm + n_cross * cross_qo) + 2.0 * T * n_cross * cross_kv
+                    + 4.0 * hd * H * (cfg.n_layers * (pos + 1) + n_cross * T)
+                    + 2.0 * d * cfg.padded_vocab)
+        rows = B * (d + cfg.n_layers * 2 * (pos + 1) * KV * hd) * elt  # input and K/V rows
+    nbytes = packed - (0 if T else cross_packed) + rows + B * T * d * elt \
+        + B * cfg.padded_vocab * 4
+    t_ops, t_bytes = flop / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flop, \
+        nbytes
+
+
+def frontend_weight_bytes(params):
+    """(packed bytes with the head, the cross sublayers' packed bytes) of a
+    param tree: what a model call reads besides activations (norm scales
+    and the embedding rows it gathers are left out)."""
+    from repro_torch.core.packing import PackedWeight
+    from repro_torch.tree import flatten_with_path
+
+    packed = cross = 0
+    for name, x in flatten_with_path(params):
+        if isinstance(x, PackedWeight):
+            packed += x.hbm_bytes()
+            cross += x.hbm_bytes() if "/cross/" in name else 0
+    return packed, cross
+
+
+def frontend_parity(dev, card):
+    """Phase 3h: the frontends, f32, card against CPU on the same params
+    (6-bit packed on the card, unpacked to f32 on the CPU, as phase 3f):
+    llama-3.2-vision-11b at full width cut to one superblock (4 "attn"
+    layers and 1 "attn+cross") with 1600 random cross tokens per lane:
+    ``forward``; ``prefill`` and 8 ``decode_step`` calls with the cross
+    embeds; ``prefill_chunk`` (chunks of 64 into a paged pool) and
+    paged-kernel ``decode_step`` with them; one decode step with a
+    device-tensor ``active_planes`` bitwise equal to the same step on
+    ``truncate_packed`` weights.  Then musicgen-large at full width cut to
+    2 layers, ``embeds`` through ``prefill`` and ``decode_step``.  Every
+    logit row within phase 3's tolerance, greedy tokens identical, launches
+    exact."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import PackedWeight, tree_map_with_path, unpack_to_float
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import transformer
+    from repro_torch.obs.quality import truncate_model_planes
+    from repro_torch.tree import tree_map
+
+    cpu = torch.device("cpu")
+    f32 = dict(dtype="float32", kv_cache_dtype="float32")
+    rep = {}
+
+    def counts():
+        return (bsm.launches, fa.launches, pa.launches)
+
+    def reset():
+        for m in (bsm, fa, pa):
+            m.reset_launches()
+
+    def compare(name, rows, want_launches, greedy=True):
+        """rows: {"cuda": [...], "cpu": [...]}, the logit rows of each call;
+        ``greedy``: each call's argmax (the token a serving path samples)
+        must agree too."""
+        dlog = max((a - b).abs().max().item() for a, b in zip(rows["cuda"], rows["cpu"]))
+        lmax = max(b.abs().max().item() for b in rows["cpu"])
+        tol = TOL["float32"] * max(1.0, lmax)
+        toks = [r.argmax(-1).tolist() for r in rows["cuda"]] if greedy else None
+        check(not greedy or toks == [r.argmax(-1).tolist() for r in rows["cpu"]],
+              f"3h {name}: greedy tokens differ card vs cpu")
+        print(f"[parity-frontend] {name}: {len(rows['cpu'])} calls, max|dlogit| {dlog:.3e} "
+              f"(max|logit| {lmax:.3e}, tolerance {tol:.3e}); launches (bitserial, flash, "
+              f"paged) {want_launches[0]}" + ("; greedy tokens identical" if greedy else "")
+              + f" [{card}]", flush=True)
+        check(dlog <= tol, f"3h {name}: logits differ by {dlog} > {tol}")
+        check(want_launches[0] == want_launches[1],
+              f"3h {name}: launches (bitserial, flash, paged) {want_launches[0]}, expected "
+              f"{want_launches[1]}")
+        return {"max_abs_dlogit": dlog, "max_abs_logit": lmax, "calls": len(rows["cpu"]),
+                "launches": list(want_launches[0]), "tokens": toks}
+
+    # ---- llama-3.2-vision-11b, one superblock
+    t0 = time.perf_counter()
+    cfg = get_config(VISION).scaled(n_layers=5, **f32)
+    p_gpu = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(2), dev,
+                                    pack_bits=N_BITS)
+    p_cpu = tree_map_with_path(
+        lambda _, w: (unpack_to_float(w) if isinstance(w, PackedWeight) else w).cpu(), p_gpu)
+    n_full, n_self = frontend_proj(cfg, True), frontend_proj(cfg, False)
+    n_att = cfg.n_layers
+    T = cfg.frontend_tokens
+    task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+    cross = torch.randn((2, T, cfg.d_model), generator=torch.Generator().manual_seed(5))
+    sides = {"cuda": (p_gpu, dev), "cpu": (p_cpu, cpu)}
+    r = {"init_s": time.perf_counter() - t0, "cross_tokens": T, "projections": n_full}
+
+    toks = torch.from_numpy(task.sample(np.random.default_rng(39), 2, 128)[:, :128]
+                            .astype(np.int64))
+    rows, got = {}, None
+    for side, (params, d) in sides.items():
+        reset()
+        with torch.inference_mode():
+            logits, _ = transformer.forward(params, {"tokens": toks.to(d),
+                                                     "cross_embeds": cross.to(d)}, cfg)
+        rows[side] = [logits.float().cpu().reshape(-1, logits.shape[-1])]
+        if d is dev:
+            got = counts()
+    r["forward"] = compare(f"llama-vision forward 2 x 128 tokens, {T} cross tokens", rows,
+                           (got, (n_full, 0, 0)), greedy=False)
+
+    # prefill and 8 decode steps, the card's greedy tokens fed to both
+    plen, steps = 200, 8
+    toks = torch.from_numpy(task.sample(np.random.default_rng(40), 2, plen)[:, :plen]
+                            .astype(np.int64))
+    rows, fed, caches = {"cuda": [], "cpu": []}, [], {}
+    for side, (params, d) in sides.items():
+        reset()
+        with torch.inference_mode():
+            logits, cache = transformer.prefill(params, {"tokens": toks.to(d),
+                                                         "cross_embeds": cross.to(d)}, cfg, 512)
+            rows[side].append(logits.float().cpu())
+            for t in range(steps):
+                if side == "cuda":
+                    fed.append(logits.argmax(-1, keepdim=True).cpu())
+                logits, cache = transformer.decode_step(params, cache, fed[t].to(d), plen + t,
+                                                        cfg, cross_embeds=cross.to(d))
+                rows[side].append(logits.float().cpu())
+        if d is dev:
+            got = counts()
+        caches[side] = cache
+    r["prefill_decode"] = compare(f"llama-vision prefill 2 x {plen} + {steps} decode steps",
+                                  rows, (got, ((steps + 1) * n_full, n_att, 0)))
+
+    # one more step with a device-tensor plane count, bitwise the same step
+    # on truncate_packed weights (each on its own copy of the cache)
+    a = N_BITS - 2
+    tok = fed[-1].to(dev)
+    with torch.inference_mode():
+        reset()
+        dyn, _ = transformer.decode_step(
+            p_gpu, tree_map(torch.clone, caches["cuda"]), tok, plen + steps, cfg,
+            cross_embeds=cross.to(dev),
+            active_planes=torch.tensor([a], dtype=torch.int32, device=dev))
+        got_active = (bsm.active_launches, bsm.launches)
+        static, _ = transformer.decode_step(
+            truncate_model_planes(p_gpu, a), tree_map(torch.clone, caches["cuda"]), tok,
+            plen + steps, cfg, cross_embeds=cross.to(dev))
+    check(torch.equal(dyn.view(torch.int32), static.view(torch.int32)),
+          f"3h llama-vision decode step at active_planes={a} (device tensor) != the step on "
+          "truncate_packed weights")
+    check(got_active == (n_full, n_full), f"3h active step: (runtime-plane, all) bitserial "
+          f"launches {got_active}, expected ({n_full}, {n_full})")
+    print(f"[parity-frontend] llama-vision decode step at active_planes={a} from a device "
+          f"tensor: bitwise equal to the step on truncate_packed weights; {n_full} runtime-plane "
+          f"launches, the cross sublayer's four among them [{card}]", flush=True)
+    r["active_planes"] = {"a": a, "bitwise": True, "active_launches": got_active[0]}
+    del caches, dyn, static
+
+    # chunked prefill into a paged pool, then paged-kernel decode steps
+    lens, C, max_len = [100, 150], 64, 512
+    nb_lane = max_len // BLOCK
+    table = torch.arange(2 * nb_lane, dtype=torch.int32).reshape(2, nb_lane)
+    prompts = task.sample(np.random.default_rng(41), 2, max(lens))[:, :max(lens)]
+    rows, fed = {"cuda": [], "cpu": []}, []
+    for side, (params, d) in sides.items():
+        reset()
+        cache = transformer.init_cache(cfg, 2, max_len, torch.float32, d,
+                                       paged_blocks=2 * nb_lane, block_size=BLOCK)
+        tb, cr = table.to(d), cross.to(d)
+        done = [False, False]
+        last = [None, None]
+        with torch.inference_mode():
+            for start in range(0, max(lens), C):
+                nv = [max(0, min(C, n - start)) for n in lens]
+                chunk = np.zeros((2, C), np.int64)
+                for b in range(2):
+                    chunk[b, :nv[b]] = prompts[b, start:start + nv[b]]
+                st = [start if nv[b] else max_len for b in range(2)]
+                logits, _ = transformer.prefill_chunk(
+                    params, cache, torch.from_numpy(chunk).to(d),
+                    torch.tensor(st, dtype=torch.int32, device=d),
+                    torch.tensor(nv, dtype=torch.int32, device=d), cfg, block_table=tb,
+                    cross_embeds=cr)
+                for b in range(2):
+                    if nv[b] and start + nv[b] == lens[b] and not done[b]:
+                        done[b], last[b] = True, logits[b].float().cpu()
+            rows[side].append(torch.stack(last))
+            pos = torch.tensor(lens, dtype=torch.int32, device=d)
+            for t in range(steps):
+                if side == "cuda":
+                    fed.append(rows[side][-1].argmax(-1, keepdim=True))
+                logits, _ = transformer.decode_step(params, cache, fed[t].to(d), pos, cfg,
+                                                    block_table=tb, paged_kernel=True,
+                                                    cross_embeds=cr)
+                rows[side].append(logits.float().cpu())
+                pos = pos + 1
+        if d is dev:
+            got = counts()
+    n_chunks = -(-max(lens) // C)
+    r["chunked_paged"] = compare(
+        f"llama-vision chunked prefill ({lens}, chunks of {C}) + {steps} paged-kernel decode "
+        "steps", rows, (got, ((n_chunks + steps) * n_full, 0, steps * n_att)))
+    rep["llama-vision"] = r
+    del p_gpu, p_cpu, sides
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- musicgen-large, 2 layers, embeds in place of tokens
+    cfg = get_config(AUDIO).scaled(n_layers=2, **f32)
+    p_gpu = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(3), dev,
+                                    pack_bits=N_BITS)
+    p_cpu = tree_map_with_path(
+        lambda _, w: (unpack_to_float(w) if isinstance(w, PackedWeight) else w).cpu(), p_gpu)
+    n_proj = frontend_proj(cfg, False)
+    g = torch.Generator().manual_seed(6)
+    frames = torch.randn((2, 128 + steps, cfg.d_model), generator=g)
+    rows = {"cuda": [], "cpu": []}
+    for side, params, d in (("cuda", p_gpu, dev), ("cpu", p_cpu, cpu)):
+        reset()
+        with torch.inference_mode():
+            logits, cache = transformer.prefill(params, {"embeds": frames[:, :128].to(d)}, cfg,
+                                                512)
+            rows[side].append(logits.float().cpu())
+            for t in range(steps):
+                logits, cache = transformer.decode_step(
+                    params, cache, frames[:, 128 + t:129 + t].to(d), 128 + t, cfg)
+                rows[side].append(logits.float().cpu())
+        if d is dev:
+            got = counts()
+    rep["musicgen"] = {"projections": n_proj, "embeds": compare(
+        f"musicgen 2 layers, embeds: prefill 2 x 128 frames + {steps} decode steps", rows,
+        (got, ((steps + 1) * n_proj, cfg.n_layers, 0)))}
+    del p_gpu, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def frontend_slice(dev, card, engine_cls, arch):
+    """Phase 4i (llama-3.2-vision-11b) or 4j (musicgen-large): the model at
+    full width and depth, bf16, 6-bit packed, drawn on the card.  First
+    through the model API with the frontend's inputs live:
+    llama-vision buckets of 4 x 128 and 4 x 1024 prompt tokens with 1600
+    random cross tokens per request, ``prefill`` and 31 ``decode_step``
+    calls with ``cross_embeds`` (32 new tokens); musicgen ``prefill`` of 4
+    x 1024 embed frames and 32 ``decode_step`` calls fed (4, 1, 2048)
+    embeds.  Then the engines, which serve tokens and skip the cross
+    sublayers, as JAX's do: musicgen bucketed (4 x 256 and 4 x 1024, 32
+    new); both continuous (chunks of 256, paged, the paged kernel; 8 lanes,
+    16 requests with prompts uniform in [128, 1024] or [64, 1024] (seed 0)
+    on Poisson arrivals at 0.5 per step).  Launches exact; TTFT beside its
+    operation bound, decode ms per step beside its bound, tokens/s, peak
+    memory, weight bytes and a profiled decode step (llama-vision: the
+    device time of the cross K/V products, the step's only wgmma launches)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import poisson_arrivals
+    from repro_torch.models import transformer
+    from repro_torch.obs.metrics import percentile
+    from repro_torch.serve import Request
+    from repro_torch.serve.engine import serving_params
+    from repro_torch.serve.scheduler import SchedulerPolicy
+
+    vision = arch == VISION
+    tag = "vision" if vision else "musicgen"
+    cfg = get_config(arch)
+    T = cfg.frontend_tokens
+    n_full, n_self = frontend_proj(cfg, True), frontend_proj(cfg, False)
+    n_cross = sum(c for k, c in layer_counts(cfg).items() if "+cross" in k)
+    L = cfg.n_layers
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = serving_params(transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev, pack_bits=N_BITS), cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    weights = frontend_weight_bytes(params)
+    embed_bytes = params["embed"].numel() * params["embed"].element_size()
+    print(f"[{tag}] {arch} {L} layers {dict(sorted(layer_counts(cfg).items()))} d_model="
+          f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, "
+          f"{cfg.mlp_type} {cfg.d_ff}, vocab {cfg.vocab_size}->{cfg.padded_vocab}, frontend "
+          f"{cfg.frontend} ({T} cross tokens) {cfg.dtype}: init+pack {init_s:.1f} s, init peak "
+          f"{init_peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB allocated before it); packed "
+          f"{weights[0] / 1e9:.4f} GB (head included; cross sublayers {weights[1] / 1e9:.4f}), "
+          f"embedding {embed_bytes / 1e9:.4f} GB bf16 [{card}]", flush=True)
+    rep = {"init_s": init_s, "init_peak_bytes": init_peak, "resident_before_bytes": resident,
+           "packed_weight_bytes": weights[0], "cross_packed_bytes": weights[1],
+           "embed_bytes": embed_bytes, "projections_per_call": n_full if vision else n_self,
+           "projections_per_call_text": n_self}
+    task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def batch_for(B, S, seed):
+        """The model API's inputs: tokens and cross embeds, or embeds."""
+        if vision:
+            toks = task.sample(np.random.default_rng(seed), B, S)[:, :S].astype(np.int64)
+            return {"tokens": torch.from_numpy(toks).to(dev),
+                    "cross_embeds": torch.randn((B, T, cfg.d_model), generator=gen,
+                                                device=dev).to(torch.bfloat16)}
+        return {"embeds": torch.randn((B, S + F_MAX_NEW, cfg.d_model), generator=gen,
+                                      device=dev).to(torch.bfloat16)}
+
+    def model_api(B, S, seed, steps):
+        """prefill, then ``steps`` decode steps; returns the timings, the
+        launches of each part and the tokens."""
+        batch = batch_for(B, S, seed)
+        pre = dict(batch, embeds=batch["embeds"][:, :S]) if not vision else batch
+        cross = batch.get("cross_embeds")
+        torch.cuda.synchronize()
+        for m in (bsm, fa, pa):
+            m.reset_launches()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, cache = transformer.prefill(params, pre, cfg, S + F_MAX_NEW)
+            tok = logits.argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            ttft = (time.perf_counter() - t0) * 1e3
+            pre_l = (bsm.launches, bsm.prefill_launches, fa.launches, pa.launches)
+            for m in (bsm, fa, pa):
+                m.reset_launches()
+            out, bad = [tok], (~torch.isfinite(logits)).sum()
+            t0 = time.perf_counter()
+            for t in range(steps):
+                x = tok if vision else batch["embeds"][:, S + t:S + t + 1]
+                logits, cache = transformer.decode_step(params, cache, x, S + t, cfg,
+                                                        cross_embeds=cross)
+                tok = logits.argmax(-1, keepdim=True)
+                out.append(tok)
+                bad = bad + (~torch.isfinite(logits)).sum()
+            torch.cuda.synchronize()
+            dms = (time.perf_counter() - t0) * 1e3 / steps
+        dec_l = (bsm.launches, bsm.prefill_launches, fa.launches, pa.launches)
+        toks = torch.cat(out, 1).cpu().numpy()
+        check(int(bad.item()) == 0, f"{arch} model API {B} x {S}: non-finite logits")
+        check(((toks >= 0) & (toks < cfg.vocab_size)).all(), "token outside the vocab")
+        return ttft, dms, pre_l, dec_l, toks, batch, cache
+
+    # ---- the model API with the frontend's inputs
+    model_api(4, 16, 100, 2)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    rep["model_api"] = {}
+    steps = F_MAX_NEW - 1 if vision else F_MAX_NEW
+    for S in ((128, 1024) if vision else (1024,)):
+        ttft, dms, pre_l, dec_l, toks, batch, cache = model_api(4, S, 120 + S, steps)
+        peak = torch.cuda.max_memory_allocated()
+        n_call = n_full if vision else n_self
+        # the prefill tiles: every projection but the head (its last token, M 4)
+        want_pre = (n_call, n_call - 1, L, 0)
+        # decode: the cross K/V products over 4 x 1600 rows are the step's
+        # only prefill-tile launches
+        want_dec = (steps * n_call, steps * 2 * n_cross, 0, 0)
+        check(pre_l == want_pre and dec_l == want_dec,
+              f"{arch} model API 4 x {S}: launches (bitserial, its prefill tile, flash, paged) "
+              f"prefill {pre_l}, expected {want_pre}; decode {dec_l}, expected {want_dec}")
+        tb = frontend_bounds(cfg, weights, 4, S, T)
+        db = frontend_bounds(cfg, weights, 4, S, T, pos=S + steps // 2)
+        rep["model_api"][S] = {
+            "requests": 4, "prompt": S, "cross_tokens": T, "new_tokens": steps + 1,
+            "ttft_ms": ttft, "ttft_bound_ms": tb[0], "ttft_bound_by": tb[1],
+            "ttft_flop": tb[2], "decode_ms_per_step": dms, "decode_bound_ms": db[0],
+            "decode_bound_by": db[1], "decode_flop": db[2], "decode_bytes": db[3],
+            "tokens_per_s": 4 * (steps + 1) / ((ttft + steps * dms) * 1e-3),
+            "peak_bytes": peak, "launches_prefill": list(pre_l), "launches_decode": list(dec_l)}
+        m = rep["model_api"][S]
+        print(f"[{tag}] model API, 4 x {S} " + (f"prompt tokens + {T} cross tokens each"
+                                               if vision else "embed frames")
+              + f": TTFT {ttft:.2f} ms (bound {tb[0]:.3f}, {tb[1]}: {tb[2] / 1e12:.2f} TFLOP), "
+              f"decode {dms:.3f} ms per step (bound {db[0]:.4f}, {db[1]}: {db[2] / 1e12:.3f} "
+              f"TFLOP, {db[3] / 1e9:.3f} GB), {m['tokens_per_s']:.2f} tok/s, {steps + 1} new "
+              f"tokens; peak memory {peak / 1e9:.3f} GB; launches prefill {pre_l}, decode "
+              f"{dec_l} (bitserial, its prefill tile, flash, paged) as predicted [{card}]",
+              flush=True)
+
+    # a profiled decode step (the last bucket's cache, two steps)
+    S = 1024
+    cross = batch.get("cross_embeds")
+    with torch.inference_mode():
+        tok = torch.from_numpy(toks[:, -1:]).to(dev)
+        torch.cuda.synchronize()
+        by_name, wall = {}, None
+        for session in range(1, 5):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for t in range(2):
+                    x = tok if vision else batch["embeds"][:, S + steps - 1:S + steps]
+                    logits, _ = transformer.decode_step(params, cache, x, S + steps - 1, cfg,
+                                                        cross_embeds=cross)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / 2
+            by_name = device_ms_by_name(prof)
+            if by_name:
+                break
+    if by_name:
+        busy = sum(t for t, _ in by_name.values()) / 2
+        ops = sum(n for _, n in by_name.values()) / 2
+        wg = sum(t for n, (t, _) in by_name.items() if "wgmma_kernel" in n) / 2
+        wg_n = sum(c for n, (_, c) in by_name.items() if "wgmma_kernel" in n) / 2
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        rep["profile"] = {"wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+                          "device_ops_per_step": ops, "cross_kv_ms_per_step": wg,
+                          "cross_kv_launches_per_step": wg_n, "sessions": session,
+                          "top": [{"name": k, "ms_per_step": t / 2, "count_per_step": n / 2}
+                                  for k, (t, n) in top]}
+        print(f"[{tag}] profiled decode step, 4 lanes at {S + steps}: wall {wall:.2f} ms under "
+              f"the profiler, device busy {busy:.3f} ms (idle {1 - busy / wall:.1%}), {ops:.0f} "
+              f"device ops" + (f"; cross K/V products (wgmma, {wg_n:.0f} launches) {wg:.3f} ms"
+                               if vision else "") + f" [{card}]", flush=True)
+        for name, (t, n) in top:
+            print(f"[{tag}]   {t / 2:8.3f} ms/step {n / 2:6.0f}x  {name[:90]}")
+    else:
+        rep["profile"] = {"wall_ms_per_step": wall, "device_busy_ms_per_step": None}
+        print(f"[{tag}] profiled decode step: device time not measured (the profiler saw no "
+              f"device events in 4 sessions) [{card}]", flush=True)
+    del cache, batch, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- musicgen's bucketed engine (tokens through its embedding table)
+    if not vision:
+        lens = [256] * 4 + [1024] * 4
+        reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(130 + i), 1, n)[0, :n]
+                        .astype(np.int32), max_new=F_MAX_NEW) for i, n in enumerate(lens)]
+        engine = engine_cls(params, cfg, max_len=F_MAX_LEN, device=dev)
+        engine.generate([Request(uid=100, tokens=reqs[0].tokens[:64], max_new=2)])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine.bad = None
+        for m in (bsm, fa, pa):
+            m.reset_launches()
+        t0 = time.perf_counter()
+        results = engine.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gen_toks = np.stack([r.tokens for r in sorted(results, key=lambda r: r.uid)])
+        check(gen_toks.shape == (len(reqs), F_MAX_NEW), f"{arch} bucketed {gen_toks.shape}")
+        check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
+        want = (2 * F_MAX_NEW * n_self, 2 * L, 0)
+        got = (bsm.launches, fa.launches, pa.launches)
+        check(got == want, f"{arch} bucketed launches (bitserial, flash, paged) {got}, "
+              f"expected {want}")
+        rep["bucketed"] = {"wall_s": wall, "tokens_per_s": gen_toks.size / wall,
+                           "serve_peak_bytes": torch.cuda.max_memory_allocated(),
+                           "bitserial_launches": got[0], "flash_launches": got[1],
+                           "paged_launches": got[2], "buckets": {}}
+        for plen in (256, 1024):
+            rs = [r for r in results if len(reqs[r.uid].tokens) == plen]
+            b = {"ttft_ms": float(np.mean([r.prefill_ms for r in rs])),
+                 "decode_ms_per_step": float(np.mean([r.decode_ms_per_tok for r in rs])),
+                 "ttft_bound_ms": frontend_bounds(cfg, weights, 4, plen, 0)[0],
+                 "decode_bound_ms": frontend_bounds(cfg, weights, 4, plen, 0,
+                                                    pos=plen + F_MAX_NEW // 2)[0]}
+            rep["bucketed"]["buckets"][plen] = b
+            print(f"[{tag}] bucketed engine, 4 x {plen} prompt tokens: TTFT {b['ttft_ms']:.2f} "
+                  f"ms (bound {b['ttft_bound_ms']:.3f}), decode {b['decode_ms_per_step']:.3f} "
+                  f"ms per step (bound {b['decode_bound_ms']:.4f}) [{card}]", flush=True)
+        print(f"[{tag}] bucketed engine: {gen_toks.size} tokens in {wall:.3f} s = "
+              f"{gen_toks.size / wall:.2f} tok/s; launches bitserial {got[0]} == 2 x {F_MAX_NEW} "
+              f"x {n_self}, flash {got[1]} == 2 x {L}, paged 0 [{card}]", flush=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- continuous (text only, as JAX's engine serves it)
+    n_req = 16
+    lo, hi = (128, 1024) if vision else (64, 1024)
+    lens = np.random.default_rng(0).integers(lo, hi + 1, size=n_req)
+    reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(i), 1, hi)[0, :n]
+                    .astype(np.int32), max_new=F_MAX_NEW) for i, n in enumerate(lens)]
+    arrivals = poisson_arrivals(n_req, 0.5, seed=0)
+    policy = SchedulerPolicy(n_slots=SLOTS, chunked_prefill=True, chunk_sizes=(R_CHUNK,),
+                             paged=True, block_size=BLOCK, n_blocks=F_N_BLOCKS,
+                             paged_kernel=True)
+    engine = engine_cls(params, cfg, max_len=F_MAX_LEN, device=dev, continuous=True,
+                        policy=policy)
+    sched, pool = engine.scheduler, engine.scheduler.pool
+    engine.generate([Request(uid=100, tokens=reqs[0].tokens[:64], max_new=2)])  # warm-up
+    torch.cuda.synchronize()
+    sched.reset_telemetry()
+    torch.cuda.reset_peak_memory_stats()
+    engine.bad = None
+    for m in (bsm, fa, pa):
+        m.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.generate(reqs, arrival_steps=arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps_c, chunks = sched.decode_steps, sched.prefill_chunks
+    got = {r.uid: r for r in results}
+    check(sorted(got) == list(range(n_req)), f"{arch} continuous results for {sorted(got)}")
+    for r in results:
+        check(len(r.tokens) == F_MAX_NEW and ((r.tokens >= 0) & (r.tokens < cfg.vocab_size))
+              .all(), f"uid {r.uid}: {len(r.tokens)} tokens, or a token outside the vocab")
+    check(int(engine.bad.item()) == 0, f"{int(engine.bad.item())} non-finite logits")
+    want = ((steps_c + chunks) * n_self, 0, steps_c * L)
+    launches = (bsm.launches, fa.launches, pa.launches)
+    check(launches == want, f"{arch} continuous launches (bitserial, flash, paged) {launches}, "
+          f"expected {want} (({steps_c} steps + {chunks} chunks) x {n_self}, {steps_c} x {L})")
+    check(pool.allocator.free_count == pool.n_blocks and pool.allocator.committed == 0,
+          f"blocks leaked: free {pool.allocator.free_count}/{pool.n_blocks}")
+    check(engine.obs.recorder.leaked == [], f"leaked spans {engine.obs.recorder.leaked}")
+    ttft = [got[i].prefill_ms for i in range(n_req)]
+    occ = sched.mean_occupancy()
+    bound = frontend_bounds(cfg, weights, max(1, round(occ * pool.n_slots)),
+                            int(np.mean(lens)), 0, pos=int(np.mean(lens)) + F_MAX_NEW // 2)
+    rep["continuous"] = {
+        "requests": n_req, "prompt_lens": lens.tolist(), "arrivals": arrivals, "wall_s": wall,
+        "tokens_per_s": n_req * F_MAX_NEW / wall, "ttft_ms_p50": percentile(ttft, 50),
+        "ttft_ms_p90": percentile(ttft, 90), "decode_steps": steps_c, "prefill_chunks": chunks,
+        "decode_ms_per_step": sched.decode_ms_total / max(steps_c, 1),
+        "decode_bound_ms": bound[0], "mean_occupancy": occ, "serve_peak_bytes": peak,
+        "cache_bytes": pool.cache_bytes(), "bitserial_launches": launches[0],
+        "flash_launches": launches[1], "paged_launches": launches[2]}
+    c = rep["continuous"]
+    print(f"[{tag}] continuous (paged kernel, text only): {n_req} requests x {F_MAX_NEW} tokens, "
+          f"prompts {lens.min()}-{lens.max()}, Poisson arrivals at 0.5/step, chunks of "
+          f"{R_CHUNK}: {c['tokens_per_s']:.2f} tok/s; TTFT p50 {c['ttft_ms_p50']:.1f} ms, p90 "
+          f"{c['ttft_ms_p90']:.1f} ms; decode {c['decode_ms_per_step']:.3f} ms per step (bound "
+          f"{bound[0]:.4f} at the mean occupancy {occ:.2f}; {steps_c} steps), {chunks} chunks; "
+          f"serve peak {peak / 1e9:.3f} GB, cache {c['cache_bytes'] / 1e9:.4f} GB; launches "
+          f"bitserial {launches[0]} == ({steps_c} + {chunks}) x {n_self}, flash 0, paged "
+          f"{launches[2]} == {steps_c} x {L}; pool drained [{card}]", flush=True)
+    del engine, params, sched, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
 def kernel_entries(report, max_err):
     """The {"kernels": [...]} entries: each kernel's time at its main
     path's shapes (phases 2-2d) beside its bound, its plain version and
@@ -4016,6 +4661,50 @@ def kernel_entries(report, max_err):
     for e, key in ((entry, "bitserial_launches"), (p_entry, "paged_launches"),
                    (f_entry, "flash_launches")):
         e["launches_mamba2"] = mb["bucketed"][key] + mb["continuous"][key]
+    # the frontends (phases 3h, 4i, 4j): launches of the model API and the
+    # engines; a decode layer's projections and the head at M 4 (a bucket of
+    # 4); the cross K/V products on the prefill tile at M 1600 and 6400; the
+    # paged kernel at musicgen's d 64 MHA; flash at both 4 x 1024 prefills
+    lv, mg = report["llama_vision"], report["musicgen"]
+
+    def api_launches(rep, i):
+        return sum(m["launches_prefill"][i] + m["launches_decode"][i]
+                   for m in rep["model_api"].values())
+    entry["launches_llama_vision"] = api_launches(lv, 0) + lv["continuous"]["bitserial_launches"]
+    entry["launches_musicgen"] = api_launches(mg, 0) + mg["bucketed"]["bitserial_launches"] \
+        + mg["continuous"]["bitserial_launches"]
+    entry["launches_frontend_parity"] = sum(
+        r["launches"][0] for part in report["parity_frontend"].values()
+        for r in part.values() if isinstance(r, dict) and "launches" in r)
+    for tag, proj, head in (("llama_vision", VISION_PROJ, VISION_HEAD),
+                            ("musicgen", MUSICGEN_PROJ, MUSICGEN_HEAD)):
+        for key in ("ms", "bound_ms", "library_ms", "plain_ms"):
+            entry[f"{key}_{tag}_layer_M4"] = sum(r[key] for r in layer_rows(report, 4, proj))
+            entry[f"{key}_{tag}_head_M4"] = rows[(4,) + head][key]
+    entry["work_frontends"] = ("one decode layer at M 4 (a bucket of 4), bf16: llama-3.2-vision"
+                               "-11b's q, k, v, o and SwiGLU (7), musicgen-large's q, k, v, o "
+                               "and GELU up and down (6); each head at M 4")
+    pre_entry["launches_llama_vision"] = api_launches(lv, 1)
+    for M in VISION_CROSS_M:
+        r = rows[(M,) + VISION_CROSS_KV]
+        for key in ("ms", "bound_ms", "library_ms", "plain_ms", "max_abs_err"):
+            pre_entry[f"{key}_llama_vision_cross_kv_M{M}"] = r[key]
+    pre_entry["work_llama_vision"] = ("one cross K or V projection of llama-3.2-vision-11b, "
+                                      "4096 x 1024 over every cross token: M 1600 (a request) "
+                                      "and 6400 (4 lanes), bf16; in prefill and at every "
+                                      "decode step")
+    m_paged = next(r for r in report["paged"] if r["dtype"] == "bfloat16" and r["d"] == 64
+                   and r["G"] == 1)
+    p_entry.update({"launches_llama_vision": lv["continuous"]["paged_launches"],
+                    "launches_musicgen": mg["continuous"]["paged_launches"],
+                    "ms_musicgen": m_paged["ms"], "bound_ms_musicgen": m_paged["bound_ms"],
+                    "library_ms_musicgen": m_paged["library_ms"]})
+    for tag, case in (("llama_vision", "llama-vision-prefill"), ("musicgen", "musicgen-prefill")):
+        fr = f_rows[(case, "bfloat16")]
+        f_entry.update({f"ms_{tag}": fr["ms"], f"bound_ms_{tag}": fr["bound_ms"],
+                        f"library_ms_{tag}": fr["library_ms"], f"plain_ms_{tag}": fr["plain_ms"]})
+    f_entry["launches_llama_vision"] = api_launches(lv, 2)
+    f_entry["launches_musicgen"] = api_launches(mg, 2) + mg["bucketed"]["flash_launches"]
     return [entry, d_entry, pre_entry, p_entry, b_entry, bb_entry, f_entry]
 
 
@@ -4125,7 +4814,7 @@ def main() -> int:
         phase_done("2d")
     del flush
 
-    # ---------------------------------------------------------- 3, 3b-3g
+    # ---------------------------------------------------------- 3, 3b-3h
     if want("3"):
         cfg2, p_gpu, p_cpu = granite_parity(dev, card, report)
         report["parity"]["continuous_tokens"] = continuous_parity(cfg2, p_gpu, p_cpu, dev, card)
@@ -4152,8 +4841,11 @@ def main() -> int:
     if want("3g"):
         report["parity_recurrent"] = recurrent_parity(dev, card)
         phase_done("3g")
+    if want("3h"):
+        report["parity_frontend"] = frontend_parity(dev, card)
+        phase_done("3h")
 
-    # ------------------------------------ 4, 4b, 5, 4d, 4c, 4e, 4f, 4g, 4h
+    # ---------------------------- 4, 4b, 5, 4d, 4c, 4e, 4f, 4g, 4h, 4i, 4j
     CheckedEngine = checked_engine_cls()
     if want("4"):
         cfg, params = granite_slice(dev, card, report, CheckedEngine)
@@ -4188,6 +4880,12 @@ def main() -> int:
     if want("4h"):
         report["mamba2"] = recurrent_slice(dev, card, CheckedEngine, "mamba2-130m")
         phase_done("4h")
+    if want("4i"):
+        report["llama_vision"] = frontend_slice(dev, card, CheckedEngine, VISION)
+        phase_done("4i")
+    if want("4j"):
+        report["musicgen"] = frontend_slice(dev, card, CheckedEngine, AUDIO)
+        phase_done("4j")
 
     # ---------------------------------------------------------------- 6
     if want("6"):

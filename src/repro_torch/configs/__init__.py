@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from .base import ModelConfig, torch_dtype  # noqa: F401
+from .base import SHAPES, ModelConfig, ShapeConfig, torch_dtype  # noqa: F401
 from .gemma3_12b import CONFIG as _gemma3_12b
 from .gemma_2b import CONFIG as _gemma_2b
 from .granite_20b import CONFIG as _granite_20b
@@ -77,3 +77,12 @@ def reduced_config(arch: str) -> ModelConfig:
         kv_cache_dtype="float32",
         vocab_pad_multiple=8,
     )
+
+
+def shape_applicable(arch: str, shape: str) -> bool:
+    """The 40-cell grid minus documented skips: long_500k only for
+    sub-quadratic archs."""
+    cfg = get_config(arch)
+    if shape == "long_500k":
+        return cfg.sub_quadratic
+    return True

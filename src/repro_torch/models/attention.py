@@ -1,7 +1,7 @@
 """Attention, "attn" (full causal GQA) and "local" (sliding-window GQA
-over a ring buffer) kinds: PyTorch port of the prefill, decode
-(contiguous, ring and paged) and chunked-prefill paths of
-``repro.models.attention``.
+over a ring buffer) kinds and the "+cross" sublayer: PyTorch port of the
+prefill, decode (contiguous, ring and paged), chunked-prefill and
+cross-attention paths of ``repro.models.attention``.
 
 Scores and softmax run in f32 unless ``scores_dtype`` (the config's
 ``attn_scores_dtype``) asks for bfloat16: then whole-sequence and
@@ -27,8 +27,9 @@ kernel on the card, its plain version on the CPU.  This is a choice
 beyond the JAX package, whose prefill never calls its flash kernel; the
 two agree within the kernel's tolerance (the JAX tests pin the kernel
 to this function).  Training keeps the plain q-chunked path: the kernel
-has no backward.  The sharded paged path and cross-attention come with
-later slices of the port.
+has no backward.  The sharded paged path comes with a later slice of the
+port.  Cross-attention (:func:`cross_attention`) stays plain PyTorch, as
+JAX's does.
 """
 from __future__ import annotations
 
@@ -455,4 +456,38 @@ def prefill_chunk_attention(
     valid = kpos[None, None, :] <= qpos[:, :, None]  # (B, C, Smax)
     w = _softmax_masked(s, valid[:, None, None])
     out = _gqa_combine(w, vals.to(x.dtype), x.dtype)
+    return dense_apply(out, p["wo"], active_planes)
+
+
+def cross_attention(
+    p: Params,
+    x: torch.Tensor,
+    kv_src: torch.Tensor,
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    active_planes=None,
+) -> torch.Tensor:
+    """Unmasked cross-attention: x (B, S, D) queries attend to every row of
+    kv_src (B, T, D), the vision layers' precomputed patch embeddings,
+    which are the same at train and decode time: no cache, so decode
+    projects K and V of all T rows at every step, as JAX does.
+
+    JAX's order of rounding: q scaled by ``head_dim**-0.5`` in the compute
+    dtype (the constant rounded to it first) after the projection; f32
+    scores whatever ``cfg.attn_scores_dtype`` says; a plain softmax over
+    all T keys; the combine in ``x.dtype``.  Scores and combine stay plain
+    PyTorch (JAX computes them outside any kernel, and its flash kernel
+    takes one length for q and k).  ``active_planes`` reaches all four
+    projections, as JAX's ``active_plane_count`` context does."""
+    B, S, _ = x.shape
+    G = n_heads // n_kv
+    q = dense_apply(x, p["wq"], active_planes).reshape(B, S, n_kv, G, head_dim)
+    q = q * torch.tensor(head_dim**-0.5, dtype=q.dtype)
+    k = dense_apply(kv_src, p["wk"], active_planes).reshape(B, -1, n_kv, head_dim)
+    v = dense_apply(kv_src, p["wv"], active_planes).reshape(B, -1, n_kv, head_dim)
+    w = torch.softmax(_gqa_scores(q, k), dim=-1)
+    out = _gqa_combine(w, v, x.dtype)
+    del w  # (B, K, G, S, T) f32: free it before the output projection
     return dense_apply(out, p["wo"], active_planes)

@@ -20,8 +20,17 @@ kernel (``kernels.ops.flash_attention``); :func:`forward` and
 Where ``cfg.n_experts > 0`` every layer's FFN is the Mixture-of-Experts
 of ``models.moe`` (``p["moe"]``), on every path: :func:`forward` sums
 its router loss over the layers, the serving paths discard it as JAX's
-do.  "+cross" layers (cross-attention) and modality frontends come
-with a later slice of the port and raise here.
+do.
+
+Any kind may carry "+cross" ("attn+cross"): the layer then holds
+``norm_cross`` and ``cross`` (an attention block's four projections),
+and a cross-attention sublayer over ``cross_embeds`` (B, T, D), the
+vision frontend's precomputed patch embeddings, runs after the mixer's
+residual and before the FFN, in every path, when ``cross_embeds`` is
+given (the serving engines give none, as JAX's do, and skip it).  The
+audio frontend's inputs are ``embeds`` (B, S, D) in place of tokens,
+cast to the compute dtype with no sqrt(d_model) scale
+(``models.frontends`` has their shapes).
 """
 from __future__ import annotations
 
@@ -58,17 +67,13 @@ from .common import (
 Params = Dict[str, Any]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run."""
-    cross = [k for k in cfg.layer_pattern if "+" in k]
-    if cross:
-        raise NotImplementedError(
-            f"layer kinds {sorted(set(cross))} of {cfg.name} come with a later slice of "
-            "the port (cross-attention); the port runs the 'attn', 'local', 'ssm' and "
-            "'rglru' kinds")
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"the {cfg.frontend} frontend ({cfg.name}) comes with a later slice of the port")
+def _base_kind(kind: str) -> str:
+    """The mixer of a layer kind: "attn+cross" -> "attn"."""
+    return kind.split("+")[0]
+
+
+def _has_cross(kind: str) -> bool:
+    return "+cross" in kind
 
 
 # ---------------------------------------------------------------------------
@@ -77,17 +82,22 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, device) -> Params:
+    base = _base_kind(kind)
     p: Params = {"norm1": rmsnorm_init(cfg.d_model, device)}
-    if kind in ("attn", "local"):
+    if base in ("attn", "local"):
         p["mixer"] = attn_mod.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                         cfg.resolved_head_dim, device)
-    elif kind == "ssm":
+    elif base == "ssm":
         p["mixer"] = ssm_mod.ssm_init(gen, cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
                                       cfg.ssm_state, cfg.ssm_conv, device)
-    elif kind == "rglru":
+    elif base == "rglru":
         p["mixer"] = rglru_mod.rglru_init(gen, cfg.d_model, cfg.d_model, device)
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
+    if _has_cross(kind):
+        p["norm_cross"] = rmsnorm_init(cfg.d_model, device)
+        p["cross"] = attn_mod.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.resolved_head_dim, device)
     if cfg.d_ff > 0:
         p["norm2"] = rmsnorm_init(cfg.d_model, device)
         if cfg.n_experts > 0:
@@ -148,7 +158,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     as soon as they are drawn, by ``core.packing.serving_cast``, the rule
     ``serving_params`` applies; the router, the norm scales and the
     recurrent mixers' vectors and conv weights stay f32."""
-    check_supported(cfg)
     device = resolve_device(device)
 
     def layer(path, kind):
@@ -200,7 +209,7 @@ def _layers(params: Params, cfg: ModelConfig):
 
 def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
     """The attention window of a layer kind: "local" layers slide."""
-    return cfg.window if kind == "local" else None
+    return cfg.window if _base_kind(kind) == "local" else None
 
 
 def _head(params: Params, cfg: ModelConfig):
@@ -215,6 +224,33 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     at every model call."""
     x = embed_apply(params["embed"], tokens, cfg.compute_dtype)
     return x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
+
+
+def _inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """``(x, cross_src)`` of a full-sequence batch: ``embeds`` (the audio
+    frontend's, cast to the compute dtype, no scale) or embedded
+    ``tokens``; ``cross_embeds`` in the compute dtype, or None."""
+    if batch.get("embeds") is not None:
+        x = batch["embeds"].to(cfg.compute_dtype)
+    else:
+        x = _embed(params, batch["tokens"], cfg)
+    return x, _cross_src(batch.get("cross_embeds"), cfg)
+
+
+def _cross_src(cross_embeds: Optional[torch.Tensor], cfg: ModelConfig):
+    return None if cross_embeds is None else cross_embeds.to(cfg.compute_dtype)
+
+
+def _cross_residual(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str, cross_src,
+                    active_planes):
+    """``x + cross_attention(norm_cross(x), cross_src)`` on a "+cross" layer
+    given ``cross_src``; ``x`` unchanged otherwise."""
+    if not _has_cross(kind) or cross_src is None:
+        return x
+    hc = rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+    return x + attn_mod.cross_attention(
+        p["cross"], hc, cross_src, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, active_planes=active_planes)
 
 
 def _mlp_residual(p: Params, x: torch.Tensor, cfg: ModelConfig, active_planes):
@@ -244,19 +280,20 @@ def _ssm_kw(cfg: ModelConfig):
 
 
 def _apply_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                     active_planes=None, flash: bool = False):
+                     cross_src=None, active_planes=None, flash: bool = False):
     """Returns (x, cache seed, aux) for one layer.  The seed is what
     :func:`_seed_layer_cache` writes: ``{"k", "v"}`` of an attention
     layer, ``{"state", "conv_tail_src"}`` (the last W-1 normed inputs) of
     an "ssm" layer, ``{"state", "conv_tail"}`` of an "rglru" one.
-    ``flash`` routes attention through the flash kernel (serving
+    ``flash`` routes self-attention through the flash kernel (serving
     prefill); ``aux`` as :func:`_mlp_residual` gives it."""
+    base = _base_kind(kind)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if kind == "ssm":
+    if base == "ssm":
         out, hT = ssm_mod.ssm_apply(p["mixer"], h, chunk=cfg.ssm_chunk, **_ssm_kw(cfg))
         # the conv tail is recomputed from these at the prefill->decode handoff
         seed = {"state": hT, "conv_tail_src": h[:, -(cfg.ssm_conv - 1):]}
-    elif kind == "rglru":
+    elif base == "rglru":
         out, (hT, conv_tail) = rglru_mod.rglru_apply(p["mixer"], h)
         seed = {"state": hT, "conv_tail": conv_tail}
     else:
@@ -267,20 +304,22 @@ def _apply_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
             scores_dtype=cfg.attn_scores_dtype,
         )
         seed = {"k": k, "v": v}
-    x, aux = _mlp_residual(p, x + out, cfg, active_planes)
+    x = _cross_residual(p, x + out, cfg, kind, cross_src, active_planes)
+    x, aux = _mlp_residual(p, x, cfg, active_planes)
     return x, seed, aux
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             active_planes=None):
     """Full-sequence forward (training: the plain attention, which has a
-    backward).  Returns (logits (B, S, V) f32, aux_loss): the MoE router
-    loss summed over the layers in order, zero without experts."""
-    check_supported(cfg)
-    x = _embed(params, batch["tokens"], cfg)
+    backward).  ``batch`` holds ``tokens`` (B, S) or ``embeds`` (B, S, D),
+    and ``cross_embeds`` (B, T, D) for the "+cross" layers.  Returns
+    (logits (B, S, V) f32, aux_loss): the MoE router loss summed over the
+    layers in order, zero without experts."""
+    x, cross_src = _inputs(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, _, kind in _layers(params, cfg):
-        x, _, aux_i = _apply_layer_fwd(p, x, cfg, kind, active_planes)
+        x, _, aux_i = _apply_layer_fwd(p, x, cfg, kind, cross_src, active_planes)
         if aux_i is not None:
             aux = aux + aux_i
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -319,13 +358,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=No
     head_dim).  The last block is the drop sentinel of
     ``models.attention`` (JAX's pool has ``paged_blocks`` blocks; the
     first ``paged_blocks`` match it).  Rings stay per lane: they are
-    bounded already."""
-    check_supported(cfg)
+    bounded already.  A "+cross" layer's cache is its mixer's: the cross
+    sublayer keeps none."""
     device = resolve_device(device)
     dtype = cfg.cache_dtype if dtype is None else dtype
     heads = (cfg.n_kv_heads, cfg.resolved_head_dim)
 
     def layer(kind, lead=()):
+        kind = _base_kind(kind)
         if kind == "ssm":
             _, H, conv_dim = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
                                               cfg.ssm_state)
@@ -376,9 +416,13 @@ def _store_recurrent(c, state: torch.Tensor, conv: torch.Tensor, active=None) ->
 
 def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig,
                 active: Optional[torch.Tensor] = None, active_planes=None,
-                block_table: Optional[torch.Tensor] = None, paged_kernel: bool = False):
-    """One decode step for the whole model.  ``tokens`` (B, 1); ``pos`` a
-    scalar shared by every lane or a (B,) tensor of per-slot positions.
+                block_table: Optional[torch.Tensor] = None, paged_kernel: bool = False,
+                cross_embeds: Optional[torch.Tensor] = None):
+    """One decode step for the whole model.  ``tokens`` (B, 1), or the
+    audio frontend's embeds (B, 1, D); ``pos`` a scalar shared by every
+    lane or a (B,) tensor of per-slot positions.  ``cross_embeds`` (B, T,
+    D) feeds the "+cross" sublayers, which project its K and V anew at
+    every step (they keep no cache, as in JAX).
     Writes each layer's new K/V row, or its new recurrent state and conv
     tail, into ``cache`` IN PLACE and returns (logits (B, V) f32, cache).
 
@@ -391,26 +435,29 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConf
     nothing here syncs the host.  "local" layers write and read their
     ring buffer (slot ``pos % Wc``) and ignore the table; recurrent layers
     are position-free and ignore ``pos`` and the table."""
-    x = _embed(params, tokens, cfg)
+    x = tokens.to(cfg.compute_dtype) if tokens.ndim == 3 else _embed(params, tokens, cfg)
+    cross_src = _cross_src(cross_embeds, cfg)
     for p, key, kind in _layers(params, cfg):
+        base = _base_kind(kind)
         c = _layer_cache(cache, key)
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        if kind == "ssm":
+        if base == "ssm":
             out, state, conv = ssm_mod.ssm_decode(p["mixer"], h, c["state"], c["conv"],
                                                   **_ssm_kw(cfg))
             _store_recurrent(c, state, conv, active)
-        elif kind == "rglru":
+        elif base == "rglru":
             out, state, conv = rglru_mod.rglru_decode(p["mixer"], h, c["state"], c["conv"])
             _store_recurrent(c, state, conv, active)
         else:
             out = attn_mod.decode_attention(
                 p["mixer"], h, c["k"], c["v"], pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-                window=_window(cfg, kind), ring=kind == "local", active=active,
+                window=_window(cfg, kind), ring=base == "local", active=active,
                 active_planes=active_planes, block_table=block_table,
                 paged_kernel=paged_kernel,
             )
-        x, _ = _mlp_residual(p, x + out, cfg, active_planes)
+        x = _cross_residual(p, x + out, cfg, kind, cross_src, active_planes)
+        x, _ = _mlp_residual(p, x, cfg, active_planes)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_apply(_head(params, cfg), x, cfg.logit_softcap, active_planes)
     return logits[:, 0], cache
@@ -429,6 +476,7 @@ def _seed_layer_cache(p: Params, cfg: ModelConfig, kind: str, seed, c) -> None:
     its conv tail, left-padded with zeros when the prompt is shorter than
     the tail.  An "ssm" layer's tail is the xBC part of the last W-1
     normed inputs through ``in_proj``, recomputed here as JAX does."""
+    kind = _base_kind(kind)
     if kind in ("ssm", "rglru"):
         if kind == "ssm":
             d_inner, _, conv_dim = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_expand,
@@ -457,19 +505,18 @@ def _seed_layer_cache(p: Params, cfg: ModelConfig, kind: str, seed, c) -> None:
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, max_len: int,
             cache_dtype=None, active_planes=None):
     """Full-sequence prefill that also fills a fresh decode cache, with
-    every attention layer through the flash kernel (one launch per layer
-    on the card).  Returns (last-token logits (B, V) f32, cache).  An
-    "ssm" layer runs ``ssm_apply`` at ``cfg.ssm_chunk``, which (as in
-    JAX) refuses a prompt longer than the chunk that is not a multiple of
-    it."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    every self-attention layer through the flash kernel (one launch per
+    layer on the card).  ``batch`` as :func:`forward` takes it.  Returns
+    (last-token logits (B, V) f32, cache).  An "ssm" layer runs
+    ``ssm_apply`` at ``cfg.ssm_chunk``, which (as in JAX) refuses a prompt
+    longer than the chunk that is not a multiple of it."""
+    x, cross_src = _inputs(params, batch, cfg)
+    B, S = x.shape[:2]
     if S > max_len:
         raise ValueError(f"prompt length {S} exceeds max_len={max_len}")
-    cache = init_cache(cfg, B, max_len, cache_dtype, device=tokens.device)
-    x = _embed(params, tokens, cfg)
+    cache = init_cache(cfg, B, max_len, cache_dtype, device=x.device)
     for p, key, kind in _layers(params, cfg):
-        x, seed, _ = _apply_layer_fwd(p, x, cfg, kind, active_planes, flash=True)
+        x, seed, _ = _apply_layer_fwd(p, x, cfg, kind, cross_src, active_planes, flash=True)
         _seed_layer_cache(p, cfg, kind, seed, _layer_cache(cache, key))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_apply(_head(params, cfg), x[:, -1:], cfg.logit_softcap, active_planes)
@@ -484,7 +531,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, ma
 def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tensor,
                   n_valid: torch.Tensor, cfg: ModelConfig,
                   block_table: Optional[torch.Tensor] = None, active_planes=None,
-                  return_all_logits: bool = False):
+                  return_all_logits: bool = False,
+                  cross_embeds: Optional[torch.Tensor] = None):
     """One fixed-size prefill chunk over the whole slot pool.
 
     ``tokens`` (B, C), one chunk per lane; ``start`` (B,) the chunk's
@@ -506,16 +554,20 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tens
     instead: the logits at EVERY chunk position (positions >= n_valid are
     garbage).  This is the speculative verify: one chunk scores every
     drafted position at once.  ``active_planes`` (an int32 device tensor
-    on the card) runs every packed projection at that many planes."""
+    on the card) runs every packed projection at that many planes.
+    ``cross_embeds`` (B, T, D) feeds the "+cross" sublayers; the chunk's
+    input stays tokens, as in JAX."""
     x = _embed(params, tokens, cfg)
+    cross_src = _cross_src(cross_embeds, cfg)
     for p, key, kind in _layers(params, cfg):
+        base = _base_kind(kind)
         c = _layer_cache(cache, key)
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        if kind == "ssm":
+        if base == "ssm":
             out, state, conv = ssm_mod.ssm_prefill_chunk(p["mixer"], h, c["state"], c["conv"],
                                                          n_valid, **_ssm_kw(cfg))
             _store_recurrent(c, state, conv)
-        elif kind == "rglru":
+        elif base == "rglru":
             out, state, conv = rglru_mod.rglru_prefill_chunk(p["mixer"], h, c["state"],
                                                              c["conv"], n_valid)
             _store_recurrent(c, state, conv)
@@ -523,11 +575,12 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tens
             out = attn_mod.prefill_chunk_attention(
                 p["mixer"], h, c["k"], c["v"], start, n_valid, n_heads=cfg.n_heads,
                 n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-                window=_window(cfg, kind), ring=kind == "local",
-                block_table=None if kind == "local" else block_table,
+                window=_window(cfg, kind), ring=base == "local",
+                block_table=None if base == "local" else block_table,
                 active_planes=active_planes, scores_dtype=cfg.attn_scores_dtype,
             )
-        x, _ = _mlp_residual(p, x + out, cfg, active_planes)
+        x = _cross_residual(p, x + out, cfg, kind, cross_src, active_planes)
+        x, _ = _mlp_residual(p, x, cfg, active_planes)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_all_logits:
         return logits_apply(_head(params, cfg), x, cfg.logit_softcap, active_planes), cache

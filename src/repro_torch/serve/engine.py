@@ -106,7 +106,6 @@ class ServeEngine:
                  precision_tiers: Optional[Dict[str, int]] = None, degrade: bool = False,
                  degrade_queue_depth: int = 2, degrade_hysteresis: int = 4,
                  obs: Optional[Observability] = None):
-        transformer.check_supported(cfg)
         self.cfg = cfg
         self.max_len = max_len
         self.device = resolve_device(device)

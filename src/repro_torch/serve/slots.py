@@ -380,7 +380,7 @@ class SlotPool:
         for path, t in _leaves(self.cache):
             # ("blocks", "p{i}", leaf) or ("tail", i, leaf)
             i = int(path[1][1:]) if path[0] == "blocks" else path[1]
-            if self.cfg.layer_pattern[i] == "local":
+            if self.cfg.layer_pattern[i].split("+")[0] == "local":
                 total += t.numel() * t.element_size()
         return total
 
