@@ -81,7 +81,11 @@ failure exits non-zero and none is caught:
    the continuous engine on the CPU: identical greedy tokens;
 3c. reduced granite-3-2b, f32: two BSQ train steps from one state on
    the card and on the CPU agree within 1e-5 relative, and the masks
-   after a requant are equal;
+   after a requant are equal; then one BSQ step's gradients under every
+   remat policy ("nothing", "dots", "mlp_names", "dots_offload"): the
+   card's bitwise those with remat off or within phase 3's tolerance (the
+   largest difference printed), the CPU's bitwise, card against CPU within
+   phase 3's tolerance;
 3d. full-width gemma3-12b cut to one superblock (5 local + 1 global
    layers), f32, 6-bit packed, card against CPU through the bucketed
    engine (a 2048-token prompt wraps every ring in prefill, a 1020-token
@@ -206,9 +210,16 @@ failure exits non-zero and none is caught:
    checked exactly (one grouped forward and one backward launch per
    step, and no serving kernel launches), every step's loss
    finite, the resume's restore held bit for bit against a host copy of
-   the state saved at step 4; then the final scheme, ``export_packed``,
-   a profile of two train steps, and 4 requests served from the
-   exported packed weights through the bitserial and flash kernels;
+   the state saved at step 4 (the config's remat, "nothing", as JAX
+   trains); then the final scheme, ``export_packed``, a profile of two
+   train steps and 4 requests served from the exported packed weights
+   through the bitserial and flash kernels; last, where activations set
+   the peak (4 full-width layers, float weights, one 4096-token
+   sequence), the loss's gradients per remat policy ("none", "nothing",
+   "dots", "mlp_names", "dots_offload"): median ms and peak
+   ``max_memory_allocated`` beside the dry run's meta estimate, checked
+   nothing < dots <= none, nothing < mlp_names < none, and dots_offload
+   about nothing's device bytes (its saved set in host memory);
 6b. full-width ResNet-20 (width 16), f32, one batch of 64 gaussian_blobs
    images: two BSQ steps of the paper pipeline from one state on the card
    and on the CPU, the CPU fed the card's 4-bit activations (each input
@@ -228,6 +239,20 @@ failure exits non-zero and none is caught:
    through the bitserial and flash kernels, its greedy tokens printed),
    fault_tolerance (resumes from its own checkpoint) and train_lm_bsq cut
    to 40 steps without a workdir (the card machine's disk);
+6e. the dry run's counter (``repro_torch.roofline.analysis`` on meta
+   tensors) against the card: ``roofline.hw``'s data-sheet figures beside
+   the card's memory and SM count; phase 4's decode step (40-layer
+   granite-3-2b, bf16, 6-bit, 4 lanes at 128 + 32 positions) and phase
+   6's BSQ train step (2 layers, batch 8 x 64) each run on the card and
+   counted on meta: the packed tree's (the state's) bytes and the kernel
+   launches equal exactly, the measured median step at least the
+   analysis bound (the eager port's own op traffic), its share of that
+   bound and of the limit no implementation passes (the weights and
+   cache read once; the state read and written once), the term that
+   bounds it and the top 5 ops by bytes printed; the counter's FLOPs and bytes of each phase-2
+   bitserial call exactly ``bitserial_work``'s; and ``python -m
+   repro_torch.launch.dryrun --arch granite-3-2b --shape decode_32k``
+   printing ``[ok]``;
 7. a ``{"kernels": [...]}`` line (the bitserial decode and prefill
    entries, the runtime-plane entry with phase 4d's launches, flash and
    paged also carry ``vs_library``, their time over the library call's:
@@ -244,6 +269,7 @@ beside it.  The per-shape table goes to ``chiprun_out/chip_smoke.json``.
 import gc
 import importlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -253,8 +279,11 @@ from pathlib import Path
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 outside tensor cores; bf16 dense
+# the card's data-sheet rates (HBM bytes/s; FLOP/s by dtype, f32 outside the
+# tensor cores, bf16 dense), set by main() from repro_torch.roofline.hw, the
+# one source of them: the script imports the port only once it has found it
+HBM_BYTES_PER_S = None
+PEAK_FLOPS = None
 N_BITS = 6
 MATMUL_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
 # the 7 projections of one granite-3-2b layer, as (K, N)
@@ -394,11 +423,18 @@ def check(ok, what) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
-def bound_ms(M, K, N, dtype_name, n_bits=N_BITS, groups=1):
+def bitserial_work(M, K, N, dtype_name, n_bits=N_BITS, groups=1):
+    """(FLOPs, bytes) of one bitserial call: x read, the ``n_bits`` planes,
+    the sign and the ``groups`` f32 scales read, the output written once."""
     elt = 4 if dtype_name == "float32" else 2
     nbytes = M * K * elt + (n_bits + 1) * (K // 8) * N + 4 * groups + M * N * elt
+    return 2.0 * M * K * N, nbytes
+
+
+def bound_ms(M, K, N, dtype_name, n_bits=N_BITS, groups=1):
+    flops, nbytes = bitserial_work(M, K, N, dtype_name, n_bits, groups)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2.0 * M * K * N / PEAK_FLOPS[dtype_name]
+    t_ops = flops / PEAK_FLOPS[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1783,6 +1819,67 @@ def train_parity(dev, card, arch="granite-3-2b"):
             "near_ties": routing.differ, "routed_tokens": routing.tokens}
 
 
+REMAT_POLICIES = ("none", "nothing", "dots", "mlp_names", "dots_offload")
+
+
+def remat_parity(dev, card):
+    """Phase 3c's remat rows: reduced granite-3-2b, f32, the gradients of one
+    BSQ step's loss under every remat policy, on the card and on the CPU:
+    each policy's card gradients bitwise those with remat off, or within
+    phase 3's tolerance with the largest difference printed; the CPU's
+    bitwise; card against CPU within phase 3's tolerance."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core import BSQConfig
+    from repro_torch.data import MarkovLM
+    from repro_torch.optim import SGDM
+    from repro_torch.train import bsq_loss, init_bsq_state
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    cfg = reduced_config("granite-3-2b")
+    bsq_cfg = BSQConfig(n_init=8, alpha=5e-3, compute_dtype=torch.float32)
+    state, ctx = init_bsq_state(torch.Generator().manual_seed(0), cfg, bsq_cfg, SGDM(), "cpu")
+    batch = MarkovLM(vocab=cfg.vocab_size, seed=13).batch(np.random.default_rng(0), 4, 16)
+    grads = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        trainable = tree_map(lambda x: x.to(d, copy=True), state["trainable"])
+        masks = tree_map(lambda x: x.to(d, copy=True), state["masks"])
+        b = {k: torch.from_numpy(v).long().to(d) for k, v in batch.items()}
+        for pol in REMAT_POLICIES:
+            c = dataclasses.replace(ctx, cfg=cfg.scaled(remat=True, remat_policy=pol))
+            _, _, g = value_and_grad(lambda tr: bsq_loss(tr, masks, b, c), trainable)
+            grads[name, pol] = {k: v.cpu() for k, v in flatten_with_path(g)}
+    rows = {}
+    for pol in REMAT_POLICIES[1:]:
+        diffs = {}
+        for name in ("cuda", "cpu"):
+            got, off = grads[name, pol], grads[name, "none"]
+            diffs[name] = max(float((got[k] - off[k]).abs().max()) / max(
+                float(off[k].abs().max()), 1e-30) for k in off)
+        check(diffs["cpu"] == 0.0, f"remat {pol!r}: CPU gradients differ from remat off "
+              f"({diffs['cpu']:.3e} of the largest)")
+        check(diffs["cuda"] <= TOL["float32"], f"remat {pol!r}: card gradients "
+              f"{diffs['cuda']:.3e} of the largest from remat off, over {TOL['float32']}")
+        vs_cpu = max(float((grads["cuda", pol][k] - grads["cpu", pol][k]).abs().max()) / max(
+            float(grads["cpu", pol][k].abs().max()), 1e-30) for k in grads["cpu", pol])
+        check(vs_cpu <= TOL["float32"], f"remat {pol!r}: card against CPU {vs_cpu:.3e} of "
+              f"the largest gradient, over {TOL['float32']}")
+        rows[pol] = {"card_vs_off": diffs["cuda"], "card_vs_cpu": vs_cpu}
+    print(f"[remat-parity] reduced granite-3-2b f32, one BSQ step's gradients under "
+          f"{', '.join(REMAT_POLICIES[1:])}: card against remat off "
+          + ", ".join(f"{p} {'bitwise' if r['card_vs_off'] == 0 else format(r['card_vs_off'], '.3e')}"
+                      for p, r in rows.items())
+          + f"; CPU bitwise; card against CPU at most "
+          f"{max(r['card_vs_cpu'] for r in rows.values()):.3e} of each leaf's largest "
+          f"(tolerance {TOL['float32']}) [{card}]", flush=True)
+    return rows
+
+
 def _host_snapshot(tree):
     """name -> a host copy of every leaf (a CPU leaf is cloned)."""
     from repro_torch.tree import flatten_with_path
@@ -1833,6 +1930,79 @@ def profile_train(state, ctx, dev, card, steps=2):
                    "bgl_ms_per_step": bgl_ms, "bgl_backward_ms_per_step": bgl_bwd_ms,
                    "top": [{"name": k, "ms_per_step": t / steps, "count_per_step": n / steps}
                            for k, (t, n) in top]}
+
+
+REMAT_SHAPE = (4, 1, 4096)  # layers of full-width granite-3-2b, batch, sequence
+
+
+def remat_memory(dev, card):
+    """Phase 6's remat rows, where activations set the peak: full-width
+    granite-3-2b cut to 4 layers, float weights, one 4096-token sequence
+    (one row of train_4k), the loss's gradients under each remat policy:
+    the median ms and median peak of ``max_memory_allocated`` above the
+    weights of three, and the dry run's estimate of it (the counter's peak of live
+    meta bytes; on meta "dots_offload" has no host to move its set to).
+    Checks that "nothing" < "dots" <= "none" and "nothing" < "mlp_names"
+    < "none" in peak, and that "dots_offload" holds about the device bytes
+    of "nothing": above it by less than a quarter of what "dots" adds."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.optim import SGDM
+    from repro_torch.roofline import analysis
+    from repro_torch.train import abstract_plain_state
+    from repro_torch.train.step import value_and_grad
+
+    L, B, S = REMAT_SHAPE
+    cfg = get_config("granite-3-2b").scaled(n_layers=L)
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32, device=dev,
+                              generator=gen) for k in ("tokens", "labels")}
+    mparams = abstract_plain_state(cfg, SGDM())["params"]
+    mbatch = {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
+    rows = {}
+    for pol in REMAT_POLICIES:
+        c = cfg.scaled(remat_policy=pol)
+        with analysis.Counter() as counter:
+            value_and_grad(lambda p: transformer.loss_fn(p, mbatch, c), mparams)
+        times, peaks = [], []
+        for _ in range(3):
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _, grads = value_and_grad(lambda p: transformer.loss_fn(p, batch, c), params)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            total = float(loss)
+            check(total == total and abs(total) < float("inf"), f"remat {pol!r}: loss {total}")
+            del loss, grads
+        rows[pol] = {"ms": sorted(times)[1], "step_ms": times, "peak_bytes": sorted(peaks)[1],
+                     "meta_peak_bytes": counter.peak_live}
+    peak = {p: r["peak_bytes"] for p, r in rows.items()}
+    check(peak["nothing"] < peak["dots"] <= peak["none"], f"remat peaks: nothing "
+          f"{peak['nothing']}, dots {peak['dots']}, none {peak['none']}")
+    check(peak["nothing"] < peak["mlp_names"] < peak["none"], f"remat peaks: nothing "
+          f"{peak['nothing']}, mlp_names {peak['mlp_names']}, none {peak['none']}")
+    check(peak["dots_offload"] - peak["nothing"] < (peak["dots"] - peak["nothing"]) / 4,
+          f"remat peaks: dots_offload {peak['dots_offload']} keeps its saved set on the "
+          f"device (nothing {peak['nothing']}, dots {peak['dots']})")
+    print(f"[train-remat] the loss's gradients of full-width granite-3-2b cut to {L} layers, "
+          f"{B} x {S} tokens, per remat policy: median ms of 3, peak max_memory_allocated above "
+          f"the weights (the dry run's meta estimate): "
+          + ", ".join(f"{p} {r['ms']:.1f} ms, {r['peak_bytes'] / 1e9:.3f} GB "
+                      f"({r['meta_peak_bytes'] / 1e9:.3f})" for p, r in rows.items())
+          + f"; nothing < dots <= none, nothing < mlp_names < none, dots_offload "
+          f"{(peak['dots_offload'] - peak['nothing']) / 1e9:+.3f} GB of nothing against dots' "
+          f"{(peak['dots'] - peak['nothing']) / 1e9:+.3f} [{card}]", flush=True)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 def bsq_slice(dev, card):
@@ -2036,6 +2206,185 @@ def bsq_slice(dev, card):
             "restore_s": resumed["restore_s"], "ckpt_bytes": resumed["nbytes"],
             "profile": prof,
             "serve_s": serve_s, "tokens": toks.tolist(), "serve_bitserial_launches": expected}
+
+
+def _held_to_bound(what, card_ms, terms, card, floor_bytes, floor_what):
+    """Check a measured step against the dry run's analysis bound and
+    print its share, which term bounds it and the top 5 ops by bytes.
+    That bound counts the eager port's own op traffic (every unfused pass
+    read and written once), so it shrinks as passes fuse; beside it the
+    step's share of a limit that no implementation passes: ``floor_bytes``
+    (``floor_what``) over the data sheet's memory rate."""
+    bound_ms = 1e3 * terms.step_time_lower_bound_s
+    floor_ms = 1e3 * floor_bytes / HBM_BYTES_PER_S
+    check(card_ms >= bound_ms, f"{what}: measured {card_ms:.3f} ms under the analysis bound "
+          f"{bound_ms:.3f} ms")
+    top = ", ".join(f"{name} {b / 1e9:.3f} GB x{n}" for name, b, n in terms.op_byte_profile(5))
+    print(f"[dryrun] {what}: measured {card_ms:.3f} ms (median), eager op-traffic bound "
+          f"{bound_ms:.4f} ms ({terms.bottleneck}: {terms.flops_per_device / 1e12:.4f} TFLOP, "
+          f"{terms.bytes_per_device / 1e9:.3f} GB; computed from the H100 data sheet), "
+          f"{100 * bound_ms / card_ms:.2f} % of it (share of the eager op-traffic bound); "
+          f"the limit of {floor_what}, {floor_bytes / 1e9:.3f} GB, {floor_ms:.4f} ms, "
+          f"{100 * floor_ms / card_ms:.2f} % of it; top 5 ops by bytes: {top} "
+          f"[{card}]", flush=True)
+    return {"ms": card_ms, "bound_ms": bound_ms, "bound_by": terms.bottleneck,
+            "flops": terms.flops_per_device, "bytes": terms.bytes_per_device,
+            "floor_ms": floor_ms, "floor_bytes": floor_bytes,
+            "launches": terms.launches, "top": terms.op_byte_profile(5)}
+
+
+def dryrun_phase(dev, card):
+    """Phase 6e: the dry run's counter (``roofline.analysis`` on meta
+    tensors) held against the card: the data-sheet constants beside the
+    card's own figures; phase 4's granite-3-2b decode step and phase 6's
+    BSQ train step on the card and on meta (argument bytes and kernel
+    launches exactly equal, each measured step at least its analysis
+    bound); the counter's FLOPs and bytes of every phase-2 bitserial call
+    exactly ``bitserial_work``'s; the dry-run CLI on granite-3-2b x
+    decode_32k."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import BSQConfig
+    from repro_torch.core.packing import abstract_packed
+    from repro_torch.data import MarkovLM, sharded_lm_iterator
+    from repro_torch.kernels import bgl_sumsq as bgl
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+    from repro_torch.optim import SGDM, step_decay
+    from repro_torch.roofline import analysis, hw
+    from repro_torch.serve.engine import serving_params
+    from repro_torch.train import abstract_bsq_state, init_bsq_state, make_bsq_train_step
+
+    rep = {}
+    props = torch.cuda.get_device_properties(0)
+    print(f"[dryrun] roofline.hw (H100 SXM data sheet): HBM {hw.HBM_BYTES / 1e9:.0f} GB at "
+          f"{hw.HBM_BW / 1e12:.2f} TB/s, bf16 {hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s, f32 "
+          f"{hw.PEAK_FLOPS_F32 / 1e12:.0f}, TF32 {hw.PEAK_FLOPS_TF32 / 1e12:.0f}, {hw.SM_COUNT} "
+          f"SMs, {hw.SMEM_BYTES // 1024} KiB shared memory per SM, NVLink "
+          f"{hw.LINK_BW / 1e9:.0f} GB/s; the card: total_memory {props.total_memory / 1e9:.2f} "
+          f"GB, multi_processor_count {props.multi_processor_count}, "
+          f"{torch.cuda.get_device_name(0)}, {card}", flush=True)
+    rep["card"] = {"total_memory": props.total_memory,
+                   "multi_processor_count": props.multi_processor_count}
+
+    # phase 4's decode step: 40 layers, bf16, 6-bit, 4 lanes, 128 + 32 positions
+    cfg = get_config("granite-3-2b")
+    B, P, NEW = 4, 128, 32
+    params = serving_params(transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev, pack_bits=N_BITS), cfg, dev)
+    cache = transformer.init_cache(cfg, B, P + NEW, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), dtype=torch.int32, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    transformer.decode_step(params, cache, tok, P, cfg)  # warm
+    times, launches = [], []
+    for i in range(5):
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        transformer.decode_step(params, cache, tok, P + 1 + i, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append(bsm.launches)
+    mparams = dryrun._serving_tree(cfg, N_BITS)
+    mcache = transformer.init_cache(cfg, B, P + NEW, device="meta")
+    with analysis.Counter() as counter:
+        transformer.decode_step(mparams, mcache, torch.empty_like(tok, device="meta"), P + 1,
+                                cfg)
+    terms = counter.terms(1)
+    card_bytes, meta_bytes = analysis._shape_bytes(params), analysis._shape_bytes(mparams)
+    check(meta_bytes == card_bytes, f"decode: the meta tree's argument bytes {meta_bytes} != "
+          f"the card's {card_bytes}")
+    check(set(launches) == {terms.launches.get("bitserial_matmul")},
+          f"decode: bitserial launches per step {launches} on the card, "
+          f"{terms.launches} counted on meta")
+    print(f"[dryrun] granite-3-2b decode step (40 layers, bf16, {N_BITS}-bit, {B} lanes, "
+          f"{P} + {NEW} positions): packed tree {card_bytes / 1e9:.4f} GB on the card == on "
+          f"meta; bitserial launches {launches[0]} per step on the card == on meta", flush=True)
+    cache_bytes = analysis._shape_bytes(cache)
+    rep["decode"] = _held_to_bound("granite-3-2b decode step", float(np.median(times)), terms,
+                                   card, card_bytes + cache_bytes,
+                                   "the weights and the cache read once")
+    rep["decode"]["argument_bytes"] = card_bytes
+    del params, cache, mparams, mcache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 6's BSQ train step: 2 layers at full width, bf16 weights, batch 8 x 64
+    cfg2 = cfg.scaled(n_layers=2)
+    bsq_cfg = BSQConfig(n_init=8, alpha=5e-3, mode="static", compute_dtype=torch.bfloat16)
+    opt, lr_fn = SGDM(), step_decay(0.2, [100])
+    state, ctx = init_bsq_state(torch.Generator(device=dev).manual_seed(0), cfg2, bsq_cfg, opt,
+                                dev)
+    mstate, mctx = abstract_bsq_state(cfg2, bsq_cfg, opt)
+    card_bytes, meta_bytes = analysis._shape_bytes(state), analysis._shape_bytes(mstate)
+    check(meta_bytes == card_bytes, f"train: the meta state's bytes {meta_bytes} != the "
+          f"card's {card_bytes}")
+    step = make_bsq_train_step(ctx, opt, lr_fn)
+    data = sharded_lm_iterator(MarkovLM(vocab=cfg2.vocab_size, seed=13), 8, 64, seed=0,
+                               device=dev)
+    state, _ = step(state, next(data))  # warm
+    times, launches = [], []
+    for _ in range(3):
+        b = next(data)
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append((bgl.launches, bgl.backward_launches))
+    mb = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in b.items()}
+    with analysis.Counter() as counter:
+        make_bsq_train_step(mctx, opt, lr_fn)(mstate, mb)
+    terms = counter.terms(1)
+    want = (terms.launches.get("bgl_sumsq"), terms.launches.get("bgl_sumsq_backward"))
+    check(set(launches) == {want} == {(1, 1)}, f"train: bgl_sumsq launches (forward, backward) "
+          f"per step {launches} on the card, {want} counted on meta, expected (1, 1)")
+    print(f"[dryrun] BSQ train step (2-layer full-width granite-3-2b, batch 8 x 64): state "
+          f"{card_bytes / 1e9:.3f} GB on the card == on meta; bgl_sumsq launches 1 + 1 "
+          f"backward per step on the card == on meta", flush=True)
+    rep["train"] = _held_to_bound("BSQ train step", float(np.median(times)), terms, card,
+                                  2 * card_bytes, "the state read once and written once")
+    rep["train"]["state_bytes"] = card_bytes
+    del state, ctx, mstate, mctx, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # every phase-2 bitserial call: the counter's FLOPs and bytes == bitserial_work's
+    n = 0
+    for M, K, N, groups, dname, _ in bitserial_shapes():
+        pw = abstract_packed((K, N), N_BITS)
+        if groups:
+            pw.scale = torch.empty((1, groups), dtype=torch.float32, device="meta")
+        x = torch.empty((M, K), dtype=getattr(torch, dname), device="meta")
+        t = analysis.analyze(ops.bitserial_matmul, x, pw)
+        want = bitserial_work(M, K, N, dname, groups=groups or 1)
+        check((t.flops_per_device, t.bytes_per_device) == want
+              and t.launches == {"bitserial_matmul": 1},
+              f"bitserial M={M} K={K} N={N} groups={groups} {dname}: counted "
+              f"{(t.flops_per_device, t.bytes_per_device)}, bound_ms's {want}")
+        n += 1
+    print(f"[dryrun] the counter's FLOPs and bytes equal bound_ms's for all {n} phase-2 "
+          f"bitserial calls, one launch each", flush=True)
+    rep["bitserial_shapes"] = n
+
+    # the dry-run CLI
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                           "granite-3-2b", "--shape", "decode_32k"], capture_output=True,
+                          text=True, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                          timeout=300)
+    ok = [line for line in proc.stdout.splitlines() if line.startswith("[ok]")]
+    check(proc.returncode == 0 and ok, f"dryrun CLI: rc {proc.returncode}, "
+          f"{proc.stdout[-500:]} {proc.stderr[-1500:]}")
+    print(f"[dryrun] python -m repro_torch.launch.dryrun --arch granite-3-2b --shape "
+          f"decode_32k in {time.perf_counter() - t0:.1f} s: {ok[0]}", flush=True)
+    rep["cli"] = ok[0]
+    return rep
 
 
 def _launch_counts():
@@ -2599,6 +2948,25 @@ def active_kernel_phase(dev, card, time_ms, report):
               f"ms [{card}]", flush=True)
 
 
+def bitserial_shapes():
+    """Phase 2's static bitserial calls, as (M, K, N, groups, dtype name,
+    profile): granite-3-2b's projections at M 4 and 512, f32 and bf16,
+    per-tensor and per-group scales; gemma3-12b's 7 projections at M 2 and
+    8192 (the profiler names the kernel of its gate row); the MoE,
+    recurrent and frontend rows in bf16."""
+    for M in (4, 512):
+        for K, N in MATMUL_SHAPES:
+            for groups in (None, 16):
+                for dname in ("float32", "bfloat16"):
+                    yield M, K, N, groups, dname, False
+    for M in GEMMA3_M:
+        for i, (K, N) in enumerate(GEMMA3_PROJ):
+            yield M, K, N, None, "bfloat16", i == 4
+    for (K, N), ms in MOE_ROWS + RG_ROWS + FRONTEND_ROWS:
+        for M in ms:
+            yield M, K, N, None, "bfloat16", False
+
+
 def bitserial_kernel_phase(dev, card, time_ms, report):
     """Phase 2: the bitserial kernel against its plain version at the main
     path's shapes: granite-3-2b's projections at decode (M 4) and prefill
@@ -2611,22 +2979,10 @@ def bitserial_kernel_phase(dev, card, time_ms, report):
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    for M in (4, 512):
-        for K, N in MATMUL_SHAPES:
-            for groups in (None, 16):
-                for dt in (torch.float32, torch.bfloat16):
-                    report["matmul"].append(bitserial_case(dev, gen, card, time_ms, M, K, N,
-                                                           groups, dt))
-    for M in GEMMA3_M:
-        for i, (K, N) in enumerate(GEMMA3_PROJ):
-            report["matmul"].append(bitserial_case(dev, gen, card, time_ms, M, K, N, None,
-                                                   torch.bfloat16, profile=i == 4))
-            torch.cuda.empty_cache()
-    for (K, N), ms in MOE_ROWS + RG_ROWS + FRONTEND_ROWS:
-        for M in ms:
-            report["matmul"].append(bitserial_case(dev, gen, card, time_ms, M, K, N, None,
-                                                   torch.bfloat16))
-            torch.cuda.empty_cache()
+    for M, K, N, groups, dname, profile in bitserial_shapes():
+        report["matmul"].append(bitserial_case(dev, gen, card, time_ms, M, K, N, groups,
+                                               getattr(torch, dname), profile=profile))
+        torch.cuda.empty_cache()
     # one layer's 7 projections at each main-path shape, in bf16
     for name, M, proj in (("granite-3-2b decode", 4, LAYER_PROJ),
                           ("gemma3-12b decode", 2, GEMMA3_PROJ),
@@ -4721,6 +5077,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.roofline import hw
+
+    global HBM_BYTES_PER_S, PEAK_FLOPS
+    HBM_BYTES_PER_S = hw.HBM_BW
+    PEAK_FLOPS = {"float32": hw.PEAK_FLOPS_F32, "bfloat16": hw.PEAK_FLOPS_BF16}
+
     from repro_torch.kernels import _build
     from repro_torch.kernels import bgl_sumsq as bgl
     from repro_torch.kernels import bitserial_matmul as bsm
@@ -4822,6 +5184,7 @@ def main() -> int:
         phase_done("3, 3b")
     if want("3c"):
         report["train_parity"] = train_parity(dev, card)
+        report["remat_parity"] = remat_parity(dev, card)
         phase_done("3c")
     if want("3d"):
         report["parity_gemma3"] = gemma3_parity(dev, card)
@@ -4890,6 +5253,7 @@ def main() -> int:
     # ---------------------------------------------------------------- 6
     if want("6"):
         report["bsq"] = bsq_slice(dev, card)
+        report["remat_memory"] = remat_memory(dev, card)
         phase_done("6")
     if want("6b"):
         report["resnet_parity"] = resnet_parity(dev, card)
@@ -4900,6 +5264,9 @@ def main() -> int:
     if want("6d"):
         report["lm_examples"] = lm_examples(dev, card)
         phase_done("6d")
+    if want("6e"):
+        report["dryrun"] = dryrun_phase(dev, card)
+        phase_done("6e")
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

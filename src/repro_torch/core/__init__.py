@@ -25,6 +25,7 @@ from .bsq import (  # noqa: F401
 )
 from .packing import (  # noqa: F401
     PackedWeight,
+    abstract_packed,
     pack_from_float,
     pack_model_params,
     pack_quantized,

@@ -267,14 +267,35 @@ def packable(name: str, shape) -> bool:
     )
 
 
-def pack_model_params(params, n_bits: int):
-    """Replace packable dense weights in a param tree by PackedWeights.
+def abstract_packed(shape, n_bits: int) -> PackedWeight:
+    """A meta-device twin of :func:`pack_stacked_from_float` for a weight
+    of ``shape`` (lead..., K, N): the fields' shapes and dtypes, no data
+    (the dry run's)."""
+    lead, (K, N) = tuple(shape[:-2]), tuple(shape[-2:])
+    K8 = (K + 7) // 8
+
+    def meta(s, dtype):
+        return torch.empty(s, dtype=dtype, device="meta")
+
+    return PackedWeight(
+        planes=meta(lead + (n_bits, K8, N), torch.uint8),
+        sign=meta(lead + (K8, N), torch.uint8),
+        scale=meta(lead + (1, 1) if lead else (), torch.float32),
+        n_bits=n_bits,
+        k=K,
+    )
+
+
+def pack_model_params(params, n_bits: int, abstract: bool = False):
+    """Replace packable dense weights in a param tree by PackedWeights
+    (``abstract``: by :func:`abstract_packed` meta twins, for the dry run).
 
     Leaf names are the JAX key paths (``blocks/p0/mixer/wq``), so the
     same leaves pack as in ``repro.core.packing.pack_model_params``."""
     def pack(name, leaf):
         if isinstance(leaf, torch.Tensor) and packable(name, leaf.shape):
-            return pack_stacked_from_float(leaf, n_bits)
+            return abstract_packed(leaf.shape, n_bits) if abstract \
+                else pack_stacked_from_float(leaf, n_bits)
         return leaf
 
     return tree_map_with_path(pack, params)

@@ -6,8 +6,10 @@ Weights use the (in, out) layout so a PackedWeight (K, N) maps 1:1.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -91,6 +93,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # ---------------------------------------------------------------------------
+# Checkpoint names (JAX's ``checkpoint_name``): a remat policy reads them
+# ---------------------------------------------------------------------------
+
+_CHECKPOINT_NAME: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
+    "checkpoint_name", default=None)
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Name the products computed inside ``name``, as JAX's
+    ``checkpoint_name`` tags a value: the "mlp_names" remat policy of
+    ``models.transformer`` saves the products named "mlp_wide".  The
+    arithmetic is unchanged."""
+    token = _CHECKPOINT_NAME.set(name)
+    try:
+        yield
+    finally:
+        _CHECKPOINT_NAME.reset(token)
+
+
+def current_checkpoint_name() -> Optional[str]:
+    return _CHECKPOINT_NAME.get()
+
+
+# ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
@@ -108,16 +135,18 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, kind: str, device) -> Para
 def mlp_apply(p: Params, x: torch.Tensor, kind: str, act_bits: int = 32,
               active_planes=None) -> torch.Tensor:
     """``act_bits < 32`` quantises the hidden activation (ReLU6, then
-    ``act_bits`` uniform levels) before ``w_down``, as JAX does."""
+    ``act_bits`` uniform levels) before ``w_down``, as JAX does.  The wide
+    products (gate and up) are named "mlp_wide" for the remat policy."""
     dt = x.dtype
     if kind in ("swiglu", "geglu"):
-        g = dense_apply(x, p["w_gate"], active_planes)
-        u = dense_apply(x, p["w_up"], active_planes)
+        with checkpoint_name("mlp_wide"):
+            g = dense_apply(x, p["w_gate"], active_planes)
+            u = dense_apply(x, p["w_up"], active_planes)
         h = (F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")) * u
-    elif kind == "gelu_mlp":
-        h = F.gelu(dense_apply(x, p["w_up"], active_planes), approximate="tanh")
     else:
-        h = F.relu(dense_apply(x, p["w_up"], active_planes))
+        with checkpoint_name("mlp_wide"):
+            u = dense_apply(x, p["w_up"], active_planes)
+        h = F.gelu(u, approximate="tanh") if kind == "gelu_mlp" else F.relu(u)
     if act_bits < 32:
         h = relu6_act_quantize(h, act_bits).to(dt)
     return dense_apply(h, p["w_down"], active_planes)

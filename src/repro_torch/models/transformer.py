@@ -15,7 +15,10 @@ cache dtype), fixed-size per lane, so it bypasses paging.
 
 Serving prefill (:func:`prefill`) runs attention through the flash
 kernel (``kernels.ops.flash_attention``); :func:`forward` and
-:func:`loss_fn` (training) keep the plain path.
+:func:`loss_fn` (training) keep the plain path.  While autograd records,
+:func:`forward` rematerialises each superblock under ``cfg.remat`` and
+``cfg.remat_policy``, as JAX's ``jax.checkpoint`` does: the values are
+the same, the backward recomputes what the policy does not save.
 
 Where ``cfg.n_experts > 0`` every layer's FFN is the Mixture-of-Experts
 of ``models.moe`` (``p["moe"]``), on every path: :func:`forward` sums
@@ -34,9 +37,17 @@ cast to the compute dtype with no sqrt(d_model) scale
 """
 from __future__ import annotations
 
+import collections
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ..configs.base import ModelConfig
 from ..core.packing import (
@@ -53,6 +64,7 @@ from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .common import (
     cross_entropy,
+    current_checkpoint_name,
     dense_apply,
     dense_init,
     embed_apply,
@@ -309,19 +321,119 @@ def _apply_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     return x, seed, aux
 
 
+def _add_aux(aux: torch.Tensor, aux_i) -> torch.Tensor:
+    return aux if aux_i is None else aux + aux_i
+
+
+def _superblock_fwd(x: torch.Tensor, aux: torch.Tensor, blk: Params, cfg: ModelConfig,
+                    cross_src, active_planes):
+    """One pass of the layer pattern (JAX's ``_superblock_fwd``), the
+    running router loss carried through, so remat leaves its sum's order."""
+    for i, kind in enumerate(cfg.layer_pattern):
+        x, _, aux_i = _apply_layer_fwd(blk[f"p{i}"], x, cfg, kind, cross_src, active_planes)
+        aux = _add_aux(aux, aux_i)
+    return x, aux
+
+
+# The products a "dots" policy saves: 2-D products (the projections), as
+# JAX's ``dots_with_no_batch_dims_saveable``; batched ones (``bmm``, the
+# attention scores, the experts) are recomputed.
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(named: Optional[str] = None):
+    """A selective-checkpoint policy that saves the 2-D products (those
+    computed under ``checkpoint_name(named)`` only, when given)."""
+    def policy(ctx, op, *args, **kwargs):
+        if op in _PRODUCTS and (named is None or current_checkpoint_name() == named):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+class _Offload(TorchDispatchMode):
+    """The forward half of "dots_offload": each 2-D product's output is
+    copied to pinned host memory as it is computed (kept as it is on the
+    CPU), in call order."""
+
+    def __init__(self, saved: collections.deque):
+        super().__init__()
+        self.saved = saved
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in _PRODUCTS:
+            if out.is_cuda:
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                self.saved.append(host.copy_(out, non_blocking=True))
+            else:
+                self.saved.append(out.detach())
+        return out
+
+
+class _Reload(TorchDispatchMode):
+    """The recompute half of "dots_offload": each 2-D product is taken
+    back from the host, in call order, in place of computing it."""
+
+    def __init__(self, saved: collections.deque):
+        super().__init__()
+        self.saved = saved
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _PRODUCTS:
+            return self.saved.popleft().to(args[0].device, non_blocking=True).detach()
+        return func(*args, **(kwargs or {}))
+
+
+def _offload_contexts():
+    saved = collections.deque()
+    return _Offload(saved), _Reload(saved)
+
+
+def _remat_context_fn(policy: str):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a remat policy
+    (JAX's ``jax.checkpoint`` policies); "nothing" saves only the
+    superblock's inputs."""
+    if policy == "nothing":
+        return noop_context_fn
+    if policy in ("dots", "mlp_names"):
+        save = _save_products("mlp_wide" if policy == "mlp_names" else None)
+        return lambda: create_selective_checkpoint_contexts(save)
+    if policy == "dots_offload":
+        return _offload_contexts
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             active_planes=None):
     """Full-sequence forward (training: the plain attention, which has a
     backward).  ``batch`` holds ``tokens`` (B, S) or ``embeds`` (B, S, D),
     and ``cross_embeds`` (B, T, D) for the "+cross" layers.  Returns
     (logits (B, S, V) f32, aux_loss): the MoE router loss summed over the
-    layers in order, zero without experts."""
+    layers in order, zero without experts.
+
+    With ``cfg.remat`` and a ``cfg.remat_policy`` other than "none", and
+    autograd recording, each superblock runs under a non-reentrant
+    ``torch.utils.checkpoint``: "nothing" keeps only its inputs, "dots"
+    its 2-D products too, "mlp_names" only the MLPs' gate and up products
+    (named "mlp_wide"), "dots_offload" the "dots" set in pinned host
+    memory; the tail layers are not wrapped, as in JAX."""
     x, cross_src = _inputs(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, _, kind in _layers(params, cfg):
-        x, _, aux_i = _apply_layer_fwd(p, x, cfg, kind, cross_src, active_planes)
-        if aux_i is not None:
-            aux = aux + aux_i
+    remat = cfg.remat and cfg.remat_policy != "none" and torch.is_grad_enabled()
+    context_fn = _remat_context_fn(cfg.remat_policy) if remat else None
+    for b in range(cfg.n_superblocks):
+        blk = layer_slice(params["blocks"], b)
+        if remat:
+            x, aux = checkpoint(_superblock_fwd, x, aux, blk, cfg, cross_src, active_planes,
+                                use_reentrant=False, context_fn=context_fn)
+        else:
+            x, aux = _superblock_fwd(x, aux, blk, cfg, cross_src, active_planes)
+    for i in range(cfg.n_tail_layers):
+        x, _, aux_i = _apply_layer_fwd(params["tail"][i], x, cfg, cfg.layer_pattern[i],
+                                       cross_src, active_planes)
+        aux = _add_aux(aux, aux_i)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_apply(_head(params, cfg), x, cfg.logit_softcap, active_planes)
     return logits, aux

@@ -1,6 +1,8 @@
 """BSQ and plain training of the port: train steps and the trainer loop."""
 from .step import (  # noqa: F401
     BSQTrainContext,
+    abstract_bsq_state,
+    abstract_plain_state,
     bsq_loss,
     init_bsq_state,
     init_plain_state,

@@ -18,9 +18,11 @@ Gradients come from ``torch.autograd.grad`` over the trainable leaves
 (``requires_grad`` is switched on only inside a step).  A step and a
 requant update the state's tensors IN PLACE (optimizer, projection, new
 planes and masks), so the state passed in is consumed; a full-width
-state (32 GB of planes and momentum at 2 layers) is never held twice.  The abstract
-(dry-run) states and the compressed data-parallel steps come with later
-slices of the port.
+state (32 GB of planes and momentum at 2 layers) is never held twice.
+:func:`abstract_bsq_state` and :func:`abstract_plain_state` build the
+same states on the ``meta`` device (shapes and dtypes, no data) for the
+dry run.  The compressed data-parallel steps come with the mesh slice of
+the port.
 """
 from __future__ import annotations
 
@@ -168,9 +170,13 @@ def make_bsq_train_step(
                 f_ = {k: v.detach().requires_grad_(True) for k, v in trainable["float"].items()}
                 params = bsq_mod.merge_params(ctx.template, w_, f_)
                 l, m = transformer.loss_fn(params, mb, ctx.cfg)
-                g = torch.autograd.grad(l, list(w_.values()) + list(f_.values()))
+                # an input a model never reads (musicgen's embedding, fed
+                # embeds) has no gradient: zero, as JAX's grad gives it
+                g = torch.autograd.grad(l, list(w_.values()) + list(f_.values()),
+                                        allow_unused=True)
                 for k, gk in zip(list(w_) + list(f_), g):
-                    (gw if k in w_ else gf)[k] += gk
+                    if gk is not None:
+                        (gw if k in w_ else gf)[k] += gk
                 acc_l = acc_l + l.detach()
                 acc_m = {k: acc_m[k] + m[k].detach() for k in acc_m}
             inv = 1.0 / microbatches
@@ -262,6 +268,24 @@ def make_requant_step(ctx: BSQTrainContext):
 
 def state_reps(state, ctx: BSQTrainContext) -> Dict[str, BitRep]:
     return _reps_from_state(state["trainable"], state["masks"], ctx.meta)
+
+
+# ---------------------------------------------------------------------------
+# Abstract (meta-device) states: the dry run's; nothing is allocated
+# ---------------------------------------------------------------------------
+
+
+def abstract_bsq_state(cfg: ModelConfig, bsq_cfg: BSQConfig, optimizer, predicate=None):
+    """Meta-device twin of :func:`init_bsq_state`: ``(state, ctx)`` with
+    every leaf's path, shape and dtype, and ``state["step"]`` a real CPU
+    int32 scalar, as the optimizers read it on the host."""
+    return init_bsq_state(torch.Generator(), cfg, bsq_cfg, optimizer, device="meta",
+                          predicate=predicate)
+
+
+def abstract_plain_state(cfg: ModelConfig, optimizer):
+    """Meta-device twin of :func:`init_plain_state`."""
+    return init_plain_state(torch.Generator(), cfg, optimizer, device="meta")
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.examples.resnet20_bsq_paper", "repro_torch.examples.quickstart",
             "repro_torch.examples.serve_quantized", "repro_torch.examples.train_lm_bsq",
             "repro_torch.examples.fault_tolerance", "repro_torch.models.ssm",
-            "repro_torch.models.rglru"} <= set(mods)
+            "repro_torch.models.rglru", "repro_torch.roofline.hw",
+            "repro_torch.roofline.analysis", "repro_torch.roofline.report",
+            "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -91,7 +93,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, monkeypatch)
 
 
 def test_unported_paths_say_so():
-    """The mesh flags still say "not yet ported"; every layer kind and
+    """The mesh flags still say "not yet ported" (the dry run's, that the
+    mesh slice brings them); every layer kind and
     frontend is ported, so ``init_params`` builds all ten reduced configs
     on the CPU."""
     from repro_torch.configs import ARCH_IDS
@@ -101,6 +104,11 @@ def test_unported_paths_say_so():
     for argv in (["--data-parallel", "2"], ["--model-parallel", "2"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             launcher.main(argv + ["--device", "cpu"])
+    from repro_torch.launch import dryrun
+
+    for flag in ("--single-pod", "--multi-pod"):
+        with pytest.raises(SystemExit, match="mesh slice of the port"):
+            dryrun.main(["--arch", "granite-3-2b", "--shape", "decode_32k", flag])
     assert len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         params = transformer.init_params(reduced_config(arch), torch.Generator(), "cpu")
