@@ -77,8 +77,11 @@ failure exits non-zero and none is caught:
 3. full-width granite-3-2b cut to 2 layers, f32, 6-bit packed: the card
    (kernels) against the CPU (plain path) on the same params;
 3b. the same 2-layer model through the continuous paged-kernel engine
-   on the card (2 lanes, reused), the bucketed engine on the card and
-   the continuous engine on the CPU: identical greedy tokens;
+   on the card (3 requests of 16-44 prompt tokens and 4 new on 2 lanes,
+   reused), the bucketed engine on the card and the continuous engine on
+   the CPU: identical greedy tokens (phase 3's 2 new tokens and 3b's
+   short prompts keep the CPU side, the script's slowest host work,
+   short);
 3c. reduced granite-3-2b, f32: two BSQ train steps from one state on
    the card and on the CPU agree within 1e-5 relative, and the masks
    after a requant are equal; then one BSQ step's gradients under every
@@ -144,9 +147,10 @@ failure exits non-zero and none is caught:
 4c. full-width 48-layer gemma3-12b, bf16, 6-bit packed: bucketed (2 x
    4096 and 2 x 1024 prompt tokens, 32 new each; exactly 48 flash
    launches per prefill call, 40 windowed) and continuous (chunked,
-   paged, the paged kernel; 8 lanes, 16 requests with prompts uniform in
-   [512, 3072] on Poisson arrivals; exactly 8 paged launches per decode
-   step, the pool drained), and a profiled decode step;
+   paged, the paged kernel; 8 lanes, 12 requests with prompts uniform in
+   [512, 3072] on Poisson arrivals, so that lanes serve a second request;
+   exactly 8 paged launches per decode step, the pool drained), and a
+   profiled decode step;
 4e. full-width, full-depth qwen2-moe-a2.7b (24 layers, 60 routed experts
    top-4 and 4 shared, MHA, untied 152064-row head), bf16, 6-bit packed
    attention and head, bf16 experts: bucketed (two buckets of 4, prompts
@@ -201,6 +205,28 @@ failure exits non-zero and none is caught:
    on tokens (4 x 256 and 4 x 1024) and the continuous paged-kernel engine
    (prompts in [64, 1024]); launches exact (289 bitserial per model call,
    48 flash per prefill, 48 paged per decode step);
+4k. serving on a 2x2 ("data", "model") mesh: 4 ranks on the one card
+   (``launch.mesh.run_on_mesh``, backend gloo: NCCL refuses two ranks on
+   one GPU), each holding its block of every weight and of the KV pool.
+   First paged over 4 lanes x 4 K/V heads and flash over 2 lanes x 4 K/V
+   heads against their plain versions; then on the ranks: which
+   collectives gloo takes on CUDA tensors (a probe); the phase-3 model
+   (2 layers, f32, 6-bit) through the bucketed engine and the model API,
+   greedy tokens equal and logits within 1e-4 of the same model in this
+   process on the card, every rank's logits bitwise alike; full-depth f32
+   prefill logits against this process (printed); full-depth bf16 granite-3-2b bucketed (4 x 128
+   tokens), continuous with the paged kernel (4 requests on 8 lanes, one
+   128-token chunk per prompt) and spec decode, each rank's packed bytes
+   (a quarter), kernel launches (bitserial static and runtime, paged and
+   flash, each non-zero on every rank), decode ms per step, TTFT and
+   collectives.  Then bitserial against its plain version at every
+   (M, K, N, dtype) the ranks gave it (recorded on each rank), at least
+   a rank's four blocks at M 4, 8, 512 and 1024 in bf16 and M 4 and 512
+   in f32, ``active=a`` bitwise ``truncate_packed``; last, at full depth
+   in bf16, the ranks' prefill logits against this process's, plain and
+   computing each product as two K halves added as the ranks add them
+   (the witness of where the tokens part; agreements printed), and the
+   bucketed tokens against this process's;
 6. the BSQ training slice: full-width granite-3-2b cut to 2 layers,
    trained through ``repro_torch.launch.train.run``: 4 steps with a
    requant and a checkpoint at step 4, then a second run that resumes
@@ -253,7 +279,9 @@ failure exits non-zero and none is caught:
    bitserial call exactly ``bitserial_work``'s; and ``python -m
    repro_torch.launch.dryrun --arch granite-3-2b --shape decode_32k``
    printing ``[ok]``;
-7. a ``{"kernels": [...]}`` line (the bitserial decode and prefill
+7. a ``{"kernels": [...]}`` line (the bitserial, runtime-plane, paged
+   and flash entries add phase 4k's launches, summed over its ranks, and
+   their times at a rank's shapes; the bitserial decode and prefill
    entries, the runtime-plane entry with phase 4d's launches, flash and
    paged also carry ``vs_library``, their time over the library call's:
    below 1 beats it; the bitserial, flash, paged and bgl_sumsq entries
@@ -266,6 +294,7 @@ failure exits non-zero and none is caught:
 Exits non-zero without a CUDA device, and when the repo's ``src`` is not
 beside it.  The per-shape table goes to ``chiprun_out/chip_smoke.json``.
 """
+import dataclasses
 import gc
 import importlib
 import json
@@ -924,7 +953,7 @@ def gemma3_slice(dev, card, engine_cls):
     """Phase 4c: full-width 48-layer gemma3-12b, bf16, 6-bit packed, served
     bucketed (4 requests: 2 x 4096 and 2 x 1024 prompt tokens, 32 new
     each) and continuous (chunked, paged, the paged kernel; 8 lanes, 512
-    blocks of 32 rows, 16 requests with prompts uniform in [512, 3072]
+    blocks of 32 rows, 12 requests with prompts uniform in [512, 3072]
     (seed 0), Poisson arrivals at 0.5 per step, 32 new tokens each), then
     a profiled decode step."""
     import numpy as np
@@ -1025,8 +1054,9 @@ def gemma3_slice(dev, card, engine_cls):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- continuous
-    n_req = 16
+    # ---- continuous: 12 requests on 8 lanes, so that lanes, their rings
+    # and pool blocks serve a second request
+    n_req = 12
     lens = np.random.default_rng(0).integers(512, 3073, size=n_req)
     reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(i), 1, 3072)[0, :n]
                     .astype(np.int32), max_new=max_new) for i, n in enumerate(lens)]
@@ -1113,9 +1143,11 @@ def continuous_parity(cfg2, p_gpu, p_cpu, dev, card):
     from repro_torch.serve import Request, ServeEngine
 
     task = MarkovLM(vocab=cfg2.vocab_size, seed=3)
+    # short prompts and 4 new tokens: the CPU side of this phase is the
+    # script's slowest host work, cut to pay for phase 4k
     reqs = [Request(uid=i, tokens=task.sample(np.random.default_rng(10 + i), 1, n)[0, :n]
-                    .astype(np.int32), max_new=8) for i, n in enumerate((16, 40, 70, 100))]
-    arrivals = [0, 0, 2, 5]
+                    .astype(np.int32), max_new=4) for i, n in enumerate((16, 28, 44))]
+    arrivals = [0, 0, 2]
     kw = dict(continuous=True, n_slots=2, paged=True, block_size=32, paged_kernel=True)
     runs = {
         "continuous-cuda": ServeEngine(p_gpu, cfg2, max_len=128, device=dev, **kw),
@@ -1126,7 +1158,7 @@ def continuous_parity(cfg2, p_gpu, p_cpu, dev, card):
     for name, eng in runs.items():
         res = eng.generate(reqs, arrival_steps=arrivals)
         toks[name] = {r.uid: r.tokens.tolist() for r in res}
-        check(sorted(toks[name]) == [0, 1, 2, 3], f"{name}: results {sorted(toks[name])}")
+        check(sorted(toks[name]) == [0, 1, 2], f"{name}: results {sorted(toks[name])}")
         if eng.scheduler is not None:
             pool = eng.scheduler.pool
             check(pool.allocator.free_count == pool.n_blocks and pool.allocator.committed == 0,
@@ -1136,7 +1168,7 @@ def continuous_parity(cfg2, p_gpu, p_cpu, dev, card):
         print(f"[parity] 2-layer full-width f32 {name}: {toks[name]}")
     check(toks["continuous-cuda"] == toks["bucketed-cuda"] == toks["continuous-cpu"],
           "continuous (cuda), bucketed (cuda) and continuous (cpu) greedy tokens differ")
-    print("[parity] continuous paged-kernel (cuda, 4 requests on 2 lanes) == bucketed (cuda) "
+    print("[parity] continuous paged-kernel (cuda, 3 requests on 2 lanes) == bucketed (cuda) "
           "== continuous (cpu) greedy tokens", flush=True)
     return toks["continuous-cuda"]
 
@@ -2783,12 +2815,13 @@ def lm_examples(dev, card):
     return report
 
 
-def bitserial_case(dev, gen, card, time_ms, M, K, N, groups, dt, profile=False):
+def bitserial_case(dev, gen, card, time_ms, M, K, N, groups, dt, profile=False, timed=True):
     """One shape of phase 2: the kernel against its plain version,
     ``active=a`` bitwise against ``truncate_packed`` for every a, and the
     kernel, its ``active`` path, the plain version and ``torch.matmul`` on
-    the dequantised weight timed.  ``profile`` also names the device
-    kernels of one call from the profiler."""
+    the dequantised weight timed (``timed=False``: the checks alone).
+    ``profile`` also names the device kernels of one call from the
+    profiler."""
     import torch
 
     from repro_torch.core.packing import pack_from_float, truncate_packed, unpack_to_float
@@ -2825,6 +2858,10 @@ def bitserial_case(dev, gen, card, time_ms, M, K, N, groups, dt, profile=False):
     check(path == ("splitk" if M <= bsm.DECODE_MAX_M else
                    "wgmma" if dt == torch.bfloat16 else "tiled"),
           f"{what}: the {path} kernel, not the one the main path wants")
+    if not timed:
+        return {"M": M, "K": K, "N": N, "dtype": dname, "path": path, "max_abs_err": err,
+                "max_abs_plain": scale_,
+                "scale": "per-tensor" if groups is None else f"{groups} groups"}
     wl = unpack_to_float(pw).to(dt)
     a_dev = torch.tensor([N_BITS - 2], dtype=torch.int32, device=dev)
     row = {
@@ -3040,7 +3077,7 @@ def granite_parity(dev, card, report):
             first[name], _ = transformer.prefill(
                 params, {"tokens": torch.from_numpy(prompt[None]).long().to(d)}, cfg2, 64)
         eng = ServeEngine(params, cfg2, max_len=64, device=d)
-        toks[name] = eng.generate([Request(uid=0, tokens=prompt, max_new=8)])[0].tokens
+        toks[name] = eng.generate([Request(uid=0, tokens=prompt, max_new=2)])[0].tokens
     dlog = (first["cuda"].cpu() - first["cpu"]).abs().max().item()
     lmax = first["cpu"].abs().max().item()
     print(f"[parity] 2-layer full-width f32: greedy cuda {toks['cuda'].tolist()} "
@@ -4782,6 +4819,534 @@ def frontend_slice(dev, card, engine_cls, arch):
     return rep
 
 
+# the mesh phase (4k): a 2x2 ("data", "model") mesh of 4 ranks sharing the
+# card through gloo; the 2-layer f32 parity model's requests and decode
+# steps, and the full-depth bf16 runs' traffic
+MESH_SHAPE = (2, 2)
+MESH_PARITY_STEPS = 4
+MESH_MAX_LEN, MESH_SLOTS, MESH_BLOCKS, MESH_NEW = 512, 8, 64, 8
+MESH_BUCKET = (4, 128)  # requests x prompt tokens
+MESH_CHUNK = 128  # the continuous runs' prefill chunk: a dispatch is M = lanes x 128
+
+
+def _mesh_requests(cfg, n, plen, max_new, seed):
+    import numpy as np
+
+    from repro_torch.data import MarkovLM
+    from repro_torch.serve import Request
+
+    task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+    lens = [plen] * n if isinstance(plen, int) else plen
+    return [Request(uid=i, tokens=task.sample(np.random.default_rng(seed + i), 1, lens[i])[
+        0, :lens[i]].astype(np.int32), max_new=max_new) for i in range(n)]
+
+
+def _mesh_parity_model(params, cfg, prompts):
+    """Prefill of ``prompts`` and MESH_PARITY_STEPS greedy decode steps
+    through the model API: the stacked f32 logits on the host."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    with torch.inference_mode():
+        logits, cache = transformer.prefill(params, {"tokens": prompts}, cfg, 64)
+        out = [logits]
+        for t in range(MESH_PARITY_STEPS):
+            logits, cache = transformer.decode_step(params, cache, logits.argmax(-1)[:, None],
+                                                    prompts.shape[1] + t, cfg)
+            out.append(logits)
+    return torch.stack(out).cpu()
+
+
+def _mesh_parity_setup(dev, dtype="float32"):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg2 = get_config("granite-3-2b").scaled(n_layers=2, dtype=dtype, kv_cache_dtype=dtype)
+    params = transformer.init_params(cfg2, torch.Generator(device=dev).manual_seed(1), dev,
+                                     pack_bits=N_BITS)
+    reqs = _mesh_requests(cfg2, 4, 16, 8, 40)
+    prompts = torch.from_numpy(np.stack([r.tokens for r in reqs]).astype(np.int64)).to(dev)
+    return cfg2, params, reqs, prompts
+
+
+def _mesh_deep_logits(params, cfg, dev):
+    """The last-token logits of prefill over the bucketed run's prompts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer
+
+    reqs = _mesh_requests(cfg, *MESH_BUCKET, MESH_NEW, 0)
+    toks = torch.from_numpy(np.stack([r.tokens for r in reqs]).astype(np.int64)).to(dev)
+    with torch.inference_mode():
+        logits, _ = transformer.prefill(params, {"tokens": toks}, cfg, MESH_MAX_LEN)
+    return logits.cpu()
+
+
+def _mesh_launches():
+    from repro_torch.kernels import bitserial_matmul as bsm
+
+    c = _launch_counts()
+    return {"bitserial_matmul": c["bitserial_matmul"], "bitserial_active": bsm.active_launches,
+            "paged_attention": c["paged_attention"], "flash_attention": c["flash_attention"]}
+
+
+def _record_bitserial_shapes():
+    """Wrap ``ops.bitserial_matmul``, the call through which every product
+    of a rank's block reaches the kernel, so that it records each
+    (M, K, N, dtype, scale groups) it is given; the wrapper launches
+    nothing itself.  Returns the set and the undo."""
+    from repro_torch.kernels import ops
+
+    shapes, plain = set(), ops.bitserial_matmul
+
+    def recorded(x, pw, active_planes=None):
+        groups = pw.scale.shape[-1] if pw.scale.numel() > 1 else None
+        shapes.add((x.numel() // x.shape[-1], pw.sign.shape[-2] * 8, pw.sign.shape[-1],
+                    str(x.dtype).split(".")[-1], groups))
+        return plain(x, pw, active_planes)
+
+    ops.bitserial_matmul = recorded
+    return shapes, lambda: setattr(ops, "bitserial_matmul", plain)
+
+
+def _k_halves_logits(params, cfg, dev):
+    """:func:`_mesh_deep_logits` in one process computing as the 2x2 mesh's
+    ranks do: each product whose K the mesh splits (the packed weights'
+    ``kn_spec`` under the rules, the tied head's d_model) as two K halves,
+    each rounded to the activations' dtype, added in float32 and rounded
+    once, as ``HostMesh.all_reduce`` sums a rank pair's partial products
+    (the N split changes no column's arithmetic).  Phase 4k's witness of
+    where its bf16 tokens part from one process's."""
+    import torch
+
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import common
+
+    mesh = AbstractMesh(dict(zip(("data", "model"), MESH_SHAPE)))
+    check(set(MESH_SHAPE) == {2}, "[4k] the K-halves witness is for a 2x2 mesh")
+    annotated = sharding.annotate_packed_specs(params, mesh)
+    head_k = cfg.tie_embeddings and sharding.param_spec(
+        "embed", tuple(params["embed"].shape), mesh)[1] is not None
+    plain_bsm, plain_dense = ops.bitserial_matmul, common.dense_apply
+
+    def add(parts, dtype):
+        return (parts[0].float() + parts[1].float()).to(dtype)
+
+    def bsm_halves(x, pw, active_planes=None):
+        if pw.kn_spec is None or pw.kn_spec[0] is None:
+            return plain_bsm(x, pw, active_planes)
+        h = pw.sign.shape[-2] // 2
+        check(pw.k == 16 * h, f"[4k] K halves of a padded weight (k {pw.k})")
+        return add([plain_bsm(x[..., 8 * h * i:8 * h * (i + 1)].contiguous(),
+                              dataclasses.replace(
+                                  pw, planes=pw.planes[..., h * i:h * (i + 1), :].contiguous(),
+                                  sign=pw.sign[h * i:h * (i + 1)].contiguous(), k=8 * h,
+                                  kn_spec=None), active_planes) for i in (0, 1)], x.dtype)
+
+    def dense_halves(x, w, active_planes=None, k_local=False):
+        if not (head_k and isinstance(w, torch.Tensor)):
+            return plain_dense(x, w, active_planes, k_local)
+        h = w.shape[-2] // 2
+        return add([x[..., h * i:h * (i + 1)] @ w[h * i:h * (i + 1)].to(x.dtype)
+                    for i in (0, 1)], x.dtype)
+
+    ops.bitserial_matmul, common.dense_apply = bsm_halves, dense_halves
+    try:
+        return _mesh_deep_logits(annotated, cfg, dev)
+    finally:
+        ops.bitserial_matmul, common.dense_apply = plain_bsm, plain_dense
+
+
+def _gloo_cuda_probe(mesh):
+    """Which collectives gloo takes on CUDA tensors as they are (the
+    port's HostMesh hands it all_reduce and all_gather so): "ok", or the
+    error it raises.  A probe, not a path of the port."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.full((4,), float(mesh.rank), device=mesh.device)
+    probes = {
+        "all_reduce_sum": lambda: dist.all_reduce(t.clone()),
+        "all_reduce_max": lambda: dist.all_reduce(t.clone(), op=dist.ReduceOp.MAX),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(4)], t),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(16, device=mesh.device), t),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(1, device=mesh.device), t),
+    }
+    # bf16 sums: the port reduces 16-bit tensors in float32 all the same
+    b = torch.tensor([1.5, -2.25, 100.0, 0.0078125], device=mesh.device) * (mesh.rank + 1)
+    bsum = b.to(torch.bfloat16)
+    probes["all_reduce_bf16_exact"] = lambda: (
+        dist.all_reduce(bsum), None if torch.equal(bsum.float(), b / (mesh.rank + 1) * 10)
+        else (_ for _ in ()).throw(ValueError(f"bf16 sum {bsum.tolist()}")))
+    g16 = [torch.empty_like(bsum) for _ in range(4)]
+    want16 = [(b / (mesh.rank + 1) * (r + 1)).to(torch.bfloat16) for r in range(4)]
+    probes["all_gather_bf16_exact"] = lambda: (
+        dist.all_gather(g16, b.to(torch.bfloat16)),
+        None if all(torch.equal(x, y) for x, y in zip(g16, want16))
+        else (_ for _ in ()).throw(ValueError(f"bf16 gather {[x.tolist() for x in g16]}")))
+    out = {}
+    for name, fn in probes.items():
+        try:
+            fn()
+            torch.cuda.synchronize(mesh.device)
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - the probe records what gloo refuses
+            out[name] = f"{type(e).__name__}: {str(e)[:120]}"
+        dist.barrier()
+    return out
+
+
+def mesh_rank(mesh):
+    """Phase 4k on one rank of the 2x2 mesh: the f32 parity model, then
+    full-depth bf16 granite-3-2b bucketed, continuous (paged kernel) and
+    spec decode, with this rank's kernel launches and packed bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import elastic, sharding
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer
+    from repro_torch.models.common import packed_shard_mesh
+    from repro_torch.serve import SchedulerPolicy, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = mesh.device
+    out = {"rank": mesh.rank, "device": str(dev), "gloo_cuda": _gloo_cuda_probe(mesh)}
+    shapes, unrecord = _record_bitserial_shapes()
+    # parity: the same draws as the single-process run, this rank's blocks
+    cfg2, p2, reqs2, prompts = _mesh_parity_setup(dev)
+    eng = ServeEngine(p2, cfg2, max_len=64, mesh=mesh)
+    out["parity_tokens"] = {r.uid: r.tokens.tolist() for r in eng.generate(reqs2)}
+    local = elastic.reshard_tree(sharding.annotate_packed_specs(p2, mesh), mesh)
+    with packed_shard_mesh(mesh):
+        out["parity_logits"] = _mesh_parity_model(local, cfg2, prompts)
+    del eng, local, p2
+    # full depth, f32: the model API's prefill logits of the bucketed
+    # prompts (the bf16 runs below are held to one process by agreement)
+    cfg32 = get_config("granite-3-2b").scaled(dtype="float32", kv_cache_dtype="float32")
+    p32 = transformer.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev,
+                                  pack_bits=N_BITS)
+    local = elastic.reshard_tree(sharding.annotate_packed_specs(p32, mesh), mesh)
+    del p32
+    with packed_shard_mesh(mesh):
+        out["deep_f32_logits"] = _mesh_deep_logits(local, cfg32, dev)
+    del local
+    # full depth, bf16: every rank draws the same weights, keeps its blocks
+    cfg = get_config("granite-3-2b")
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                     pack_bits=N_BITS)
+    engine_cls = checked_engine_cls()
+    bucketed = engine_cls(params, cfg, max_len=MESH_MAX_LEN, mesh=mesh)
+    # one 128-token chunk per prompt: every chunk dispatch costs the mesh
+    # a model call's collectives
+    policy = SchedulerPolicy(n_slots=MESH_SLOTS, chunked_prefill=True,
+                             chunk_sizes=(MESH_CHUNK,),
+                             paged=True, block_size=BLOCK, n_blocks=MESH_BLOCKS,
+                             paged_kernel=True)
+    continuous = engine_cls(params, cfg, max_len=MESH_MAX_LEN, mesh=mesh, continuous=True,
+                            policy=policy)
+    spec = engine_cls(params, cfg, max_len=MESH_MAX_LEN, mesh=mesh, continuous=True,
+                      policy=dataclasses.replace(policy, spec_decode=True,
+                                                 draft_planes=DRAFT_PLANES, gamma=GAMMA))
+    del params
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    out["init_s"] = time.perf_counter() - t0
+    out["packed_bytes"] = (bucketed.packed_bytes_local, bucketed.packed_bytes_global)
+    wq = bucketed.params["blocks"]["p0"]["mixer"]["wq"]
+    out["wq_block"] = (wq.kn_spec, tuple(wq.planes.shape))
+    out["memory_allocated"] = torch.cuda.memory_allocated(dev)
+    # the warm-up (kernel loads, allocator) before the counted runs
+    bucketed.generate(_mesh_requests(cfg, 1, 16, 2, 90))
+    # the bucketed prompts' prefill logits (the first tokens), for the
+    # witness of the bf16 agreement
+    with packed_shard_mesh(mesh):
+        out["deep_bf16_logits"] = _mesh_deep_logits(bucketed.params, cfg, dev)
+    # the main path: counts from 0, the three runs, counts read after
+    _reset_launches()
+    mesh.collectives = 0
+    t0 = time.perf_counter()
+    b_res = bucketed.generate(_mesh_requests(cfg, *MESH_BUCKET, MESH_NEW, 0))
+    torch.cuda.synchronize(dev)
+    out["bucketed"] = {"wall_s": time.perf_counter() - t0,
+                       "ttft_ms": float(np.mean([r.prefill_ms for r in b_res])),
+                       "decode_ms_per_step": float(np.mean([r.decode_ms_per_tok
+                                                            for r in b_res])),
+                       "tokens": {r.uid: r.tokens.tolist() for r in b_res},
+                       "launches": _mesh_launches()}
+    rng = np.random.default_rng(7)
+    lens = [int(n) for n in rng.integers(32, 128, size=MESH_SLOTS)]
+    arrivals = [int(a) for a in np.floor(np.cumsum(rng.exponential(1.0, MESH_SLOTS)))]
+    for name, eng, n, new in (("continuous", continuous, 4, MESH_NEW),
+                              ("spec", spec, 1, 3)):
+        before = _mesh_launches()
+        t0 = time.perf_counter()
+        res = eng.generate(_mesh_requests(cfg, n, lens[:n], new, 20),
+                           arrival_steps=arrivals[:n])
+        torch.cuda.synchronize(dev)
+        sched, pool = eng.scheduler, eng.scheduler.pool
+        after = _mesh_launches()
+        out[name] = {"wall_s": time.perf_counter() - t0, "decode_steps": sched.decode_steps,
+                     "decode_ms_per_step": sched.decode_ms_total / max(sched.decode_steps, 1),
+                     "ttft_ms": sorted(r.prefill_ms for r in res),
+                     "tokens": {r.uid: r.tokens.tolist() for r in res},
+                     "drained": pool.allocator.free_count == pool.n_blocks,
+                     "table_shards": pool.table_shards,
+                     "pool_k_shape": tuple(pool.cache["blocks"]["p0"]["k"].shape),
+                     "launches": {k: after[k] - before[k] for k in after}}
+        if name == "spec":
+            out[name].update(rounds=sched.spec_rounds, accepted=sched.spec_accepted,
+                             drafted=sched.spec_drafted)
+    out["launches"] = _mesh_launches()
+    out["collectives"] = mesh.collectives
+    out["nonfinite"] = sum(int(e.bad.item()) for e in (bucketed, continuous, spec)
+                           if e.bad is not None)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["build_s"] = {n: _build.build_log.get(n, {}).get("seconds")
+                      for n in ("bitserial_matmul", "paged_attention", "flash_attention")}
+    unrecord()
+    out["bitserial_shapes"] = sorted(shapes, key=str)
+    return out
+
+
+def _mesh_flash_case(dev, card, time_ms, dt, BH, BHkv, S, d):
+    """The flash kernel against its plain version at a rank's prefill
+    shape, timed beside them and one SDPA call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    dname = str(dt).split(".")[-1]
+    q = torch.randn((BH, S, d), generator=gen, device=dev).to(dt)
+    k = torch.randn((BHkv, S, d), generator=gen, device=dev).to(dt)
+    v = torch.randn((BHkv, S, d), generator=gen, device=dev).to(dt)
+    got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    scale_ = want.float().abs().max().item()
+    check(bool(torch.isfinite(got).all()) and err <= PAGED_TOL[dname] * scale_,
+          f"[4k] flash at the rank's shape {dname}: max err {err} > {PAGED_TOL[dname]} x {scale_}")
+    b_ms, b_by, _ = flash_bound(BH, BHkv, S, d, None, True, dname)
+    row = {"case": "mesh-rank-prefill", "dtype": dname, "BH": BH, "BHkv": BHkv, "S": S, "d": d,
+           "max_abs_err": err, "ms": time_ms(lambda: ops.flash_attention(q, k, v)),
+           "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=3),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q[None], k[None], v[None], is_causal=True, enable_gqa=True)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"[4k] flash at a rank's prefill shape BH={BH}/{BHkv} S={S} d={d} {dname}: max_err "
+          f"{err:.3e} (max|plain| {scale_:.3e}), kernel {row['ms']:.4f} ms, bound "
+          f"{b_ms:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
+          f"[{card}]", flush=True)
+    return row
+
+
+def mesh_phase(dev, card, time_ms, median_ms):
+    """Phase 4k: serving on a 2x2 ("data", "model") mesh of 4 ranks on the
+    one card.  Paged and flash at a rank's shapes against their plain
+    versions; then the ranks (``launch.mesh.run_on_mesh``, backend gloo):
+    the 2-layer f32 parity model's greedy tokens and logits against the
+    same model in this process on the card, and full-depth bf16
+    granite-3-2b bucketed, continuous (paged kernel) and spec decode, each
+    rank's packed bytes, kernel launches, decode ms per step and TTFT; a
+    rank's failure fails the run.  Then bitserial against its plain
+    version at every shape the ranks gave it; last, full depth against
+    one process: f32 prefill logits, and in bf16 the prefill logits
+    beside the K-halves witness and the bucketed tokens (printed)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.serve import ServeEngine
+
+    d_ax, m_ax = MESH_SHAPE
+    world = d_ax * m_ax
+    print(f"[4k] a {d_ax}x{m_ax} (data, model) mesh: {world} ranks on cuda:0, backend gloo "
+          f"(NCCL refuses two ranks on one GPU, and this machine has one card; gloo takes "
+          f"the ranks' CUDA tensors for all_reduce and all_gather) [{card}]", flush=True)
+    rep = {"mesh": list(MESH_SHAPE), "backend": "gloo", "kernels_at_shard_shapes": {}}
+    cfg = get_config("granite-3-2b")
+    # paged and flash at the shapes a rank gives them (bitserial after the
+    # ranks, at every shape they gave it)
+    kv_l, G = cfg.n_kv_heads // m_ax, cfg.n_heads // cfg.n_kv_heads
+    rep["kernels_at_shard_shapes"]["paged"] = [
+        paged_case(dev, card, time_ms, median_ms, dt, None, KV=kv_l, G=G,
+                   d=cfg.resolved_head_dim, nb_lane=MESH_MAX_LEN // BLOCK,
+                   n_blocks=MESH_BLOCKS // d_ax, pos=[-1, 40, 200, 255])
+        for dt in (torch.float32, torch.bfloat16)]
+    B_l = MESH_BUCKET[0] // d_ax
+    rep["kernels_at_shard_shapes"]["flash"] = [
+        _mesh_flash_case(dev, card, time_ms, dt, B_l * kv_l * G, B_l * kv_l, MESH_BUCKET[1],
+                         cfg.resolved_head_dim) for dt in (torch.float32, torch.bfloat16)]
+    # the single-process twin of the ranks' parity model
+    cfg2, p2, reqs2, prompts = _mesh_parity_setup(dev)
+    want_tokens = {r.uid: r.tokens.tolist()
+                   for r in ServeEngine(p2, cfg2, max_len=64, device=dev).generate(reqs2)}
+    want_logits = _mesh_parity_model(p2, cfg2, prompts)
+    del p2
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_on_mesh(mesh_rank, d_ax, m_ax, backend="gloo", device=dev)
+    rep["ranks_wall_s"] = time.perf_counter() - t0
+    # the bitserial kernel against its plain version at every (M, K, N,
+    # dtype, groups) the ranks gave it, and at least at a rank's four
+    # blocks (q, o 1024 x 1024; k, v 1024 x 256; gate, up 1024 x 4096;
+    # down 4096 x 1024) for bucketed decode (M 4) and prefill (M 512),
+    # continuous decode (M 8) and its chunk dispatches (8 lanes x 128
+    # rows, M 1024), in bf16, and M 4 and 512 in f32; timed at M 4 and
+    # 512 in bf16
+    D, F_, KVD = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.resolved_head_dim
+    shard = [(D // d_ax, D // m_ax), (D // d_ax, KVD // m_ax), (D // d_ax, F_ // m_ax),
+             (F_ // m_ax, D // d_ax)]
+    prefill_m = MESH_BUCKET[0] * MESH_BUCKET[1]
+    seen = {tuple(x) for r in ranks for x in r.pop("bitserial_shapes")}
+    wanted = {(M, K, N, dt, None) for K, N in shard
+              for M, dt in ((MESH_BUCKET[0], "bfloat16"), (prefill_m, "bfloat16"),
+                            (MESH_SLOTS, "bfloat16"), (MESH_SLOTS * MESH_CHUNK, "bfloat16"),
+                            (MESH_BUCKET[0], "float32"), (prefill_m, "float32"))}
+    check(wanted - seen == set(), f"[4k] the ranks never gave the kernel {wanted - seen}")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = [bitserial_case(dev, gen, card, time_ms, M, K, N, g, getattr(torch, dt),
+                           timed=dt == "bfloat16" and M in (MESH_BUCKET[0], prefill_m))
+            for M, K, N, dt, g in sorted(seen | wanted, key=str)]
+    rep["kernels_at_shard_shapes"]["bitserial"] = rows
+    worst = max(rows, key=lambda r: r["max_abs_err"] / max(r["max_abs_plain"], 1e-30))
+    print(f"[4k] bitserial against its plain version at {len(rows)} (M, K, N, dtype, groups) "
+          f"of the ranks' blocks, M {sorted({r['M'] for r in rows})}: every one within "
+          f"tolerance, active=a bitwise truncate_packed; the worst relative error "
+          f"{worst['max_abs_err'] / worst['max_abs_plain']:.3e} at M {worst['M']} K "
+          f"{worst['K']} N {worst['N']} {worst['dtype']} ({worst['path']}) [{card}]", flush=True)
+    lmax = want_logits.abs().max().item()
+    logits0 = ranks[0]["parity_logits"]
+    for r in ranks:
+        tag = f"[4k] rank {r['rank']}"
+        check(all(s == 0.0 for s in r["build_s"].values()),
+              f"{tag} built a kernel library ({r['build_s']}): the parent builds each once")
+        check(r["parity_tokens"] == want_tokens,
+              f"{tag}: f32 tokens {r['parity_tokens']} != one process's {want_tokens}")
+        err = (r["parity_logits"] - want_logits).abs().max().item()
+        check(err <= TOL["float32"] * lmax, f"{tag}: f32 logits differ by {err} (max {lmax})")
+        check(torch.equal(r["parity_logits"], logits0),
+              f"{tag}: logits differ from rank 0's")
+        r["parity_max_abs_dlogit"] = err
+        del r["parity_logits"]
+        local, whole = r["packed_bytes"]
+        check(0.25 <= local / whole < 0.26, f"{tag}: holds {local} of {whole} packed bytes")
+        for k, n in r["launches"].items():
+            check(n > 0, f"{tag}: no {k} launch on the main path ({r['launches']})")
+        for run in ("continuous", "spec"):
+            check(r[run]["drained"] and r[run]["table_shards"] == d_ax,
+                  f"{tag} {run}: pool not drained or table_shards {r[run]['table_shards']}")
+        check(r["nonfinite"] == 0, f"{tag}: {r['nonfinite']} non-finite logits")
+        for run in ("bucketed", "continuous", "spec"):
+            check(r[run]["tokens"] == ranks[0][run]["tokens"], f"{tag} {run}: tokens differ")
+        print(f"{tag}: f32 parity tokens == one process, max|dlogit| {err:.3e} (max|logit| "
+              f"{lmax:.3e}); packed {local / 1e6:.1f} of {whole / 1e6:.1f} MB "
+              f"({local / whole:.4f}); wq block {r['wq_block']}; init {r['init_s']:.1f} s; "
+              f"launches {r['launches']}; {r['collectives']} collectives; peak "
+              f"{r['peak_bytes'] / 1e9:.2f} GB [{card}]", flush=True)
+    r0 = ranks[0]
+    print(f"[4k] gloo on CUDA tensors: {r0['gloo_cuda']} [{card}]", flush=True)
+    b, c, s = r0["bucketed"], r0["continuous"], r0["spec"]
+    print(f"[4k] 40-layer granite-3-2b bf16 6-bit on the 2x2 mesh: bucketed {MESH_BUCKET[0]} x "
+          f"{MESH_BUCKET[1]} tokens: TTFT {b['ttft_ms']:.1f} ms, decode "
+          f"{b['decode_ms_per_step']:.2f} ms per step; continuous (paged kernel, {MESH_SLOTS} "
+          f"lanes): decode {c['decode_ms_per_step']:.2f} ms per step over {c['decode_steps']} "
+          f"steps, TTFT p50 {np.percentile(c['ttft_ms'], 50):.1f} ms p90 "
+          f"{np.percentile(c['ttft_ms'], 90):.1f} ms; spec: {s['rounds']} rounds, "
+          f"{s['accepted']}/{s['drafted']} drafts accepted; ranks' wall "
+          f"{rep['ranks_wall_s']:.1f} s (bucketed {b['wall_s']:.1f}, continuous "
+          f"{c['wall_s']:.1f}, spec {s['wall_s']:.1f}) [{card}]", flush=True)
+    # full depth in one process: f32 prefill logits (printed beside the
+    # 1e-4 of the 2-layer check)
+    from repro_torch.models import transformer
+
+    cfg32 = cfg.scaled(dtype="float32", kv_cache_dtype="float32")
+    p32 = transformer.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev,
+                                  pack_bits=N_BITS)
+    want32 = _mesh_deep_logits(p32, cfg32, dev)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    m32 = want32.abs().max().item()
+    d32 = max((r["deep_f32_logits"] - want32).abs().max().item() for r in ranks)
+    same32 = float((r0["deep_f32_logits"].argmax(-1) == want32.argmax(-1)).float().mean())
+    check(all(bool(torch.isfinite(r["deep_f32_logits"]).all()) for r in ranks),
+          "[4k] non-finite 40-layer f32 logits")
+    for r in ranks:
+        del r["deep_f32_logits"]
+    rep["deep_f32"] = {"max_abs_dlogit": d32, "max_abs_logit": m32,
+                       "first_token_agreement": same32}
+    print(f"[4k] 40-layer f32 prefill logits, mesh against one process: max|dlogit| "
+          f"{d32:.3e} of max|logit| {m32:.3e} ({d32 / m32:.3e}), first tokens agree "
+          f"{100 * same32:.0f} % "
+          f"[{card}]", flush=True)
+
+    # bf16 at full depth: the ranks' prefill logits (the first tokens)
+    # against one process's, plain and computing as the ranks do (K halves
+    # rounded to bf16 and added in f32, _k_halves_logits); the top-2 gap of one
+    # process's logits says how far a change may move them before an
+    # argmax flips
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                     pack_bits=N_BITS)
+    plain16 = _mesh_deep_logits(params, cfg, dev).float()
+    halves16 = _k_halves_logits(params, cfg, dev).float()
+    one = ServeEngine(params, cfg, max_len=MESH_MAX_LEN, device=dev)
+    del params
+    one_toks = {r.uid: r.tokens.tolist()
+                for r in one.generate(_mesh_requests(cfg, *MESH_BUCKET, MESH_NEW, 0))}
+    mesh16 = [r.pop("deep_bf16_logits").float() for r in ranks]
+    check(all(torch.equal(m, mesh16[0]) for m in mesh16), "[4k] ranks' bf16 logits differ")
+    check(bool(torch.isfinite(mesh16[0]).all() and torch.isfinite(halves16).all()),
+          "[4k] non-finite 40-layer bf16 logits")
+    top2 = plain16.topk(2, dim=-1).values
+    gap = float((top2[..., 0] - top2[..., 1]).median())
+
+    def versus(x, y):
+        return {"max_abs_dlogit": (x - y).abs().max().item(),
+                "first_token_agreement": float((x.argmax(-1) == y.argmax(-1)).float().mean())}
+
+    witness = {"mesh_vs_one": versus(mesh16[0], plain16),
+               "halves_vs_one": versus(halves16, plain16),
+               "mesh_vs_halves": versus(mesh16[0], halves16),
+               "max_abs_logit": plain16.abs().max().item(), "median_top2_gap": gap}
+    print(f"[4k] 40-layer bf16 prefill logits (max|logit| {witness['max_abs_logit']:.3e}, "
+          f"median top-2 gap {gap:.3e}): " + "; ".join(
+              f"{k.replace('_vs_', ' against ')} max|dlogit| {v['max_abs_dlogit']:.3e}, first "
+              f"tokens agree {100 * v['first_token_agreement']:.0f} %"
+              for k, v in witness.items() if isinstance(v, dict)) + f" [{card}]", flush=True)
+
+    def agreement(x, y):
+        return (float(np.mean([a == c_ for u in x for a, c_ in zip(x[u], y[u])])),
+                float(np.mean([x[u][0] == y[u][0] for u in x])))
+
+    agree, first = agreement(one_toks, b["tokens"])
+    print(f"[4k] bf16 40-layer bucketed tokens: mesh against one process {100 * agree:.1f} % "
+          f"of positions agree (first tokens {100 * first:.0f} %) [{card}]", flush=True)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep.update(ranks=ranks, bf16_token_agreement=agree, bf16_first_token_agreement=first,
+               bf16_prefill_witness=witness,
+               launches={k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]})
+    return rep
+
+
 def kernel_entries(report, max_err):
     """The {"kernels": [...]} entries: each kernel's time at its main
     path's shapes (phases 2-2d) beside its bound, its plain version and
@@ -5061,6 +5626,37 @@ def kernel_entries(report, max_err):
                         f"library_ms_{tag}": fr["library_ms"], f"plain_ms_{tag}": fr["plain_ms"]})
     f_entry["launches_llama_vision"] = api_launches(lv, 2)
     f_entry["launches_musicgen"] = api_launches(mg, 2) + mg["bucketed"]["flash_launches"]
+    # the mesh phase (4k): launches summed over its 4 ranks; the kernels at
+    # a rank's per-shard shapes (one granite-3-2b layer's 7 projections at
+    # M 4, bf16: q and o 1024 x 1024, k and v 1024 x 256, gate and up 1024
+    # x 4096, down 4096 x 1024; paged over 4 lanes x 4 K/V heads; flash
+    # over 2 lanes x 4 K/V heads of 4 queries, 128 tokens)
+    mesh = report["mesh"]
+    ml = mesh["launches"]
+    shard_rows = {(r["M"], r["K"], r["N"], r["dtype"]): r
+                  for r in mesh["kernels_at_shard_shapes"]["bitserial"] if "ms" in r}
+    D, F_, KV = 2048, 8192, 512
+    layer = [(D // 2, D // 2), (D // 2, KV // 2), (D // 2, KV // 2), (D // 2, D // 2),
+             (D // 2, F_ // 2), (D // 2, F_ // 2), (F_ // 2, D // 2)]
+    for key in ("ms", "bound_ms", "library_ms", "plain_ms"):
+        for M in (MESH_BUCKET[0], MESH_BUCKET[0] * MESH_BUCKET[1]):
+            entry[f"{key}_mesh_rank_layer_M{M}"] = sum(
+                shard_rows[(M,) + kn + ("bfloat16",)][key] for kn in layer)
+    entry["mesh_shapes_held_to_plain"] = len(mesh["kernels_at_shard_shapes"]["bitserial"])
+    entry["launches_mesh"] = ml["bitserial_matmul"]
+    entry["work_mesh"] = ("one rank's block of a granite-3-2b layer on the 2x2 mesh: its 7 "
+                          "projections at M 4 (decode) and M 512 (bucketed prefill), bf16 (q, o "
+                          "1024 x 1024; k, v 1024 x 256; gate, up 1024 x 4096; down 4096 x "
+                          "1024)")
+    d_entry["launches_mesh"] = ml["bitserial_active"]
+    mp = next(r for r in mesh["kernels_at_shard_shapes"]["paged"] if r["dtype"] == "bfloat16")
+    mf = next(r for r in mesh["kernels_at_shard_shapes"]["flash"] if r["dtype"] == "bfloat16")
+    p_entry.update({"launches_mesh": ml["paged_attention"], "ms_mesh_rank": mp["ms"],
+                    "bound_ms_mesh_rank": mp["bound_ms"], "library_ms_mesh_rank": mp["library_ms"],
+                    "plain_ms_mesh_rank": mp["plain_ms"]})
+    f_entry.update({"launches_mesh": ml["flash_attention"], "ms_mesh_rank": mf["ms"],
+                    "bound_ms_mesh_rank": mf["bound_ms"], "library_ms_mesh_rank": mf["library_ms"],
+                    "plain_ms_mesh_rank": mf["plain_ms"]})
     return [entry, d_entry, pre_entry, p_entry, b_entry, bb_entry, f_entry]
 
 
@@ -5107,7 +5703,9 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def phase_done(name):
-        print(f"[time] phase {name} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        at = time.perf_counter() - t_start
+        report.setdefault("phase_done_s", {})[name] = at
+        print(f"[time] phase {name} done at {at:.1f} s", flush=True)
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
@@ -5131,7 +5729,8 @@ def main() -> int:
           flush=True)
 
     # ---------------------------------------------------- 2, 2b, 2c, 2d
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    # > the 50 MB L2; freed after phase 2d, allocated again for 4k's kernel rows
+    flush = [torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)]
 
     def time_ms(fn, iters=10, spin=500_000):
         """Median device time of fn with the L2 flushed before each call.
@@ -5146,7 +5745,7 @@ def main() -> int:
         fn()
         times = []
         for _ in range(iters):
-            flush.zero_()
+            flush[0].zero_()
             torch.cuda._sleep(spin)
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
@@ -5174,7 +5773,7 @@ def main() -> int:
     if want("2d"):
         report["flash"] = flash_kernel_phase(dev, card, time_ms)
         phase_done("2d")
-    del flush
+    flush.clear()
 
     # ---------------------------------------------------------- 3, 3b-3h
     if want("3"):
@@ -5249,6 +5848,11 @@ def main() -> int:
     if want("4j"):
         report["musicgen"] = frontend_slice(dev, card, CheckedEngine, AUDIO)
         phase_done("4j")
+    if want("4k"):
+        flush.append(torch.empty(256 * 2**20, dtype=torch.uint8, device=dev))
+        report["mesh"] = mesh_phase(dev, card, time_ms, median_ms)
+        flush.clear()
+        phase_done("4k")
 
     # ---------------------------------------------------------------- 6
     if want("6"):
@@ -5278,6 +5882,8 @@ def main() -> int:
     # ---------------------------------------------------------------- 7
     report["kernels"] = kernel_entries(report, max_err)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print("[time] phases done at (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in report["phase_done_s"].items()), flush=True)
     print(json.dumps({"kernels": report["kernels"]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

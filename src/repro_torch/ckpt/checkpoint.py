@@ -18,7 +18,7 @@ leaf into the template's tensor when shape and dtype match, so a resumed
 run holds one copy of its state, not the fresh one and the restored one
 (32 GB each for 2-layer full-width granite-3-2b); any other leaf is put
 on the device of the template's leaf.  The mesh-sharded placement comes
-with the mesh slice.
+with the training mesh slice.
 """
 from __future__ import annotations
 

@@ -14,7 +14,7 @@ Usage pattern (what ``train/step.py`` does)::
 
 ``reps`` is a flat dict name -> BitRep; names are the "/"-joined tree
 paths of the JAX package, in its flatten order (sorted dict keys).
-The mesh-sharded export comes with the mesh slice of the port.
+On a mesh, :func:`export_packed_sharded` packs only this rank's slice.
 """
 from __future__ import annotations
 
@@ -205,4 +205,40 @@ def export_packed(reps: Dict[str, BitRep]) -> Dict[str, packing.PackedWeight]:
     for name, r in reps.items():
         q_shift, n_bits, scale = _export_codes(r)
         out[name] = _pack_grouped(q_shift, scale, n_bits)
+    return out
+
+
+def export_packed_sharded(reps: Dict[str, BitRep], mesh) -> Dict[str, packing.PackedWeight]:
+    """Shard-aware packed export: this rank packs only its own slice of
+    each rep's integer codes.
+
+    The layouts come from the dist rules (``dist.sharding.param_spec`` on
+    the ``.../sign`` and ``.../scale`` leaf names).  The ``[lsb, msb]``
+    window is global per tensor and packing is elementwise along
+    byte-aligned K rows, so slice-then-pack equals pack-then-slice: each
+    rank's planes, sign and scale are the block of :func:`export_packed`'s
+    that the rules give it (a scale row the N shards do not divide is
+    held per column, ``dist.elastic.local_scale``).  Returns this rank's
+    PackedWeights, the whole tensor's ``k`` and ``kn_spec`` set."""
+    from ..dist.elastic import local_scale
+    from ..dist.sharding import local_block, param_spec
+
+    out = {}
+    for name, r in reps.items():
+        q_shift, n_bits, scale = _export_codes(r)
+        lead = tuple(q_shift.shape[:-2])
+        K, N = q_shift.shape[-2:]
+        qp = torch.nn.functional.pad(q_shift, (0, 0, 0, (-K) % 8))
+        K8 = qp.shape[-2] // 8
+        scale = scale.expand(lead + tuple(scale.shape[-2:])).contiguous()
+        s_spec = tuple(param_spec(f"{name}/sign", lead + (K8, N), mesh))
+        s_spec += (None,) * (len(lead) + 2 - len(s_spec))
+        k_ax, n_ax = s_spec[-2], s_spec[-1]
+        # the codes of this rank's byte rows (K8 blocks of 8 rows) and columns
+        q_local = local_block(qp, s_spec, mesh)
+        local = _pack_grouped(q_local, torch.ones(lead + (1, 1)), n_bits)
+        sc = local_scale(scale, param_spec(f"{name}/scale", tuple(scale.shape), mesh), n_ax, N,
+                         mesh)
+        out[name] = packing.PackedWeight(planes=local.planes, sign=local.sign, scale=sc,
+                                         n_bits=n_bits, k=K, kn_spec=(k_ax, n_ax))
     return out

@@ -36,6 +36,12 @@ class PackedWeight:
     # the ORIGINAL denominator and folds the dropped planes' shift into
     # the scale as a power of two (see truncate_packed).
     denom_bits: Optional[int] = None
+    # The mesh axes of the trailing (K, N) axes, e.g. ("data", "model")
+    # for a col-parallel weight; None = unsharded.  Set by
+    # dist.sharding.annotate_packed_specs (or export_packed_sharded); on a
+    # mesh the fields then hold this rank's block while ``k`` stays the
+    # whole weight's, and kernels.ops.bitserial_matmul_sharded reads it.
+    kn_spec: Optional[Tuple] = None
 
     @property
     def eff_denom_bits(self) -> int:
@@ -48,6 +54,22 @@ class PackedWeight:
         return dataclasses.replace(
             self, planes=self.planes.to(device), sign=self.sign.to(device),
             scale=self.scale.to(device))
+
+
+@dataclasses.dataclass
+class FloatBlock:
+    """A float matrix's block on a mesh: ``w`` is this rank's (..., K/dk,
+    N/dn) slice of the whole weight, ``kn_spec`` the mesh axes of its
+    trailing (K, N) axes (``dist.sharding.param_spec``'s last two
+    entries).  ``models.common.dense_apply`` stitches it as it stitches
+    a PackedWeight, with a local ``torch.matmul``.  Made by
+    ``dist.elastic.reshard_tree``."""
+
+    w: torch.Tensor
+    kn_spec: Tuple
+
+    def to(self, device) -> "FloatBlock":
+        return dataclasses.replace(self, w=self.w.to(device))
 
 
 def tree_leaves(tree) -> list:
@@ -214,6 +236,7 @@ def stack_packed(packs: List[PackedWeight], lead: Tuple[int, ...]) -> PackedWeig
         scale=torch.stack([p.scale for p in packs]).reshape(lead + (1, 1)),
         n_bits=p0.n_bits,
         k=p0.k,
+        kn_spec=p0.kn_spec,
     )
 
 
@@ -251,8 +274,11 @@ def serving_cast(name: str, leaf, dtype: torch.dtype):
     """``leaf`` as serving holds it: a float matrix named in
     :data:`SERVED_IN_COMPUTE_DTYPE` cast to ``dtype``, anything else (a
     PackedWeight, a norm scale, the router) unchanged."""
-    if isinstance(leaf, torch.Tensor) and name.rsplit("/", 1)[-1] in SERVED_IN_COMPUTE_DTYPE:
+    served = name.rsplit("/", 1)[-1] in SERVED_IN_COMPUTE_DTYPE
+    if isinstance(leaf, torch.Tensor) and served:
         return leaf.to(dtype)
+    if isinstance(leaf, FloatBlock) and served:
+        return dataclasses.replace(leaf, w=leaf.w.to(dtype))
     return leaf
 
 

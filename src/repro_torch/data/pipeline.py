@@ -4,7 +4,7 @@ PyTorch port of ``repro.data.pipeline``.
 Each host produces only its slice of the global batch (``host_slice``)
 and a background thread prefetches batches so the device never waits on
 host-side sampling.  The port runs one process; placing batches on a
-device mesh comes with the mesh slice and raises until then.
+device mesh comes with the training mesh slice and raises until then.
 """
 from __future__ import annotations
 
@@ -95,7 +95,8 @@ def sharded_lm_iterator(
     stream, so both frameworks see the same tokens.
     """
     if sharding is not None:
-        raise NotImplementedError("mesh-sharded batches come with the mesh slice of the port")
+        raise NotImplementedError("mesh-sharded batches come with the training mesh slice of "
+                                  "the port (ROADMAP item 9b)")
     pi, pc = 0, 1
     sl = host_slice(global_batch, pi, pc)
     local = sl.stop - sl.start

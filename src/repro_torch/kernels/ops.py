@@ -5,7 +5,8 @@ The choice follows the device of the first tensor alone: no switch,
 and no fallback when a kernel fails (it raises).  Ported from
 ``repro.kernels.ops``: the bitserial matmul (static and with a runtime
 plane count), paged attention, the bit-group sum of squares and flash
-attention; the mesh-sharded entry comes with the mesh slice.
+attention, and on a ("data", "model") mesh the bitserial matmul over this
+rank's block of the packed bytes (:func:`bitserial_matmul_sharded`).
 
 On the ``meta`` device (the dry run, ``roofline.analysis``) an entry
 returns an empty output of its kernel's shape and dtype and reports the
@@ -14,6 +15,8 @@ formulas of ``chip_smoke.py``; paged attention, whose work depends on
 positions a meta tensor lacks, raises there.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -63,6 +66,99 @@ def bitserial_matmul(x: torch.Tensor, pw: PackedWeight, active_planes=None) -> t
             x2, pw.planes, pw.sign, pw.scale, pw.n_bits,
             denom_bits=pw.denom_bits, active_planes=active_planes)
     return out.reshape(*lead, -1)
+
+
+def stitch(y: torch.Tensor, mesh, k_ax, n_ax) -> torch.Tensor:
+    """The whole ``x @ W`` from this rank's partial product ``y`` (..., N/dn)
+    over its K block: summed over the K axis's ranks (one ``all_reduce``,
+    whose result is the same bits on every rank), then gathered over the
+    N axis's ranks."""
+    if k_ax is not None:
+        y = mesh.all_reduce(y, k_ax)
+    if n_ax is not None:
+        y = mesh.all_gather(y, n_ax, dim=-1)
+    return y
+
+
+def k_slice(x: torch.Tensor, mesh, k_ax, k_local: int) -> torch.Tensor:
+    """The K columns of a whole ``x`` (..., K) that line up with this
+    rank's K block of a weight."""
+    if k_ax is None:
+        return x
+    from ..dist.sharding import axis_index
+
+    lo = axis_index(mesh, k_ax) * k_local
+    return x[..., lo:lo + k_local]
+
+
+def local_product(x: torch.Tensor, w, mesh, active_planes=None,
+                  k_local: bool = False) -> torch.Tensor:
+    """This rank's partial product of ``x`` by its block of ``w`` (a
+    PackedWeight with a ``kn_spec``, or a FloatBlock), no collective:
+    the bitserial kernel on the local planes, sign and scale, or a local
+    ``torch.matmul``.  ``x`` is whole on every rank and its K slice is
+    taken here, or with ``k_local`` already this rank's K block."""
+    k_ax = w.kn_spec[0]
+    if isinstance(w, PackedWeight):
+        K = w.sign.shape[-2] * 8
+        xk = x if k_local else k_slice(x, mesh, k_ax, K)
+        return bitserial_matmul(xk, dataclasses.replace(w, k=K, kn_spec=None), active_planes)
+    xk = x if k_local else k_slice(x, mesh, k_ax, w.w.shape[-2])
+    return xk @ w.w.to(x.dtype)
+
+
+def _warn_unsharded(pw: PackedWeight) -> None:
+    import warnings
+
+    warnings.warn(
+        f"bitserial_matmul_sharded: falling back to the unsharded packed matmul "
+        f"(kn_spec={pw.kn_spec}, sign shape {tuple(pw.sign.shape)}, scale shape "
+        f"{tuple(pw.scale.shape)}, k={pw.k}): local shard blocks are ill-defined "
+        "(indivisible K8/N/scale groups or padded K); packed bytes will be gathered at "
+        "the kernel call", stacklevel=3)
+
+
+def shardable(pw: PackedWeight, mesh) -> bool:
+    """Whether this rank's block of ``pw`` is a well-defined packed weight:
+    its K rows carry no padding that would straddle the K shards."""
+    from ..dist.sharding import axis_size
+
+    k_ax = pw.kn_spec[0] if pw.kn_spec is not None else None
+    return pw.k == pw.sign.shape[-2] * axis_size(mesh, k_ax) * 8
+
+
+def bitserial_matmul_sharded(x: torch.Tensor, pw: PackedWeight, mesh, active_planes=None,
+                             k_local: bool = False) -> torch.Tensor:
+    """x (..., K), whole on every rank, @ a packed weight of which this rank
+    holds the block ``pw.kn_spec`` names: the bitserial kernel (the plain
+    version on the CPU) runs on the LOCAL planes, sign and scale against
+    the K slice of ``x`` that lines up with them, the partial products
+    are summed over the K axis's ranks and the output gathered over the
+    N axis's ranks (:func:`local_product`, :func:`stitch`), so every rank returns the whole
+    (..., N).  ``active_planes`` is the same count on every rank; each
+    masks the same planes of its local bytes.  ``k_local``: ``x`` is
+    already this rank's K block (the N block of an earlier product).
+
+    A block that is ill-defined (padded K, whose pad rows would straddle
+    the K shards) warns, as JAX's GSPMD fallback does, and the bytes are
+    gathered here before the unsharded kernel call.  ``pw.k`` is the
+    whole weight's unpadded K; a scale row on a mesh always describes the
+    local columns (``dist.elastic.reshard_tree``)."""
+    k_ax, n_ax = pw.kn_spec if pw.kn_spec is not None else (None, None)
+    if k_ax is None and n_ax is None:
+        return bitserial_matmul(x, pw, active_planes)
+    if not shardable(pw, mesh):
+        if k_local:
+            raise ValueError("a padded-K packed weight has no local block to run on")
+        _warn_unsharded(pw)
+        s = pw.scale
+        whole = PackedWeight(
+            planes=mesh.gather_block(pw.planes, (None, k_ax, n_ax)),
+            sign=mesh.gather_block(pw.sign, (k_ax, n_ax)),
+            scale=mesh.gather_block(s, (None, n_ax)) if s.ndim == 2 and s.shape[-1] > 1 else s,
+            n_bits=pw.n_bits, k=pw.k, denom_bits=pw.denom_bits)
+        return bitserial_matmul(x, whole, active_planes)
+    return stitch(local_product(x, pw, mesh, active_planes, k_local), mesh, k_ax, n_ax)
 
 
 def _bitserial_meta(x2: torch.Tensor, pw: PackedWeight, active_planes) -> torch.Tensor:

@@ -12,6 +12,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous --paged \
         --packed-bits 6 --precision-tier mixed --economy-planes 3 --degrade \
         --requests 12 --slots 4 --smoke [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --data-parallel 2 \
+        --model-parallel 2 --packed-bits 6 --dist-backend gloo [--device cpu]
 
 The bucketed, continuous, chunked and paged paths of
 ``repro.launch.serve``, with the same flags and print lines (the
@@ -25,14 +27,21 @@ preemption), ``--tier`` (SLO classes), ``--spec-decode`` /
 JAX launcher does (``--arch qwen2-moe-a2.7b`` and
 ``--arch phi3.5-moe-42b-a6.6b`` serve their MoE layers; with
 ``--spec-decode`` they are refused, as in JAX), and runs on the card
-unless ``--device cpu`` is given.  The mesh flags (``--data-parallel``, ``--model-parallel``) exit
-with a one-line "not yet ported" message.
+unless ``--device cpu`` is given.
+
+``--data-parallel N --model-parallel M`` (given together, as in JAX)
+serve on an N x M ("data", "model") mesh: the launcher starts the N*M
+ranks itself (``launch.mesh.run_on_mesh``), each holding its block of
+every weight and of the KV pool, and rank 0 prints.  ``--dist-backend``
+picks the ``torch.distributed`` backend: ``nccl`` (one card per rank, the
+default on the card), ``gloo`` (the CPU, the default with ``--device
+cpu``; on the card, several ranks sharing one card).
 """
 import argparse
+import contextlib
+import io
 
 import numpy as np
-
-_UNPORTED_VALUES = ("--data-parallel", "--model-parallel")
 
 
 def poisson_arrivals(n: int, rate: float, seed: int = 0):
@@ -132,12 +141,17 @@ def main(argv=None):
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="simulate Poisson arrivals at this mean rate per decode step "
                          "(continuous mode; 0 = all requests at step 0)")
-    for flag in _UNPORTED_VALUES:
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--data-parallel", type=int, default=0,
+                    help="mesh 'data' axis size (with --model-parallel)")
+    ap.add_argument("--model-parallel", type=int, default=0,
+                    help="mesh 'model' axis size (with --data-parallel)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="torch.distributed backend of the mesh ranks (default: gloo with "
+                         "--device cpu, else nccl, which needs one card per rank)")
     args = ap.parse_args(argv)
-    for flag in _UNPORTED_VALUES:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise SystemExit(f"{flag} is not yet ported to repro_torch")
+    if bool(args.data_parallel) != bool(args.model_parallel):
+        raise SystemExit("--data-parallel and --model-parallel must be given together "
+                         "(use 1 for an unsharded axis)")
     if args.chunked_prefill and not args.continuous:
         raise SystemExit("--chunked-prefill requires --continuous")
     if args.paged and not args.continuous:
@@ -176,17 +190,46 @@ def main(argv=None):
                              f"{args.draft_planes} (the verify must add information over "
                              "the draft)")
 
+    from ..device import resolve_device
+
+    device = resolve_device(args.device)
+    if not args.data_parallel:
+        return _serve(args, device, None, econ_planes, tiered)
+    from ..dist.elastic import validate_batch_divisibility
+    from .mesh import AbstractMesh, run_on_mesh
+
+    shape = {"data": args.data_parallel, "model": args.model_parallel}
+    backend = args.dist_backend or ("gloo" if device.type == "cpu" else "nccl")
+    print(f"[mesh] data={args.data_parallel} model={args.model_parallel}: "
+          f"{args.data_parallel * args.model_parallel} ranks on {device}, backend {backend}")
+    # advisory only: a bucket the data axis does not divide runs with its
+    # batch axis replicated
+    if not validate_batch_divisibility(args.requests, AbstractMesh(shape)):
+        print(f"[serve] note: --requests {args.requests} does not divide over the data axis "
+              f"({shape}); buckets will run with a replicated batch axis")
+    results = run_on_mesh(_serve_rank, args.data_parallel, args.model_parallel,
+                          backend=backend, device=device, args=(args, econ_planes, tiered))
+    return results[0]
+
+
+def _serve_rank(mesh, args, econ_planes, tiered):
+    """One mesh rank of :func:`main`: rank 0 prints, the others serve
+    quietly."""
+    quiet = contextlib.redirect_stdout(io.StringIO()) if mesh.rank else contextlib.nullcontext()
+    with quiet:
+        return _serve(args, mesh.device, mesh, econ_planes, tiered)
+
+
+def _serve(args, device, mesh, econ_planes, tiered):
     import torch
 
     from ..configs import reduced_config
     from ..core.packing import packed_leaves
     from ..data import MarkovLM
-    from ..device import resolve_device
     from ..models import init_params
     from ..obs import Observability, get_registry
     from ..serve import Request, ServeEngine
 
-    device = resolve_device(args.device)
     cfg = reduced_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device, pack_bits=args.packed_bits or None)
@@ -194,9 +237,10 @@ def main(argv=None):
         packed_bytes = sum(pw.hbm_bytes() for pw in packed_leaves(params))
         print(f"[serve] packed weights at {args.packed_bits}b: "
               f"{packed_bytes / 1e6:.2f} MB global")
+    lead = mesh is None or mesh.rank == 0  # the rank that serves metrics and writes traces
     obs = Observability(registry=get_registry(), flight_capacity=args.flight_recorder)
     server = None
-    if args.metrics_port is not None:
+    if args.metrics_port is not None and lead:
         from ..obs.export import start_metrics_server
 
         server = start_metrics_server(obs.registry, port=args.metrics_port)
@@ -211,7 +255,12 @@ def main(argv=None):
                          precision_tiers=({"economy": econ_planes}
                                           if args.precision_tier != "full" else None),
                          degrade=args.degrade, degrade_queue_depth=args.degrade_queue_depth,
-                         degrade_hysteresis=args.degrade_hysteresis, obs=obs)
+                         degrade_hysteresis=args.degrade_hysteresis, obs=obs, mesh=mesh)
+    del params
+    if mesh is not None and args.packed_bits:
+        print(f"[mesh] rank {mesh.rank}: packed weights {engine.packed_bytes_local / 1e6:.2f} "
+              f"MB of {engine.packed_bytes_global / 1e6:.2f} MB global "
+              f"({engine.packed_bytes_local / engine.packed_bytes_global:.3f})")
     task = MarkovLM(vocab=cfg.vocab_size, seed=3)
     if args.mixed_lens:
         lens = [max(2, args.prompt_len * m // 2) for m in (1, 2, 3, 4)]
@@ -285,6 +334,8 @@ def main(argv=None):
                       f"drafted={sched.spec_drafted} accepted={sched.spec_accepted} "
                       f"committed={sched.spec_committed} "
                       f"accept_rate={sched.spec_accept_rate():.2f}")
+    if not lead:
+        return results
     if args.trace_out:
         n = obs.recorder.dump_jsonl(args.trace_out)
         print(f"[obs] {n} request traces -> {args.trace_out}")

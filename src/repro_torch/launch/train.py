@@ -13,7 +13,7 @@ per quantised parameter (planes, their gradients, SGD momentum), so
 ``--full`` granite-3-2b (about 2.5e9 quantised parameters) needs some
 550 GB and does not fit one 80 GB card: it fails as PyTorch fails when
 the card is out of memory.  ``--data-parallel``/``--model-parallel``
-(a device mesh) come with the mesh slice of the port.
+(a device mesh) come with the training mesh slice of the port.
 
 :func:`run` is the body: it takes the ModelConfig to train, so a caller
 can train a depth-cut config of the same width.
@@ -66,8 +66,9 @@ def run(cfg, args, log_interval: int = 10):
     from ..train.trainer import TrainerConfig, simple_train_loop, train_bsq
 
     if args.data_parallel or args.model_parallel:
-        raise NotImplementedError("--data-parallel/--model-parallel (a device mesh) come "
-                                  "with the mesh slice of the port")
+        raise NotImplementedError("--data-parallel/--model-parallel (training on a device "
+                                  "mesh) come with the training mesh slice of the port "
+                                  "(ROADMAP item 9b); serving runs on a mesh already")
     device = resolve_device(args.device)
     opt = SGDM() if args.optimizer == "sgdm" else AdamW()
     lr_fn = step_decay(args.lr, [int(args.steps * 0.7), int(args.steps * 0.9)])

@@ -27,9 +27,24 @@ kernel on the card, its plain version on the CPU.  This is a choice
 beyond the JAX package, whose prefill never calls its flash kernel; the
 two agree within the kernel's tolerance (the JAX tests pin the kernel
 to this function).  Training keeps the plain q-chunked path: the kernel
-has no backward.  The sharded paged path comes with a later slice of the
-port.  Cross-attention (:func:`cross_attention`) stays plain PyTorch, as
-JAX's does.
+has no backward.  Cross-attention (:func:`cross_attention`) stays plain
+PyTorch, as JAX's does.
+
+On a ("data", "model") mesh (``common.packed_shard_mesh``) the inputs
+are whole on every rank and each cache leaf is this rank's block, its
+spec passed in as ``shard_spec``: every path attends over its local
+lanes and K/V heads and gathers the output, so no cache or pool is ever
+gathered on the co-sharded paths.  Where the K/V heads split over the
+projections' N axis, decode and chunked prefill keep q, k, v and the
+output on this rank's heads end to end (:func:`_qkv_sharded`; ``wo``
+then contracts its K block), the Megatron layout.  A sequence axis split over the mesh
+(the cache rules' fallbacks for indivisible K/V heads and for batch 1)
+combines each rank's partial softmax.  The paged paths run shard-local
+under ``common.paged_shard_mesh`` (:func:`_paged_attend_sharded`: lanes
+and their pool blocks co-shard, block ids translated by a subtraction
+and a clip, as JAX's ``_paged_attend_sharded``); a pool split over data
+without its lanes gathers the pool for the read.  Prefill runs the flash
+kernel on each rank's lanes and heads.
 """
 from __future__ import annotations
 
@@ -37,7 +52,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .common import apply_rope, dense_apply, dense_init
+from .common import (
+    apply_rope,
+    dense_apply,
+    dense_group,
+    dense_init,
+    local_heads_ok,
+    packed_mesh,
+    paged_mesh,
+)
 
 Params = Dict[str, torch.Tensor]
 
@@ -69,6 +92,30 @@ def _qkv(p: Params, x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int,
     k = dense_apply(x, p["wk"], active_planes).reshape(B, S, n_kv, head_dim)
     v = dense_apply(x, p["wv"], active_planes).reshape(B, S, n_kv, head_dim)
     return q, k, v
+
+
+def _qkv_sharded(p: Params, x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int,
+                 active_planes, spec):
+    """q, k, v on a mesh, with the head counts and cache spec the attention
+    then runs on.  Where the K/V heads split over the same axis as the
+    projections' N (``common.local_heads_ok``), the three products stay
+    this rank's heads (one reduction for the three) and the caller runs
+    ``wo`` on its K block: returns ``(q, k, v, H_l, KV_l, spec with the
+    head axis now local, True)``.  Else q, k, v come back whole."""
+    mesh = packed_mesh()
+    kv_ax = spec[2]
+    ws = [p["wq"], p["wk"], p["wv"]]
+    if kv_ax is not None and local_heads_ok(mesh, ws, p["wo"]) and ws[0].kn_spec[1] == kv_ax:
+        from ..dist.sharding import axis_size
+
+        d = axis_size(mesh, kv_ax)
+        B, S, _ = x.shape
+        q, k, v = dense_group(x, ws, active_planes)
+        return (q.reshape(B, S, n_heads // d, head_dim), k.reshape(B, S, n_kv // d, head_dim),
+                v.reshape(B, S, n_kv // d, head_dim), n_heads // d, n_kv // d,
+                (spec[0], spec[1], None) + tuple(spec[3:]), True)
+    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, active_planes)
+    return q, k, v, n_heads, n_kv, spec, False
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -126,6 +173,60 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, n_kv, G, S, d).permute(0, 3, 1, 2, 4).reshape(B, S, n_kv * G * d)
 
 
+# ---------------------------------------------------------------------------
+# Mesh helpers: local lanes, heads and sequence rows of a cache block
+# ---------------------------------------------------------------------------
+
+
+def _ranges(mesh, spec, B: int, n_kv: int, s_local: int):
+    """This rank's lanes ``[b0, b1)``, K/V heads ``[h0, h1)`` and first
+    sequence row ``s0`` under a (B, S, KV, hd) cache block's spec."""
+    from ..dist.sharding import axis_index, block_range
+
+    b0, b1 = block_range(mesh, spec[0], B)
+    h0, h1 = block_range(mesh, spec[2], n_kv)
+    return b0, b1, h0, h1, axis_index(mesh, spec[1]) * s_local
+
+
+def _gather_heads(out: torch.Tensor, mesh, b_ax, kv_ax) -> torch.Tensor:
+    """(B_l, Sq, KV_l, G, d) local output -> the whole (B, Sq, KV*G*d)."""
+    if kv_ax is not None:
+        out = mesh.all_gather(out, kv_ax, dim=2)
+    if b_ax is not None:
+        out = mesh.all_gather(out, b_ax, dim=0)
+    return out.reshape(out.shape[0], out.shape[1], -1)
+
+
+def _attend_local(qs, keys, vals, valid, s_ax, mesh, dtype, sdt, decode: bool):
+    """Attention of ``qs`` (B, Sq, K, G, d), scaled, over this rank's key
+    rows ``keys``/``vals`` (B, Sk, K, d) under ``valid`` (B, Sq, Sk).
+    Returns (B, Sq, K, G, d) in ``dtype``.
+
+    With the sequence unsplit (``s_ax`` None) the ops are the unsharded
+    path's (``decode``: an f32 softmax as ``decode_attention``, else
+    ``_softmax_masked`` as the chunk path).  Split over ``s_ax``, each
+    rank's partial softmax (its max, sum and unnormalised output, f32) is
+    gathered and combined; a lane no rank has a key for gets zeros."""
+    s = _gqa_scores(qs, keys.to(dtype), sdt)  # (B, K, G, Sq, Sk)
+    v5 = valid[:, None, None]
+    if s_ax is None:
+        if decode:
+            w = torch.softmax(torch.where(v5, s, torch.full((), NEG_INF, device=s.device)), -1)
+        else:
+            w = _softmax_masked(s, v5)
+        return torch.einsum("bkgqs,bskd->bqkgd", w.to(dtype), vals.to(dtype))
+    s32 = s.to(torch.float32)
+    m = torch.amax(torch.where(v5, s32, torch.full((), NEG_INF, device=s.device)), -1,
+                   keepdim=True)
+    e = torch.where(v5, torch.exp(s32 - m), torch.zeros((), device=s.device))
+    o = torch.einsum("bkgqs,bskd->bkgqd", e, vals.to(torch.float32))
+    parts = mesh.all_gather(torch.cat([m, e.sum(-1, keepdim=True), o], -1)[None], s_ax, dim=0)
+    scale = torch.exp(parts[..., :1] - parts[..., :1].amax(0))
+    num, den = (scale * parts[..., 2:]).sum(0), (scale * parts[..., 1:2]).sum(0)
+    out = torch.where(den > 0, num / torch.clamp(den, min=1e-30), torch.zeros((), device=s.device))
+    return out.permute(0, 3, 1, 2, 4).to(dtype)
+
+
 def attention(
     p: Params,
     x: torch.Tensor,
@@ -139,6 +240,7 @@ def attention(
     active_planes=None,
     flash: bool = False,
     scores_dtype="float32",
+    shard_spec=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Causal (``window``: sliding-window) self-attention for prefill and
     training: query ``i`` attends keys ``j <= i`` with ``i - j < window``.
@@ -153,7 +255,11 @@ def attention(
 
     ``scores_dtype`` (``cfg.attn_scores_dtype``) sets the dtype of
     the plain path's scores, mask constant and softmax; the flash kernel
-    keeps f32 scores and so raises for ``"bfloat16"``."""
+    keeps f32 scores and so raises for ``"bfloat16"``.
+
+    On a mesh ``shard_spec`` (the spec of the cache block prefill seeds)
+    picks this rank's lanes and K/V heads for the flash kernel; the output
+    is gathered, and ``(k, v)`` are returned whole."""
     sdt = _scores_dtype(scores_dtype)
     if flash and sdt != torch.float32:
         raise ValueError(
@@ -170,7 +276,14 @@ def attention(
     if S > q_chunk and S % q_chunk:
         raise ValueError(f"prefill length {S} is not a multiple of q_chunk={q_chunk}")
     if flash:
-        out = _flash(q, k, v, window)
+        mesh = packed_mesh()
+        if mesh is not None and shard_spec is not None:
+            b0, b1, h0, h1, _ = _ranges(mesh, shard_spec, B, n_kv, 0)
+            out = _flash(q[b0:b1, :, h0:h1], k[b0:b1, :, h0:h1], v[b0:b1, :, h0:h1], window)
+            out = _gather_heads(out.reshape(b1 - b0, S, h1 - h0, G, head_dim), mesh,
+                                shard_spec[0], shard_spec[2])
+        else:
+            out = _flash(q, k, v, window)
         return dense_apply(out, p["wo"], active_planes), (k, v)
     kpos = torch.arange(S, device=x.device)
     outs = []
@@ -207,9 +320,13 @@ def _paged_update_attend(q_heads, k_row, v_row, cache_k, cache_v, block_table, p
     reads through ``kernels.ops.paged_attention`` (the CUDA kernel on the
     card).  The two differ on inactive lanes (the kernel returns exact
     zeros, the gather garbage); both are discarded."""
-    from ..kernels import ops as kernel_ops
+    _paged_write(k_row, v_row, cache_k, cache_v, block_table, pos, active)
+    return _paged_read(q_heads, cache_k, cache_v, block_table, pos, active, n_kv=n_kv,
+                       head_dim=head_dim, use_kernel=use_kernel, x_dtype=x_dtype)
 
-    B = q_heads.shape[0]
+
+def _paged_write(k_row, v_row, cache_k, cache_v, block_table, pos, active) -> None:
+    """Write one decode row per lane through the block table, IN PLACE."""
     nb, bs = cache_k.shape[0] - 1, cache_k.shape[1]
     nb_lane = block_table.shape[1]
     pos = pos.to(torch.int64)
@@ -224,6 +341,15 @@ def _paged_update_attend(q_heads, k_row, v_row, cache_k, cache_v, block_table, p
     row = pos % bs
     cache_k[blk, row] = k_row.to(cache_k.dtype)
     cache_v[blk, row] = v_row.to(cache_v.dtype)
+
+
+def _paged_read(q_heads, cache_k, cache_v, block_table, pos, active, *, n_kv: int,
+                head_dim: int, use_kernel: bool, x_dtype):
+    """The decode read of :func:`_paged_update_attend`: (B, K, G, d)."""
+    from ..kernels import ops as kernel_ops
+
+    B = q_heads.shape[0]
+    pos = pos.to(torch.int64)
     qh = q_heads.reshape(B, n_kv, -1, head_dim)
     if use_kernel:
         pos_eff = pos if active is None else torch.where(active, pos, torch.full_like(pos, -1))
@@ -238,6 +364,101 @@ def _paged_update_attend(q_heads, k_row, v_row, cache_k, cache_v, block_table, p
     w = torch.softmax(s, dim=-1)
     out = _gqa_combine(w, vals.to(x_dtype), x_dtype)  # (B, 1, K*G*d)
     return out.reshape(B, n_kv, -1, head_dim)
+
+
+def _own_table(block_table: torch.Tensor, off: int, local_nb: int) -> torch.Tensor:
+    """Global block ids -> this rank's pool slice ``[off, off + local_nb)``:
+    the ids it owns translated, every other id sent to its local sentinel
+    block ``local_nb``, so writes through them drop."""
+    mine = (block_table >= off) & (block_table < off + local_nb)
+    return torch.where(mine, block_table - off, torch.full_like(block_table, local_nb))
+
+
+def _paged_attend_sharded(mesh, spec, q_heads, k_row, v_row, cache_k, cache_v, block_table,
+                          pos, active, *, n_kv: int, head_dim: int, use_kernel: bool, x_dtype):
+    """The paged update and read over this rank's LOCAL pool slice: lanes
+    and their blocks co-shard over the data axes, so each rank writes and
+    reads only its own slice and the pool is never gathered.
+
+    The allocator grants lane b's blocks from lane b's shard range
+    (``BlockAllocator(n_shards=D)``), so global ids translate with a
+    subtraction; stale entries of other shards clip into the local range
+    and are masked by the causal bound like any stale entry.  Returns the
+    whole (B, KV*G*d) output, or None when lanes and blocks do not
+    co-shard (the caller takes :func:`_paged_attend_gathered`)."""
+    from ..dist.sharding import axis_index, block_range, dp_axes
+
+    B = q_heads.shape[0]
+    blk_ax, kv_ax = spec[0], spec[2]
+    lane_ax = dp_axes(mesh, B)
+    if blk_ax is None or lane_ax != blk_ax:
+        return None
+    local_nb = cache_k.shape[0] - 1  # the local sentinel block is the last
+    b0, b1 = block_range(mesh, lane_ax, B)
+    h0, h1 = block_range(mesh, kv_ax, n_kv)
+    G = q_heads.shape[1] // n_kv
+    table = torch.clamp(block_table[b0:b1] - axis_index(mesh, blk_ax) * local_nb, 0,
+                        local_nb - 1)
+    out = _paged_update_attend(
+        q_heads[b0:b1, h0 * G:h1 * G].contiguous(), k_row[b0:b1, h0:h1], v_row[b0:b1, h0:h1],
+        cache_k, cache_v, table, pos[b0:b1], None if active is None else active[b0:b1],
+        n_kv=h1 - h0, head_dim=head_dim, use_kernel=use_kernel, x_dtype=x_dtype)
+    return _gather_heads(out[:, None], mesh, lane_ax, kv_ax)
+
+
+def _paged_attend_gathered(mesh, spec, q_heads, k_row, v_row, cache_k, cache_v, block_table,
+                           pos, active, *, n_kv: int, head_dim: int, use_kernel: bool,
+                           x_dtype):
+    """The paged update and read where lanes do not co-shard with the
+    pool's blocks: every lane on this rank's K/V heads; each rank writes
+    the rows whose blocks it owns, and a pool split over the data axes is
+    gathered for the read (JAX's GSPMD gathers it there too)."""
+    from ..dist.sharding import axis_index, block_range
+
+    blk_ax, kv_ax = spec[0], spec[2]
+    h0, h1 = block_range(mesh, kv_ax, n_kv)
+    G = q_heads.shape[1] // n_kv
+    q_l, k_l, v_l = q_heads[:, h0 * G:h1 * G].contiguous(), k_row[:, h0:h1], v_row[:, h0:h1]
+    kw = dict(n_kv=h1 - h0, head_dim=head_dim, use_kernel=use_kernel, x_dtype=x_dtype)
+    if blk_ax is None:  # the whole pool is here
+        out = _paged_update_attend(q_l, k_l, v_l, cache_k, cache_v, block_table, pos, active,
+                                   **kw)
+    else:
+        local_nb = cache_k.shape[0] - 1
+        own = _own_table(block_table, axis_index(mesh, blk_ax) * local_nb, local_nb)
+        _paged_write(k_l, v_l, cache_k, cache_v, own, pos, active)
+        whole_k = mesh.all_gather(cache_k[:local_nb], blk_ax, dim=0)
+        whole_v = mesh.all_gather(cache_v[:local_nb], blk_ax, dim=0)
+        out = _paged_read(q_l, whole_k, whole_v, block_table, pos, active, **kw)
+    return _gather_heads(out[:, None], mesh, None, kv_ax)
+
+
+def _decode_contiguous_sharded(mesh, spec, q, k, v, cache_k, cache_v, posb, active, *,
+                               n_kv: int, head_dim: int, x_dtype) -> torch.Tensor:
+    """One-token decode over this rank's block of a contiguous cache
+    ((B, S, KV, hd) under ``spec``): its lanes and K/V heads write their
+    row where it falls in the local sequence rows and attend; the output
+    (B, 1, KV*G*d) comes back whole."""
+    B = q.shape[0]
+    G = q.shape[2] // n_kv
+    S_l = cache_k.shape[1]
+    b0, b1, h0, h1, s0 = _ranges(mesh, spec, B, n_kv, S_l)
+    lane_pos = posb[b0:b1, 0]
+    rows = lane_pos - s0
+    own = (rows >= 0) & (rows < S_l)
+    if active is not None:
+        own &= active[b0:b1]
+    r = torch.clamp(rows, 0, S_l - 1)
+    bidx = torch.arange(b1 - b0, device=q.device)
+    keep = own[:, None, None]
+    cache_k[bidx, r] = torch.where(keep, k[b0:b1, 0, h0:h1].to(cache_k.dtype), cache_k[bidx, r])
+    cache_v[bidx, r] = torch.where(keep, v[b0:b1, 0, h0:h1].to(cache_v.dtype), cache_v[bidx, r])
+    qs = q[b0:b1, :, h0 * G:h1 * G].reshape(b1 - b0, 1, h1 - h0, G, head_dim) * (head_dim**-0.5)
+    kpos = s0 + torch.arange(S_l, device=q.device)
+    valid = (kpos[None, :] <= lane_pos[:, None])[:, None, :]
+    out = _attend_local(qs, cache_k, cache_v, valid, spec[1], mesh, x_dtype, torch.float32,
+                        decode=True)
+    return _gather_heads(out, mesh, spec[0], spec[2])
 
 
 def decode_attention(
@@ -257,6 +478,7 @@ def decode_attention(
     active_planes=None,
     block_table: Optional[torch.Tensor] = None,
     paged_kernel: bool = False,
+    shard_spec=None,
 ) -> torch.Tensor:
     """One-token decode (JAX ``decode_attention_cache``).  x: (B, 1, D);
     the caches are UPDATED IN PLACE (the JAX version returns new caches);
@@ -282,10 +504,17 @@ def decode_attention(
     block being the drop sentinel, and lane b's row ``r`` lives at
     ``[table[b, r // bs], r % bs]``.  ``paged_kernel=True`` reads through
     the paged-attention kernel instead of gathering each lane's whole
-    logical view."""
+    logical view.  On a mesh ``shard_spec`` is the spec of this rank's
+    cache blocks (the module docstring)."""
     B = x.shape[0]
     G = n_heads // n_kv
-    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, active_planes)
+    mesh = packed_mesh() if shard_spec is not None else None
+    local = False
+    if mesh is None:
+        q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, active_planes)
+    else:
+        q, k, v, n_heads, n_kv, shard_spec, local = _qkv_sharded(
+            p, x, n_heads, n_kv, head_dim, active_planes, shard_spec)
     per_slot = isinstance(pos, torch.Tensor) and pos.ndim == 1
     if window is not None and not ring:
         raise ValueError("a window needs a ring buffer (ring=True)")
@@ -300,10 +529,23 @@ def decode_attention(
     q = apply_rope(q, posb, rope_theta)
     k = apply_rope(k, posb, rope_theta)
     if block_table is not None:
-        out = _paged_update_attend(q[:, 0], k[:, 0], v[:, 0], cache_k, cache_v, block_table,
-                                   posb[:, 0], active, n_kv=n_kv, head_dim=head_dim,
-                                   use_kernel=paged_kernel, x_dtype=x.dtype)
-        return dense_apply(out.reshape(B, 1, -1), p["wo"], active_planes)
+        args = (q[:, 0], k[:, 0], v[:, 0], cache_k, cache_v, block_table, posb[:, 0], active)
+        kw = dict(n_kv=n_kv, head_dim=head_dim, use_kernel=paged_kernel, x_dtype=x.dtype)
+        if mesh is None:
+            out = _paged_update_attend(*args, **kw)
+        else:
+            out = None
+            if paged_mesh() is not None:
+                out = _paged_attend_sharded(mesh, shard_spec, *args, **kw)
+            if out is None:  # lanes and blocks do not co-shard
+                out = _paged_attend_gathered(mesh, shard_spec, *args, **kw)
+        return dense_apply(out.reshape(B, 1, -1), p["wo"], active_planes, k_local=local)
+    if mesh is not None:
+        if ring:
+            raise NotImplementedError("ring buffers on a mesh come with the next mesh slice")
+        out = _decode_contiguous_sharded(mesh, shard_spec, q, k, v, cache_k, cache_v, posb,
+                                         active, n_kv=n_kv, head_dim=head_dim, x_dtype=x.dtype)
+        return dense_apply(out, p["wo"], active_planes, k_local=local)
     Wc = cache_k.shape[1]
     if per_slot:
         bidx = torch.arange(B, device=x.device)
@@ -386,6 +628,7 @@ def prefill_chunk_attention(
     block_table: Optional[torch.Tensor] = None,
     active_planes=None,
     scores_dtype="float32",
+    shard_spec=None,
 ) -> torch.Tensor:
     """Chunked prefill: C prompt-token queries per lane against the lane's
     own rows of the pooled cache, which is UPDATED IN PLACE.
@@ -414,13 +657,20 @@ def prefill_chunk_attention(
     content (deterministic where a scatter with duplicate slots is not).
     Idle lanes (``n_valid = 0``) leave their ring as it is.  Returns the
     attention output (B, C, D).  ``scores_dtype`` sets the dtype of
-    the scores, mask constant and softmax, as in :func:`attention`."""
+    the scores, mask constant and softmax, as in :func:`attention`.  On a
+    mesh ``shard_spec`` is the spec of this rank's cache blocks."""
     if window is not None and not ring:
         raise ValueError("a window needs a ring buffer (ring=True)")
     sdt = _scores_dtype(scores_dtype)
     B, C, _ = x.shape
     G = n_heads // n_kv
-    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, active_planes)
+    mesh = packed_mesh() if shard_spec is not None else None
+    local = False
+    if mesh is None or ring:
+        q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, active_planes)
+    else:
+        q, k, v, n_heads, n_kv, shard_spec, local = _qkv_sharded(
+            p, x, n_heads, n_kv, head_dim, active_planes, shard_spec)
     dev = x.device
     ci = torch.arange(C, device=dev)
     start = start.to(device=dev, dtype=torch.int64)
@@ -429,20 +679,20 @@ def prefill_chunk_attention(
     k = apply_rope(k, qpos, rope_theta)
     qs = q.reshape(B, C, n_kv, G, head_dim) * (head_dim**-0.5)
     if ring:
+        if mesh is not None:
+            raise NotImplementedError("ring buffers on a mesh come with the next mesh slice")
         return dense_apply(
             _ring_chunk_attend(qs, k, v, cache_k, cache_v, start, qpos,
                                n_valid.to(device=dev, dtype=torch.int64), window, x.dtype,
                                sdt),
             p["wo"], active_planes)
+    n_valid = n_valid.to(dev)
+    if mesh is not None:
+        out = _chunk_sharded(mesh, shard_spec, qs, k, v, cache_k, cache_v, block_table, qpos,
+                             n_valid, n_kv=n_kv, head_dim=head_dim, x_dtype=x.dtype, sdt=sdt)
+        return dense_apply(out, p["wo"], active_planes, k_local=local)
     if block_table is not None:
-        nb, bs = cache_k.shape[0] - 1, cache_k.shape[1]
-        nb_lane = block_table.shape[1]
-        bi = torch.clamp(qpos // bs, 0, nb_lane - 1)  # (B, C) logical blocks
-        blk = block_table.gather(1, bi).long()
-        ok = (ci[None, :] < n_valid.to(dev)[:, None]) & (qpos < nb_lane * bs)
-        blk = torch.where(ok, blk, torch.full_like(blk, nb))
-        cache_k[blk, qpos % bs] = k.to(cache_k.dtype)
-        cache_v[blk, qpos % bs] = v.to(cache_v.dtype)
+        _chunk_paged_write(k, v, cache_k, cache_v, block_table, qpos, n_valid)
         keys, vals = _pool_gather(cache_k, cache_v, block_table, n_kv, head_dim)
     else:
         limit = cache_k.shape[1] - 1  # max_len: the spare row
@@ -457,6 +707,76 @@ def prefill_chunk_attention(
     w = _softmax_masked(s, valid[:, None, None])
     out = _gqa_combine(w, vals.to(x.dtype), x.dtype)
     return dense_apply(out, p["wo"], active_planes)
+
+
+def _chunk_paged_write(k, v, cache_k, cache_v, block_table, qpos, n_valid) -> None:
+    """Write a chunk's real rows (``k``/``v`` (B, C, K, d) at positions
+    ``qpos``) through the block table, IN PLACE; pads, idle lanes and rows
+    past the table go to the sentinel block."""
+    nb, bs = cache_k.shape[0] - 1, cache_k.shape[1]
+    nb_lane = block_table.shape[1]
+    ci = torch.arange(qpos.shape[1], device=qpos.device)
+    bi = torch.clamp(qpos // bs, 0, nb_lane - 1)  # (B, C) logical blocks
+    blk = block_table.gather(1, bi).long()
+    ok = (ci[None, :] < n_valid[:, None]) & (qpos < nb_lane * bs)
+    blk = torch.where(ok, blk, torch.full_like(blk, nb))
+    cache_k[blk, qpos % bs] = k.to(cache_k.dtype)
+    cache_v[blk, qpos % bs] = v.to(cache_v.dtype)
+
+
+def _chunk_sharded(mesh, spec, qs, k, v, cache_k, cache_v, block_table, qpos, n_valid, *,
+                   n_kv: int, head_dim: int, x_dtype, sdt) -> torch.Tensor:
+    """:func:`prefill_chunk_attention`'s write and read over this rank's
+    cache blocks; returns the whole (B, C, KV*G*d) output.
+
+    Paged: lanes and blocks co-sharded (under ``paged_shard_mesh``) run on
+    the local lanes and pool slice with block ids translated by a
+    subtraction and a clip; a pool split over data without its lanes
+    writes the rows of the blocks it owns and gathers the pool for the
+    read; a pool whole on every rank needs neither.  Contiguous: each rank
+    writes the rows that fall in its sequence block and a split sequence
+    combines partial softmaxes.  Every path runs this rank's K/V heads."""
+    from ..dist.sharding import axis_index, axis_size, block_range, dp_axes
+
+    B = qpos.shape[0]
+    if block_table is not None:
+        blk_ax, kv_ax = spec[0], spec[2]
+        local_nb = cache_k.shape[0] - 1
+        off = axis_index(mesh, blk_ax) * local_nb
+        lane_ax = None
+        pool_k, pool_v = cache_k, cache_v
+        if blk_ax is not None and paged_mesh() is not None and dp_axes(mesh, B) == blk_ax:
+            lane_ax = blk_ax
+            b0, b1 = block_range(mesh, lane_ax, B)
+            table = torch.clamp(block_table[b0:b1] - off, 0, local_nb - 1)
+            write_table = table
+        else:
+            b0, b1 = 0, B
+            table = block_table
+            write_table = table if blk_ax is None else _own_table(table, off, local_nb)
+        h0, h1 = block_range(mesh, kv_ax, n_kv)
+        _chunk_paged_write(k[b0:b1, :, h0:h1], v[b0:b1, :, h0:h1], cache_k, cache_v,
+                           write_table, qpos[b0:b1], n_valid[b0:b1])
+        if lane_ax is None and blk_ax is not None:
+            pool_k = mesh.all_gather(cache_k[:local_nb], blk_ax, dim=0)
+            pool_v = mesh.all_gather(cache_v[:local_nb], blk_ax, dim=0)
+        keys, vals = _pool_gather(pool_k, pool_v, table, h1 - h0, head_dim)
+        s_ax, s0, b_ax = None, 0, lane_ax
+    else:
+        S_l = cache_k.shape[1]
+        b0, b1, h0, h1, s0 = _ranges(mesh, spec, B, n_kv, S_l)
+        rows = torch.clamp(qpos[b0:b1], max=S_l * axis_size(mesh, spec[1]) - 1) - s0
+        own = (rows >= 0) & (rows < S_l)
+        bidx = torch.arange(b1 - b0, device=qpos.device)[:, None].expand_as(rows)
+        cache_k[bidx[own], rows[own]] = k[b0:b1, :, h0:h1][own].to(cache_k.dtype)
+        cache_v[bidx[own], rows[own]] = v[b0:b1, :, h0:h1][own].to(cache_v.dtype)
+        keys, vals = cache_k, cache_v
+        s_ax, b_ax = spec[1], spec[0]
+    kpos = s0 + torch.arange(keys.shape[1], device=qpos.device)
+    valid = kpos[None, None, :] <= qpos[b0:b1, :, None]  # (B_l, C, Sk)
+    out = _attend_local(qs[b0:b1, :, h0:h1], keys, vals, valid, s_ax, mesh, x_dtype, sdt,
+                        decode=False)
+    return _gather_heads(out, mesh, b_ax, kv_ax if block_table is not None else spec[2])
 
 
 def cross_attention(

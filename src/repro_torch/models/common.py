@@ -14,23 +14,127 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..core.packing import PackedWeight
+from ..core.packing import FloatBlock, PackedWeight
 from ..core.ste import relu6_act_quantize
 from ..kernels import ops
 
 Params = Dict[str, torch.Tensor]
 
+# The mesh whose ranks hold the weights' blocks (None = unsharded), set
+# for the duration of a model call by the serve engine and scheduler via
+# packed_shard_mesh() and read by dense_apply, the embedding, the head and
+# the attention paths.  A ContextVar, as in the JAX package, so a sharded
+# engine and an unsharded one in one process never see each other's mesh.
+_packed_mesh_var: contextvars.ContextVar = contextvars.ContextVar(
+    "packed_shard_mesh", default=None)
 
-def dense_apply(x: torch.Tensor, w, active_planes=None) -> torch.Tensor:
+
+@contextlib.contextmanager
+def packed_shard_mesh(mesh):
+    """Run the enclosed model calls on ``mesh``: every matmul weight is this
+    rank's block (a PackedWeight with ``kn_spec``, or a FloatBlock), run
+    on its local bytes and stitched by collectives
+    (``kernels.ops.bitserial_matmul_sharded``); caches are this rank's
+    blocks too.  ``mesh=None`` is a no-op (unsharded serving)."""
+    token = _packed_mesh_var.set(mesh)
+    try:
+        yield
+    finally:
+        _packed_mesh_var.reset(token)
+
+
+def packed_mesh():
+    """The mesh set by :func:`packed_shard_mesh` (None off a mesh)."""
+    return _packed_mesh_var.get()
+
+
+# The mesh over which paged decode runs shard-local (None = not): set by
+# the scheduler when the block tables co-shard with the pool over the data
+# axes (dist.sharding.table_shards > 1), read by models.attention.
+_paged_mesh_var: contextvars.ContextVar = contextvars.ContextVar(
+    "paged_shard_mesh", default=None)
+
+
+@contextlib.contextmanager
+def paged_shard_mesh(mesh):
+    """Run the enclosed paged attention shard-local over ``mesh``: each data
+    shard writes and reads only its own slice of the KV block pool (lanes
+    and their blocks co-shard, see ``dist.sharding.block_table_spec``), so
+    the pool is never gathered.  ``mesh=None`` is a no-op."""
+    token = _paged_mesh_var.set(mesh)
+    try:
+        yield
+    finally:
+        _paged_mesh_var.reset(token)
+
+
+def paged_mesh():
+    """The mesh set by :func:`paged_shard_mesh` (None off it)."""
+    return _paged_mesh_var.get()
+
+
+def dense_apply(x: torch.Tensor, w, active_planes=None, k_local: bool = False) -> torch.Tensor:
     """x @ w for a plain tensor, or for a PackedWeight dequantised on the
     fly by the bitserial kernel (the plain version on the CPU).
 
     ``active_planes`` restricts packed weights to their most significant
     planes; it is a per-call argument here where the JAX package reads a
-    ContextVar at trace time.  Plain weights ignore it."""
+    ContextVar at trace time.  Plain weights ignore it.
+
+    Under :func:`packed_shard_mesh`, ``x`` is whole on every rank and a
+    weight with a ``kn_spec`` is this rank's block: a PackedWeight runs
+    ``kernels.ops.bitserial_matmul_sharded``, a FloatBlock a local
+    ``torch.matmul`` stitched the same way (JAX computes float weights
+    outside any kernel); the result is whole on every rank, the same bits
+    on each.  ``k_local``: ``x`` is already this rank's K block (a
+    :func:`dense_group` output)."""
+    mesh = _packed_mesh_var.get()
     if isinstance(w, PackedWeight):
+        if mesh is not None and w.kn_spec is not None and any(a is not None for a in w.kn_spec):
+            return ops.bitserial_matmul_sharded(x, w, mesh, active_planes, k_local)
         return ops.bitserial_matmul(x, w, active_planes=active_planes)
+    if isinstance(w, FloatBlock):
+        if mesh is None:
+            raise ValueError("a FloatBlock is one rank's block of a weight: apply it under "
+                             "packed_shard_mesh(mesh)")
+        return ops.stitch(ops.local_product(x, w, mesh, k_local=k_local), mesh, *w.kn_spec)
     return x @ w.to(x.dtype)
+
+
+def _kn(w):
+    return w.kn_spec if isinstance(w, (PackedWeight, FloatBlock)) else None
+
+
+def local_heads_ok(mesh, wide, narrow) -> bool:
+    """Whether products by ``wide`` (col-parallel, sharing one ``kn_spec``
+    (k, n)) can stay N-sharded into ``narrow`` (row-parallel, K over the
+    same n): each rank's N block of the first is then the K block of the
+    second, so the pair costs one K reduction and one stitch, the
+    Megatron layout (``dense_group`` then ``dense_apply(k_local=True)``)."""
+    if mesh is None:
+        return False
+    kn = _kn(wide[0])
+    if kn is None or kn[1] is None or any(_kn(w) != kn for w in wide):
+        return False
+    if _kn(narrow) is None or _kn(narrow)[0] != kn[1]:
+        return False
+    return all(ops.shardable(w, mesh) for w in list(wide) + [narrow]
+               if isinstance(w, PackedWeight))
+
+
+def dense_group(x: torch.Tensor, ws, active_planes=None):
+    """``[x @ w for w in ws]`` on a mesh, for weights that share one
+    ``kn_spec`` (k, n): each rank's N block of each product, the partial
+    products of all of them summed over k in ONE ``all_reduce``.  ``x`` is
+    whole on every rank."""
+    mesh = _packed_mesh_var.get()
+    k_ax = _kn(ws[0])[0]
+    parts = [ops.local_product(x, w, mesh, active_planes) for w in ws]
+    sizes = [t.shape[-1] for t in parts]
+    y = torch.cat(parts, dim=-1)
+    if k_ax is not None:
+        y = mesh.all_reduce(y, k_ax)
+    return torch.split(y, sizes, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -136,20 +240,29 @@ def mlp_apply(p: Params, x: torch.Tensor, kind: str, act_bits: int = 32,
               active_planes=None) -> torch.Tensor:
     """``act_bits < 32`` quantises the hidden activation (ReLU6, then
     ``act_bits`` uniform levels) before ``w_down``, as JAX does.  The wide
-    products (gate and up) are named "mlp_wide" for the remat policy."""
+    products (gate and up) are named "mlp_wide" for the remat policy.  On
+    a mesh whose blocks allow it (``local_heads_ok``) the hidden
+    activation stays this rank's N block: gate and up cost one reduction,
+    ``w_down`` one stitch."""
     dt = x.dtype
-    if kind in ("swiglu", "geglu"):
-        with checkpoint_name("mlp_wide"):
-            g = dense_apply(x, p["w_gate"], active_planes)
-            u = dense_apply(x, p["w_up"], active_planes)
+    gated = kind in ("swiglu", "geglu")
+    wide = [p["w_gate"], p["w_up"]] if gated else [p["w_up"]]
+    # on a mesh: the hidden activation stays N-sharded into w_down
+    local = local_heads_ok(_packed_mesh_var.get(), wide, p["w_down"])
+    with checkpoint_name("mlp_wide"):
+        if local:
+            outs = dense_group(x, wide, active_planes)
+        else:
+            outs = [dense_apply(x, w, active_planes) for w in wide]
+    if gated:
+        g, u = outs
         h = (F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")) * u
     else:
-        with checkpoint_name("mlp_wide"):
-            u = dense_apply(x, p["w_up"], active_planes)
+        u, = outs
         h = F.gelu(u, approximate="tanh") if kind == "gelu_mlp" else F.relu(u)
     if act_bits < 32:
         h = relu6_act_quantize(h, act_bits).to(dt)
-    return dense_apply(h, p["w_down"], active_planes)
+    return dense_apply(h, p["w_down"], active_planes, k_local=local)
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +304,33 @@ def embed_apply(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tenso
     return table.to(dtype)[tokens]
 
 
+def embed_apply_sharded(table: torch.Tensor, tokens: torch.Tensor, dtype, spec,
+                        mesh) -> torch.Tensor:
+    """:func:`embed_apply` on this rank's block of the table under
+    ``spec`` (vocab -> "model", d_model -> "data" where they divide):
+    look up the tokens in the local vocabulary range (zero elsewhere), sum
+    over the vocabulary's ranks (one rank holds each row, so the sum is
+    exact) and gather d_model."""
+    from ..dist.sharding import axis_index
+
+    v_ax, d_ax = (tuple(spec) + (None, None))[:2]
+    rows = table.shape[0]
+    idx = tokens - axis_index(mesh, v_ax) * rows
+    mine = (idx >= 0) & (idx < rows)
+    x = table.to(dtype)[torch.where(mine, idx, torch.zeros_like(idx))]
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=dtype, device=x.device))
+    if v_ax is not None:
+        x = mesh.all_reduce(x, v_ax)
+    if d_ax is not None:
+        x = mesh.all_gather(x, d_ax, dim=-1)
+    return x
+
+
 def logits_apply(head, x: torch.Tensor, softcap: float = 0.0,
                  active_planes=None) -> torch.Tensor:
+    """f32 logits; on a mesh the same bits on every rank (one
+    ``all_reduce`` over the head's K shards), so every rank's host takes
+    the same token from them."""
     logits = dense_apply(x, head, active_planes).to(torch.float32)
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)

@@ -51,6 +51,7 @@ from torch.utils.checkpoint import (
 
 from ..configs.base import ModelConfig
 from ..core.packing import (
+    FloatBlock,
     PackedWeight,
     pack_model_params,
     serving_cast,
@@ -68,10 +69,12 @@ from .common import (
     dense_apply,
     dense_init,
     embed_apply,
+    embed_apply_sharded,
     embed_init,
     logits_apply,
     mlp_apply,
     mlp_init,
+    packed_mesh,
     rmsnorm,
     rmsnorm_init,
 )
@@ -199,13 +202,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
 
 
 def layer_slice(tree, b: int):
-    """Layer ``b`` of a stacked tree (PackedWeight fields sliced alike;
-    each slice of a contiguous stacked tensor is contiguous)."""
+    """Layer ``b`` of a stacked tree (PackedWeight and FloatBlock fields
+    sliced alike; each slice of a contiguous stacked tensor is
+    contiguous)."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, b) for k, v in tree.items()}
     if isinstance(tree, PackedWeight):
         return PackedWeight(planes=tree.planes[b], sign=tree.sign[b], scale=tree.scale[b],
-                            n_bits=tree.n_bits, k=tree.k, denom_bits=tree.denom_bits)
+                            n_bits=tree.n_bits, k=tree.k, denom_bits=tree.denom_bits,
+                            kn_spec=tree.kn_spec)
+    if isinstance(tree, FloatBlock):
+        return FloatBlock(tree.w[b], tree.kn_spec)
     return tree[b]
 
 
@@ -224,8 +231,24 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
     return cfg.window if _base_kind(kind) == "local" else None
 
 
+def _embed_spec(cfg: ModelConfig, mesh):
+    from ..dist.sharding import param_spec
+
+    return param_spec("embed", (cfg.padded_vocab, cfg.d_model), mesh)
+
+
 def _head(params: Params, cfg: ModelConfig):
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    """The output projection: the tied embedding's transpose or
+    ``lm_head``.  On a mesh the tied table's block (vocab over "model",
+    d_model over "data") is a FloatBlock contracting over "data"."""
+    if not cfg.tie_embeddings:
+        return params["lm_head"]
+    mesh = packed_mesh()
+    if mesh is not None:
+        spec = tuple(_embed_spec(cfg, mesh)) + (None, None)
+        if spec[0] is not None or spec[1] is not None:
+            return FloatBlock(params["embed"].T, (spec[1], spec[0]))
+    return params["embed"].T
 
 
 def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -233,9 +256,26 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     dtype first as ``jnp.asarray(d_model**0.5, dt)`` is.  The constant is
     a 0-dim host tensor, which a device op reads as a scalar: a device
     tensor made from it would be a host-to-device copy, and a host sync,
-    at every model call."""
-    x = embed_apply(params["embed"], tokens, cfg.compute_dtype)
+    at every model call.  On a mesh the lookup runs on this rank's block
+    of the table (``common.embed_apply_sharded``)."""
+    mesh = packed_mesh()
+    if mesh is None:
+        x = embed_apply(params["embed"], tokens, cfg.compute_dtype)
+    else:
+        x = embed_apply_sharded(params["embed"], tokens, cfg.compute_dtype,
+                                _embed_spec(cfg, mesh), mesh)
     return x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
+
+
+def check_mesh_kinds(cfg: ModelConfig) -> None:
+    """Refuse, on a mesh, a model with layers other than "attn" (or with
+    experts): the other kinds' mesh paths come with the next mesh slice."""
+    bad = sorted({k for k in cfg.layer_pattern if k != "attn"})
+    if bad or cfg.n_experts:
+        what = bad + (["moe experts"] if cfg.n_experts else [])
+        raise NotImplementedError(
+            f"{cfg.name} on a mesh: {what} (local rings, MoE experts on 'model', recurrent "
+            "state, '+cross') come with the next mesh slice; this one serves 'attn' layers")
 
 
 def _inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
@@ -292,13 +332,15 @@ def _ssm_kw(cfg: ModelConfig):
 
 
 def _apply_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                     cross_src=None, active_planes=None, flash: bool = False):
+                     cross_src=None, active_planes=None, flash: bool = False,
+                     shard_spec=None):
     """Returns (x, cache seed, aux) for one layer.  The seed is what
     :func:`_seed_layer_cache` writes: ``{"k", "v"}`` of an attention
     layer, ``{"state", "conv_tail_src"}`` (the last W-1 normed inputs) of
     an "ssm" layer, ``{"state", "conv_tail"}`` of an "rglru" one.
     ``flash`` routes self-attention through the flash kernel (serving
-    prefill); ``aux`` as :func:`_mlp_residual` gives it."""
+    prefill), on a mesh over the lanes and heads of ``shard_spec`` (the
+    cache blocks it seeds); ``aux`` as :func:`_mlp_residual` gives it."""
     base = _base_kind(kind)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if base == "ssm":
@@ -313,7 +355,7 @@ def _apply_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
             p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             window=_window(cfg, kind), active_planes=active_planes, flash=flash,
-            scores_dtype=cfg.attn_scores_dtype,
+            scores_dtype=cfg.attn_scores_dtype, shard_spec=shard_spec,
         )
         seed = {"k": k, "v": v}
     x = _cross_residual(p, x + out, cfg, kind, cross_src, active_planes)
@@ -452,7 +494,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None,
                paged_blocks: Optional[int] = None, block_size: Optional[int] = None,
-               drop_row: bool = False):
+               drop_row: bool = False, mesh=None):
     """Zero decode cache for ``batch`` lanes: per layer kind,
     ``blocks/p{i}/...`` with a leading superblock axis, plus the tail
     list.  Attention layers hold ``k``/``v`` of shape (batch, rows, n_kv,
@@ -471,8 +513,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=No
     ``models.attention`` (JAX's pool has ``paged_blocks`` blocks; the
     first ``paged_blocks`` match it).  Rings stay per lane: they are
     bounded already.  A "+cross" layer's cache is its mixer's: the cross
-    sublayer keeps none."""
+    sublayer keeps none.
+
+    With ``mesh`` each K/V leaf is this rank's block under the cache rules
+    (``dist.sharding.cache_spec``, or ``paged_block_spec`` for the pool,
+    whose local slice then carries its own sentinel block), and the one
+    layer's spec rides on the tensor as ``mesh_spec``."""
     device = resolve_device(device)
+    if mesh is not None:
+        check_mesh_kinds(cfg)
+    from ..dist import sharding as dist_sharding
     dtype = cfg.cache_dtype if dtype is None else dtype
     heads = (cfg.n_kv_heads, cfg.resolved_head_dim)
 
@@ -496,8 +546,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=No
             shape = (paged_blocks + 1, block_size) + heads
         else:
             shape = (batch, max_len + int(drop_row)) + heads
-        return {"k": torch.zeros(lead + shape, dtype=dtype, device=device),
-                "v": torch.zeros(lead + shape, dtype=dtype, device=device)}
+        spec = None
+        if mesh is not None:
+            if paged_blocks is not None:
+                spec = dist_sharding.paged_block_spec((paged_blocks,) + shape[1:], mesh)
+                local = dist_sharding.local_shape((paged_blocks,) + shape[1:], spec, mesh)
+                shape = (local[0] + 1,) + local[1:]  # the local sentinel block
+            else:
+                spec = dist_sharding.cache_spec("k", shape, mesh)
+                shape = dist_sharding.local_shape(shape, spec, mesh)
+        out = {"k": torch.zeros(lead + shape, dtype=dtype, device=device),
+               "v": torch.zeros(lead + shape, dtype=dtype, device=device)}
+        for t in out.values():
+            t.mesh_spec = spec
+        return out
 
     cache = {"blocks": {f"p{i}": layer(kind, (cfg.n_superblocks,))
                         for i, kind in enumerate(cfg.layer_pattern)}}
@@ -511,6 +573,13 @@ def _layer_cache(cache, key):
     if key[0] == "blocks":
         return {name: t[key[1]] for name, t in cache["blocks"][key[2]].items()}
     return cache["tail"][key[1]]
+
+
+def cache_leaf_spec(cache, key):
+    """The spec of one layer's K/V blocks on a mesh (``init_cache``'s
+    ``mesh_spec``), or None."""
+    leaves = cache["blocks"][key[2]] if key[0] == "blocks" else cache["tail"][key[1]]
+    return getattr(leaves.get("k"), "mesh_spec", None)
 
 
 def _store_recurrent(c, state: torch.Tensor, conv: torch.Tensor, active=None) -> None:
@@ -547,6 +616,8 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConf
     nothing here syncs the host.  "local" layers write and read their
     ring buffer (slot ``pos % Wc``) and ignore the table; recurrent layers
     are position-free and ignore ``pos`` and the table."""
+    if packed_mesh() is not None:
+        check_mesh_kinds(cfg)
     x = tokens.to(cfg.compute_dtype) if tokens.ndim == 3 else _embed(params, tokens, cfg)
     cross_src = _cross_src(cross_embeds, cfg)
     for p, key, kind in _layers(params, cfg):
@@ -566,7 +637,7 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConf
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
                 window=_window(cfg, kind), ring=base == "local", active=active,
                 active_planes=active_planes, block_table=block_table,
-                paged_kernel=paged_kernel,
+                paged_kernel=paged_kernel, shard_spec=cache_leaf_spec(cache, key),
             )
         x = _cross_residual(p, x + out, cfg, kind, cross_src, active_planes)
         x, _ = _mlp_residual(p, x, cfg, active_planes)
@@ -580,14 +651,16 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConf
 # ---------------------------------------------------------------------------
 
 
-def _seed_layer_cache(p: Params, cfg: ModelConfig, kind: str, seed, c) -> None:
+def _seed_layer_cache(p: Params, cfg: ModelConfig, kind: str, seed, c, spec=None) -> None:
     """Write a layer's prefill seed (:func:`_apply_layer_fwd`) into its
     fresh (zero) cache ``c``: the prompt's K/V into rows [0, S) of an
     "attn" cache, or its last ``min(Wc, S)`` positions into their slots
     ``pos % Wc`` of a "local" ring; a recurrent layer's final state, and
     its conv tail, left-padded with zeros when the prompt is shorter than
     the tail.  An "ssm" layer's tail is the xBC part of the last W-1
-    normed inputs through ``in_proj``, recomputed here as JAX does."""
+    normed inputs through ``in_proj``, recomputed here as JAX does.  On a
+    mesh (``spec``, the K/V blocks' spec) only this rank's block is
+    written."""
     kind = _base_kind(kind)
     if kind in ("ssm", "rglru"):
         if kind == "ssm":
@@ -603,6 +676,18 @@ def _seed_layer_cache(p: Params, cfg: ModelConfig, kind: str, seed, c) -> None:
     k, v = seed["k"], seed["v"]
     ck, cv = c["k"], c["v"]
     S = k.shape[1]
+    if spec is not None:  # this rank's block: its lanes, heads and sequence rows
+        from ..dist.sharding import axis_index, block_range
+
+        mesh = packed_mesh()
+        b0, b1 = block_range(mesh, spec[0], k.shape[0])
+        h0, h1 = block_range(mesh, spec[2], k.shape[2])
+        s0 = axis_index(mesh, spec[1]) * ck.shape[1]
+        hi = min(S, s0 + ck.shape[1])
+        if hi > s0:
+            ck[:, :hi - s0] = k[b0:b1, s0:hi, h0:h1].to(ck.dtype)
+            cv[:, :hi - s0] = v[b0:b1, s0:hi, h0:h1].to(cv.dtype)
+        return
     if kind == "local":
         wc = ck.shape[1]
         take = min(wc, S)
@@ -622,14 +707,17 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, ma
     (last-token logits (B, V) f32, cache).  An "ssm" layer runs
     ``ssm_apply`` at ``cfg.ssm_chunk``, which (as in JAX) refuses a prompt
     longer than the chunk that is not a multiple of it."""
+    mesh = packed_mesh()
     x, cross_src = _inputs(params, batch, cfg)
     B, S = x.shape[:2]
     if S > max_len:
         raise ValueError(f"prompt length {S} exceeds max_len={max_len}")
-    cache = init_cache(cfg, B, max_len, cache_dtype, device=x.device)
+    cache = init_cache(cfg, B, max_len, cache_dtype, device=x.device, mesh=mesh)
     for p, key, kind in _layers(params, cfg):
-        x, seed, _ = _apply_layer_fwd(p, x, cfg, kind, cross_src, active_planes, flash=True)
-        _seed_layer_cache(p, cfg, kind, seed, _layer_cache(cache, key))
+        spec = cache_leaf_spec(cache, key)
+        x, seed, _ = _apply_layer_fwd(p, x, cfg, kind, cross_src, active_planes, flash=True,
+                                      shard_spec=spec)
+        _seed_layer_cache(p, cfg, kind, seed, _layer_cache(cache, key), spec)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_apply(_head(params, cfg), x[:, -1:], cfg.logit_softcap, active_planes)
     return logits[:, 0], cache
@@ -669,6 +757,8 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tens
     on the card) runs every packed projection at that many planes.
     ``cross_embeds`` (B, T, D) feeds the "+cross" sublayers; the chunk's
     input stays tokens, as in JAX."""
+    if packed_mesh() is not None:
+        check_mesh_kinds(cfg)
     x = _embed(params, tokens, cfg)
     cross_src = _cross_src(cross_embeds, cfg)
     for p, key, kind in _layers(params, cfg):
@@ -690,6 +780,7 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tens
                 window=_window(cfg, kind), ring=base == "local",
                 block_table=None if base == "local" else block_table,
                 active_planes=active_planes, scores_dtype=cfg.attn_scores_dtype,
+                shard_spec=cache_leaf_spec(cache, key),
             )
         x = _cross_residual(p, x + out, cfg, kind, cross_src, active_planes)
         x, _ = _mlp_residual(p, x, cfg, active_planes)

@@ -1,5 +1,5 @@
 """Serving engine over float or BSQ-packed weights (PyTorch port of
-``repro.serve.engine`` without the mesh).
+``repro.serve.engine``).
 
 Bucketed (default): requests are grouped by prompt length; each bucket
 runs one prefill and then a decode loop with one position shared by the
@@ -21,7 +21,17 @@ attention through the flash kernel; models with sliding-window layers
 
 The engine emits the ``serve_ttft_ms`` histogram, the
 ``serve_requests_total`` counter and the ``admitted -> first_token``
-span exactly as the JAX engine does.  The mesh comes with a later slice.
+span exactly as the JAX engine does.
+
+On a ("data", "model") mesh (``mesh=``, a
+:class:`~repro_torch.launch.mesh.HostMesh`; one engine per rank, every
+rank serving the same requests) the engine annotates the packed weights
+(``dist.sharding.annotate_packed_specs``), keeps this rank's block of
+every weight (``dist.elastic.reshard_tree``) and runs every model call
+under ``models.common.packed_shard_mesh``; a bucket's prefill places its
+cache under ``dist.sharding.cache_tree_specs``, so a bucket the data axis
+does not divide runs with its batch axis replicated.  Only "attn" layer
+patterns run on a mesh (``transformer.check_mesh_kinds``).
 """
 from __future__ import annotations
 
@@ -34,9 +44,16 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.bsq import merge_params
-from ..core.packing import PackedWeight, serving_cast, tree_map_with_path, unpack_to_float
+from ..core.packing import (
+    PackedWeight,
+    packed_leaves,
+    serving_cast,
+    tree_map_with_path,
+    unpack_to_float,
+)
 from ..device import resolve_device
 from ..models import transformer
+from ..models.common import packed_shard_mesh
 from ..obs import Observability
 from ..obs import trace as obs_trace
 
@@ -105,13 +122,27 @@ class ServeEngine:
                  spec_decode: bool = False, draft_planes: int = 2, gamma: int = 4,
                  precision_tiers: Optional[Dict[str, int]] = None, degrade: bool = False,
                  degrade_queue_depth: int = 2, degrade_hysteresis: int = 4,
-                 obs: Optional[Observability] = None):
+                 obs: Optional[Observability] = None, mesh=None):
         self.cfg = cfg
         self.max_len = max_len
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device={device} but this rank's mesh device is "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.obs = obs if obs is not None else Observability()
+        # the packed weights' bytes: the whole model's, and this rank's block
+        self.packed_bytes_global = sum(pw.hbm_bytes() for pw in packed_leaves(params))
+        if mesh is not None:
+            from ..dist import elastic, sharding
+
+            transformer.check_mesh_kinds(cfg)
+            params = elastic.reshard_tree(sharding.annotate_packed_specs(params, mesh), mesh)
         self.params = serving_params(params, cfg, self.device)
+        self.packed_bytes_local = sum(pw.hbm_bytes() for pw in packed_leaves(self.params))
         self.scheduler = None
         if (paged or paged_kernel) and not continuous:
             raise ValueError("paged=True requires continuous=True (the block pool lives "
@@ -238,8 +269,9 @@ class ServeEngine:
         t0 = obs_trace.now()
         for r in bucket:
             rec.event(r.uid, obs_trace.ADMITTED, ts=t0, batch=B)
-        logits, cache = transformer.prefill(self.params, {"tokens": prompts}, self.cfg,
-                                            self.max_len)
+        with packed_shard_mesh(self.mesh):
+            logits, cache = transformer.prefill(self.params, {"tokens": prompts}, self.cfg,
+                                                self.max_len)
         tok = self._sample(logits, temps, any_hot)
         self._sync()
         # TTFT = admitted -> first SAMPLED token
@@ -249,8 +281,9 @@ class ServeEngine:
         out_toks = [tok]
         t1 = time.perf_counter()
         for t in range(max_new - 1):
-            logits, cache = transformer.decode_step(self.params, cache, tok[:, None].long(),
-                                                    plen + t, self.cfg)
+            with packed_shard_mesh(self.mesh):
+                logits, cache = transformer.decode_step(self.params, cache, tok[:, None].long(),
+                                                        plen + t, self.cfg)
             tok = self._sample(logits, temps, any_hot)
             out_toks.append(tok)
         self._sync()

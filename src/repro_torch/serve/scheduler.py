@@ -1,6 +1,6 @@
 """Continuous-batching scheduler: admission queue + slot-pool decode loop.
 
-PyTorch port of ``repro.serve.scheduler`` without the mesh.  One
+PyTorch port of ``repro.serve.scheduler``.  One
 :class:`~repro_torch.serve.slots.SlotPool` holds ``n_slots`` persistent
 lanes; the loop is::
 
@@ -83,6 +83,19 @@ the table, the plane-count tensor), whatever the arrival pattern, and
 capture it.  The loop reads the sampled tokens on the host once per step
 (once per round under spec decode).
 
+**On a mesh** (``engine.mesh``) every rank runs this same host scheduler
+on the same requests, and every model call runs under
+``models.common.packed_shard_mesh`` (each rank's blocks of the weights
+and the pool) and, when the block tables co-shard with the pool
+(``pool.table_shards > 1``), under ``paged_shard_mesh``: each data shard's
+lanes attend over its own pool slice, and the allocator grants a lane's
+blocks from its shard (shard-aware lane assignment and victim
+selection).  Every decision is a function of host state and of tokens
+taken from logits that are bitwise the same on every rank
+(``common.logits_apply``), so every rank decides the same;
+``digests`` (a list, when set) records :meth:`state_digest` after each
+step so a caller can check that.
+
 Admission policy (:class:`SchedulerPolicy`): FIFO within an SLO tier
 (``latency`` outranks ``throughput``; a request waiting ``aging_steps``
 steps is promoted) with optional max-wait batching (``min_admit`` /
@@ -100,7 +113,10 @@ where those policies run); ``Result.prefill_ms`` is the request's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import hashlib
 import time
 import warnings
 from collections import deque
@@ -111,6 +127,7 @@ import torch
 
 from ..core.packing import packed_leaves
 from ..models import transformer
+from ..models.common import packed_shard_mesh, paged_shard_mesh
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from .slots import SlotPool, SlotState, reset_recurrent_slots, scatter_slot
@@ -306,6 +323,18 @@ def preemption_order(candidates: List[Tuple[int, SlotState]]) -> List[Tuple[int,
     return sorted(candidates, key=lambda c: (c[1].tier == "latency", -c[1].admit_seq, -c[0]))
 
 
+def _on_mesh(method):
+    """Run a scheduler method's model calls on the engine's mesh (a no-op
+    without one): packed_shard_mesh always, paged_shard_mesh when the
+    tables co-shard with the pool."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with self._mesh_context():
+            return method(self, *args, **kwargs)
+
+    return wrapped
+
+
 class ContinuousScheduler:
     """Drives a ServeEngine's params/config through a slot-pool decode loop.
 
@@ -333,7 +362,12 @@ class ContinuousScheduler:
         self.pool = SlotPool(
             cfg, policy.n_slots, engine.max_len, paged=policy.paged,
             block_size=policy.block_size, n_blocks=policy.n_blocks,
-            overcommit=policy.overcommit, registry=engine.obs.registry, device=engine.device)
+            overcommit=policy.overcommit, registry=engine.obs.registry, device=engine.device,
+            mesh=engine.mesh)
+        # shard-local paged attention where the tables co-shard with the pool
+        self._paged_mesh = engine.mesh if policy.paged and self.pool.table_shards > 1 else None
+        # per-step state digests (state_digest), recorded when set to a list
+        self.digests: Optional[List[str]] = None
 
         # Precision tiers / degrade: the tier table against the model's
         # packed width; ``_tiered`` gates every per-lane plane bookkeeping.
@@ -664,6 +698,7 @@ class ContinuousScheduler:
         else:
             self._admit_legacy(batch, slots, now)
 
+    @_on_mesh
     @torch.no_grad()
     def _admit_legacy(self, batch: List[_Pending], slots: List[int], now: int):
         # Every request's ADMITTED span starts at the burst's wall clock,
@@ -680,7 +715,7 @@ class ContinuousScheduler:
                 engine.device)
             logits, part = transformer.prefill(engine.params, {"tokens": toks}, engine.cfg,
                                                engine.max_len, self.pool.cache_dtype)
-            scatter_slot(self.pool.cache, part, slot)
+            scatter_slot(self.pool.cache, part, slot, engine.mesh)
             temps = torch.tensor([req.temperature], dtype=torch.float32, device=engine.device)
             first = int(engine._sample(logits, temps, req.temperature > 0)[0])
             tr.event(obs_trace.FIRST_TOKEN)
@@ -791,6 +826,7 @@ class ContinuousScheduler:
         idx = min(int(frac * len(desc)), len(desc) - 1)
         return min(cover, desc[idx])
 
+    @_on_mesh
     @torch.no_grad()
     def _prefill_step(self, queue: Deque[_Pending], now: int):
         """One prefill_chunk call: every prefilling lane consumes up to C
@@ -856,6 +892,7 @@ class ContinuousScheduler:
                     s.plane_log = [self._n_bits]  # the first token is full precision
 
     # -- decode ------------------------------------------------------------
+    @_on_mesh
     @torch.no_grad()
     def _decode_step(self) -> Tuple[np.ndarray, np.ndarray, Dict[int, int]]:
         """One pooled decode step over every lane; returns the lanes that
@@ -912,6 +949,7 @@ class ContinuousScheduler:
         return active, sampled_host, lane_planes
 
     # -- speculative decoding ----------------------------------------------
+    @_on_mesh
     @torch.no_grad()
     def _spec_round(self, queue: Deque[_Pending], now: int) -> None:
         """One draft+verify round over every decode-phase lane.
@@ -1190,6 +1228,8 @@ class ContinuousScheduler:
                                 rec.event(s.uid, obs_trace.DECODE_STEP)
                     self._observe_blocks()
                     yield from self._finished()
+                if self.digests is not None:
+                    self.digests.append(self.state_digest(queue))
                 if not worked and incoming and not queue:
                     # idle gap before the next arrival: fast-forward the clock
                     # (a held queue must age step by step for max_wait)
@@ -1236,6 +1276,29 @@ class ContinuousScheduler:
 
     def run(self, requests, arrival_steps: Optional[Sequence[int]] = None):
         return list(self.stream(requests, arrival_steps))
+
+    def _mesh_context(self):
+        mesh = self.engine.mesh
+        if mesh is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(packed_shard_mesh(mesh))
+        stack.enter_context(paged_shard_mesh(self._paged_mesh))
+        return stack
+
+    def state_digest(self, queue=()) -> str:
+        """A hash of the host scheduler's state: the queue, every lane's
+        bookkeeping and the block table.  Every rank of a mesh must hold
+        the same after every step."""
+        h = hashlib.sha256()
+        h.update(repr([(p.request.uid, p.arrival, p.seq, len(p.prior or ())) for p in queue])
+                 .encode())
+        for s in self.pool.slots:
+            h.update(repr((s.uid, s.remaining, s.phase, s.filled, s.tokens, s.blocks,
+                           s.committed, s.planes)).encode())
+        if self.pool.block_table is not None:
+            h.update(self.pool.block_table.cpu().numpy().tobytes())
+        return h.hexdigest()
 
     # -- telemetry ---------------------------------------------------------
     def reset_telemetry(self) -> None:

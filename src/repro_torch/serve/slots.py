@@ -1,5 +1,5 @@
 """Fixed-capacity slot pool for continuous batching: PyTorch port of
-``repro.serve.slots`` without the mesh.
+``repro.serve.slots``.
 
 A :class:`SlotPool` owns the persistent decode state of ``n_slots``
 lanes: ONE preallocated cache whose batch axis is the slot index, the
@@ -38,6 +38,15 @@ pool's "attn" caches hold one row more than ``max_len``.  Sliding-window
 lane in both layouts: it never pages, and its rows need no reset (the
 ring mask hides the last occupant's slots).
 
+**On a mesh** (``SlotPool(mesh=...)``) each rank holds its block of the
+pool under the dist rules (``dist.sharding.slot_pool_specs`` /
+``block_pool_specs``: lanes or pool blocks over the data axes, K/V heads
+over model; a local pool slice carries its own sentinel block), and the
+allocator keeps one free list per table shard
+(``dist.sharding.table_shards``).  The control vectors and the block
+table are the same on every rank: every rank runs the same host
+scheduler, and the attention paths take their lanes' rows of the table.
+
 Caches and control vectors are updated in place.  Eviction is free: a
 finished lane is marked inactive on the host and its stale rows are
 dead weight until the next occupant overwrites (or masks) them.
@@ -52,6 +61,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..dist.sharding import lane_shard  # noqa: F401  (the layout contract lives there)
 from ..models import transformer
 
 
@@ -59,11 +69,6 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def lane_shard(slot: int, n_slots: int, n_shards: int) -> int:
-    """Which table shard lane ``slot`` belongs to: contiguous lane groups
-    (a copy of ``repro.dist.sharding.lane_shard``; always 0 with the one
-    shard the port has until the mesh slice)."""
-    return slot * n_shards // n_slots
 
 
 class BlockAllocator:
@@ -92,7 +97,7 @@ class BlockAllocator:
     **Sharded tables** (``n_shards > 1``): the block id space splits into
     ``n_shards`` contiguous ranges, each with its own free list and
     commitment counter, and a lane allocates only from its own shard.
-    ``n_shards=1`` is the unsharded allocator, all the port uses today.
+    ``n_shards=1`` is the unsharded allocator.
     """
 
     def __init__(self, n_blocks: int, block_size: int, n_shards: int = 1,
@@ -243,27 +248,55 @@ def _live_slots(slots, n_slots: int) -> np.ndarray:
     return np.flatnonzero(slots < n_slots), slots
 
 
-def scatter_slot(pool_cache, part_cache, slot: int) -> None:
+def scatter_slot(pool_cache, part_cache, slot: int, mesh=None) -> None:
     """Write a batch-1 cache fragment into lane ``slot`` of the pool, IN
     PLACE.  A fragment's rows fill the first rows of the lane (the pool's
     contiguous cache may be longer: its spare row)."""
-    scatter_slots(pool_cache, part_cache, [slot])
+    scatter_slots(pool_cache, part_cache, [slot], mesh)
 
 
-def scatter_slots(pool_cache, part_cache, slots) -> None:
+def scatter_slots(pool_cache, part_cache, slots, mesh=None) -> None:
     """Write a batch-k cache fragment into lanes ``slots`` (k,), IN PLACE.
     Entries ``>= n_slots`` are padding and are skipped, as JAX's
-    ``mode="drop"`` skips them."""
+    ``mode="drop"`` skips them.  On a ``mesh`` both caches are this rank's
+    blocks (their ``mesh_spec``): the fragment is gathered whole and each
+    rank writes the rows of its own pool block."""
     parts = dict(_leaves(part_cache))
     for path, pl in _leaves(pool_cache):
         pt = parts[path]
         axis = _slot_axis(path)
+        if getattr(pl, "mesh_spec", None) is not None:
+            _scatter_block(pl, pt, axis, slots, mesh)
+            continue
         keep, slots_np = _live_slots(slots, pl.shape[axis])
         lanes = torch.as_tensor(slots_np[keep], dtype=torch.int64, device=pl.device)
         src = pt.index_select(axis, torch.as_tensor(keep, device=pt.device)).to(
             device=pl.device, dtype=pl.dtype)
         dst = pl.narrow(axis + 1, 0, pt.shape[axis + 1]) if pl.ndim > axis + 1 else pl
         dst.index_copy_(axis, lanes, src)
+
+
+def _scatter_block(pl, pt, axis: int, slots, mesh) -> None:
+    """:func:`scatter_slots` for one leaf on a mesh: lane ``s`` of the
+    pool, if this rank holds it, takes its sequence rows and K/V heads of
+    the whole fragment."""
+    from ..dist.sharding import axis_index, axis_size, block_range
+
+    lead = (None,) * axis
+    whole = mesh.gather_block(pt, lead + tuple(pt.mesh_spec))
+    spec = pl.mesh_spec
+    n_slots = pl.shape[axis] * axis_size(mesh, spec[0])
+    b0, b1 = block_range(mesh, spec[0], n_slots)
+    h0, h1 = block_range(mesh, spec[2], whole.shape[axis + 2])
+    s_l = pl.shape[axis + 1]
+    s0 = axis_index(mesh, spec[1]) * s_l
+    rows = min(whole.shape[axis + 1], s0 + s_l) - s0
+    keep, slots_np = _live_slots(slots, n_slots)
+    for i in keep:
+        lane = int(slots_np[i])
+        if rows > 0 and b0 <= lane < b1:
+            src = whole.select(axis, int(i)).narrow(axis, s0, rows).narrow(axis + 1, h0, h1 - h0)
+            pl.select(axis, lane - b0).narrow(axis, 0, rows).copy_(src)
 
 
 def reset_recurrent_slots(pool_cache, slots) -> None:
@@ -327,8 +360,11 @@ class SlotPool:
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, cache_dtype=None,
                  paged: bool = False, block_size: int = 32, n_blocks: Optional[int] = None,
-                 overcommit: float = 1.0, registry=None, device=None):
+                 overcommit: float = 1.0, registry=None, device=None, mesh=None):
+        from ..dist import sharding as dist_sharding
+
         self.cfg = cfg
+        self.mesh = mesh
         self.n_slots = n_slots
         self.max_len = max_len
         self.device = resolve_device(device)
@@ -337,18 +373,20 @@ class SlotPool:
         self.registry = registry
         self.block_size = block_size if paged else None
         self.blocks_per_lane = _ceil_div(max_len, block_size) if paged else None
-        # repro.dist.sharding.table_shards without a mesh: one shard
         self.table_shards = 1
         self.overcommit = overcommit if paged else 1.0
         if paged:
             # default capacity matches the unpaged reservation (no admission
             # throttling); callers shrink n_blocks to save device memory
             self.n_blocks = n_slots * self.blocks_per_lane if n_blocks is None else n_blocks
-            self.allocator = BlockAllocator(self.n_blocks, block_size,
-                                            overcommit=overcommit, registry=registry)
+            self.table_shards = dist_sharding.table_shards(mesh, n_slots, self.n_blocks)
+            self.allocator = BlockAllocator(
+                self.n_blocks, block_size, n_shards=self.table_shards, overcommit=overcommit,
+                registry=registry,
+                labels=dist_sharding.mesh_labels(mesh) if mesh is not None else None)
             self.cache = transformer.init_cache(
                 cfg, n_slots, max_len, self.cache_dtype, self.device,
-                paged_blocks=self.n_blocks, block_size=block_size)
+                paged_blocks=self.n_blocks, block_size=block_size, mesh=mesh)
         else:
             self.n_blocks = None
             self.allocator = None
@@ -356,7 +394,7 @@ class SlotPool:
             # prefill_chunk; "local" rings keep JAX's min(window, max_len)
             # slots, so the spare row stays outside the ring's modulus
             self.cache = transformer.init_cache(cfg, n_slots, max_len, self.cache_dtype,
-                                                self.device, drop_row=True)
+                                                self.device, drop_row=True, mesh=mesh)
         dev = self.device
         self.pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         self.temps = torch.zeros((n_slots,), dtype=torch.float32, device=dev)

@@ -8,7 +8,7 @@ worker process writes a heartbeat JSON (`hb_<host>.json`) every
 classifies hosts as healthy / suspect / dead from heartbeat age.  The
 trainer's recovery path on `dead`: stop, exclude the host and resume
 from the newest checkpoint, the flow ``repro_torch.examples.fault_tolerance``
-demonstrates end to end (rebuilding a device mesh comes with the port's
+demonstrates end to end (rebuilding a device mesh comes with the port's training
 mesh slice).
 """
 from __future__ import annotations

@@ -21,7 +21,7 @@ planes and masks), so the state passed in is consumed; a full-width
 state (32 GB of planes and momentum at 2 layers) is never held twice.
 :func:`abstract_bsq_state` and :func:`abstract_plain_state` build the
 same states on the ``meta`` device (shapes and dtypes, no data) for the
-dry run.  The compressed data-parallel steps come with the mesh slice of
+dry run.  The compressed data-parallel steps come with the training mesh slice of
 the port.
 """
 from __future__ import annotations

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -38,7 +39,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.examples.fault_tolerance", "repro_torch.models.ssm",
             "repro_torch.models.rglru", "repro_torch.roofline.hw",
             "repro_torch.roofline.analysis", "repro_torch.roofline.report",
-            "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb"} <= set(mods)
+            "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
+            "repro_torch.dist.sharding", "repro_torch.dist.elastic",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -93,17 +96,27 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, monkeypatch)
 
 
 def test_unported_paths_say_so():
-    """The mesh flags still say "not yet ported" (the dry run's, that the
-    mesh slice brings them); every layer kind and
-    frontend is ported, so ``init_params`` builds all ten reduced configs
-    on the CPU."""
+    """The serve launcher's mesh flags run (4 gloo ranks on the CPU, tokens
+    equal to the same command without a mesh); the training launcher's
+    and the dry run's meshes still say "mesh slice" (the training mesh
+    slice brings them); every layer kind and frontend is ported, so
+    ``init_params`` builds all ten reduced configs on the CPU."""
     from repro_torch.configs import ARCH_IDS
     from repro_torch.launch import serve as launcher
+    from repro_torch.launch import train as train_launcher
     from repro_torch.models import transformer
 
-    for argv in (["--data-parallel", "2"], ["--model-parallel", "2"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            launcher.main(argv + ["--device", "cpu"])
+    argv = ["--device", "cpu", "--packed-bits", "6", "--smoke"]
+    mesh = launcher.main(argv + ["--data-parallel", "2", "--model-parallel", "2"])
+    single = launcher.main(argv)
+    assert len(mesh) == len(single) == 8
+    for a, b in zip(sorted(mesh, key=lambda r: r.uid), sorted(single, key=lambda r: r.uid)):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    for flags in (["--data-parallel", "2"], ["--model-parallel", "2"]):
+        with pytest.raises(SystemExit, match="must be given together"):
+            launcher.main(flags + ["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="mesh slice"):
+        train_launcher.main(["--device", "cpu", "--data-parallel", "2", "--model-parallel", "2"])
     from repro_torch.launch import dryrun
 
     for flag in ("--single-pod", "--multi-pod"):
