@@ -54,7 +54,7 @@ failure exits non-zero and none is caught:
    train_lm_bsq's lm-100m (f32), within 1e-5 of each row's plain value, a
    second call bitwise equal, timed beside one ``torch.linalg.vector_norm``
    call; then grouped, one launch per BSQ step's regulariser call
-   (granite-3-2b's 16 views, 16.04 GB; ResNet-20's 44; reduced
+   (phase 6's 1-layer granite-3-2b's 16 views, 11.66 GB; ResNet-20's 44; reduced
    qwen2-moe's 24; lm-100m's 18, 5.81 GB), forward within 1e-5 per row,
    bitwise each view's one-view call and a second call, and the backward
    kernel (one launch) bitwise the plain ``x * (2 g)[:, None]`` and
@@ -94,9 +94,10 @@ failure exits non-zero and none is caught:
    engine (a 2048-token prompt wraps every ring in prefill, a 1020-token
    one wraps it in decode) and the chunked paged-kernel engine: every
    logit row within the phase-3 tolerance, identical greedy tokens;
-3e. the phase-3 model (2 layers, f32) through the continuous paged-kernel
-   engine with the scheduler policies, card against CPU: precision tiers
-   with a forced degrade schedule, spec decode, and overcommit that
+3e. full-width granite-3-2b cut to 1 layer (2 before PR 25), f32, through
+   the continuous paged-kernel engine with the scheduler policies, card
+   against CPU: precision tiers with a forced degrade schedule, spec
+   decode, and overcommit that
    preempts; identical tokens, plane logs and counts, the card's replay
    of each plane log equal to its tokens, spec tokens equal to a
    non-speculative run's, the host syncs of each spec round counted;
@@ -213,8 +214,9 @@ failure exits non-zero and none is caught:
    collectives gloo takes on CUDA tensors (a probe); the phase-3 model
    (2 layers, f32, 6-bit) through the bucketed engine and the model API,
    greedy tokens equal and logits within 1e-4 of the same model in this
-   process on the card, every rank's logits bitwise alike; full-depth f32
-   prefill logits against this process (printed); full-depth bf16 granite-3-2b bucketed (4 x 128
+   process on the card, every rank's logits bitwise alike; then granite-3-2b
+   cut to 20 of its 40 layers (``MESH_LAYERS``; 40 before PR 25): f32
+   prefill logits against this process (printed); bf16 bucketed (4 x 128
    tokens), continuous with the paged kernel (4 requests on 8 lanes, one
    128-token chunk per prompt) and spec decode, each rank's packed bytes
    (a quarter), kernel launches (bitserial static and runtime, paged and
@@ -222,17 +224,18 @@ failure exits non-zero and none is caught:
    collectives.  Then bitserial against its plain version at every
    (M, K, N, dtype) the ranks gave it (recorded on each rank), at least
    a rank's four blocks at M 4, 8, 512 and 1024 in bf16 and M 4 and 512
-   in f32, ``active=a`` bitwise ``truncate_packed``; last, at full depth
+   in f32, ``active=a`` bitwise ``truncate_packed``; last, at that depth
    in bf16, the ranks' prefill logits against this process's, plain and
    computing each product as two K halves added as the ranks add them
    (the witness of where the tokens part; agreements printed), and the
    bucketed tokens against this process's;
-6. the BSQ training slice: full-width granite-3-2b cut to 2 layers,
+6. the BSQ training slice: full-width granite-3-2b cut to 1 layer (2
+   until phase 6f took their time),
    trained through ``repro_torch.launch.train.run``: 4 steps with a
    requant and a checkpoint at step 4, then a second run that resumes
    from that checkpoint to step 8 (requant at 8; its next checkpoint
    would be at 12: the card's machine takes at most 45 GiB of disk
-   writes, and a checkpoint is 32 GB).  The bgl_sumsq launches are
+   writes, and a checkpoint is 16 GB).  The bgl_sumsq launches are
    checked exactly (one grouped forward and one backward launch per
    step, and no serving kernel launches), every step's loss
    finite, the resume's restore held bit for bit against a host copy of
@@ -279,6 +282,25 @@ failure exits non-zero and none is caught:
    bitserial call exactly ``bitserial_work``'s; and ``python -m
    repro_torch.launch.dryrun --arch granite-3-2b --shape decode_32k``
    printing ``[ok]``;
+6f. BSQ training on a ("data", "model") mesh: 4 gloo ranks on the card
+   (``launch.mesh.run_on_mesh``).  On 2x2, full-width granite-3-2b cut to
+   2 layers, f32 (activations too), 2 steps of 4 x 64 tokens through
+   ``train.step.make_bsq_train_step(mesh=)``: each rank holds its block
+   of every plane, moment and batch (FSDP over "data", Megatron pairs
+   over "model"); its launches (exactly 2 + 2 bgl_sumsq, nothing else),
+   its kernel against the plain version on its own plane rows (backward
+   bitwise), its state's sampled fingerprints and its export of the
+   trained blocks (``core.bsq.export_packed_blocks``) served through one
+   bucketed decode; then, after the ranks exit, one process trains the
+   same model on the whole batches: losses within 1e-5 (the clipped
+   second step's gradient norm 1e-4), sampled state within 1e-4 of each
+   block's max |x|, each rank's planes and sign bytes equal to the block
+   of the one process's export (scales within 1e-5), tokens equal.  The
+   reduced config's step-2 checkpoint from 2x2 resumes on 4x1 to step 4
+   within 1e-5 of one process's 4 steps; a compressed BSQ step on 4x1
+   (params alike on every rank, 1 + 1 launches per rank).  The kernel at
+   a rank's row shapes is timed beside its bound, plain version and
+   ``_foreach_norm``/``_foreach_mul``;
 7. a ``{"kernels": [...]}`` line (the bitserial, runtime-plane, paged
    and flash entries add phase 4k's launches, summed over its ranks, and
    their times at a rank's shapes; the bitserial decode and prefill
@@ -287,7 +309,8 @@ failure exits non-zero and none is caught:
    below 1 beats it; the bitserial, flash, paged and bgl_sumsq entries
    add the MoE and recurrent phases' launches and the kernels at their
    shapes; the
-   bgl_sumsq forward and backward entries carry the grouped times), the
+   bgl_sumsq forward and backward entries carry the grouped times and
+   phase 6f's launches per rank and times at a rank's rows), the
    card's name and power limit, and the final ``{"ok": true, ...}``
    line.
 
@@ -396,11 +419,14 @@ Q_MAX_LEN, Q_N_BLOCKS, Q_CHUNK, Q_MAX_NEW = 1024 + 32, 256, 256, 32
 # (a near-tie of f32 gates summed in another order).  A wrong gate or top-k
 # on the card would show as far more
 ROUTE_DIFFER_SHARE = 0.01
-# bgl_sumsq (phase 2c): the (bits x groups, rest) plane views of a BSQ train
-# step of 2-layer full-width granite-3-2b (9 planes; 2 layers per stacked
-# tensor), and two ragged shapes
-BGL_EMBED, BGL_QO, BGL_KV, BGL_MLP = (9, 101_187_584), (18, 4_194_304), (18, 1_048_576), \
-    (18, 16_777_216)
+# phase 6's depth: 1 layer since phase 6f (2 before; a checkpoint of the
+# 2-layer state took 70 s to write and 90 s to read)
+TRAIN_LAYERS = 1
+# bgl_sumsq (phase 2c): the (bits x groups, rest) plane views of phase 6's
+# BSQ train step of full-width granite-3-2b (9 planes; TRAIN_LAYERS layers
+# per stacked tensor, a group each), and two ragged shapes
+BGL_EMBED, BGL_QO, BGL_KV, BGL_MLP = (9, 101_187_584), (9 * TRAIN_LAYERS, 4_194_304), \
+    (9 * TRAIN_LAYERS, 1_048_576), (9 * TRAIN_LAYERS, 16_777_216)
 BGL_SHAPES = [BGL_MLP, BGL_QO, BGL_KV, BGL_EMBED, (7, 1_000_003), (1, 33)]
 # the 16 views of one train step's regulariser call (one grouped launch): wp
 # and wn of the embedding, wq, wo, wk, wv and the three MLP projections
@@ -1287,7 +1313,8 @@ def _count_syncs_per_round(sched):
 
 
 def policies_parity(dev, card):
-    """Phase 3e: full-width granite-3-2b cut to 2 layers, f32, 6-bit
+    """Phase 3e: full-width granite-3-2b cut to 1 layer (2 before PR 25,
+    cut for the script's time), f32, 6-bit
     packed, through the continuous paged-kernel engine on the card
     (kernels) and on the CPU (plain path), 3 lanes, 3 requests of 12
     prompt tokens and 6 new ones, in three runs: (a) tiers {"economy": 4}
@@ -1313,7 +1340,7 @@ def policies_parity(dev, card):
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.serve.scheduler import SchedulerPolicy
 
-    cfg2 = get_config("granite-3-2b").scaled(n_layers=2, dtype="float32",
+    cfg2 = get_config("granite-3-2b").scaled(n_layers=1, dtype="float32",
                                              kv_cache_dtype="float32")
     p_gpu = transformer.init_params(cfg2, torch.Generator(device=dev).manual_seed(1), dev,
                                     pack_bits=N_BITS)
@@ -1609,8 +1636,8 @@ def bgl_bound(xs, backward=False):
 
 def bgl_group_views():
     """The views of the grouped rows: one BSQ step's regulariser call each
-    (every wp, then every wn), f32: 2-layer full-width granite-3-2b (16
-    views, 16.04 GB), ResNet-20 width 16 (44, 19.5 MB), reduced
+    (every wp, then every wn), f32: phase 6's full-width granite-3-2b
+    (TRAIN_LAYERS layers, 16 views), ResNet-20 width 16 (44, 19.5 MB), reduced
     qwen2-moe-a2.7b (24, per-(layer, expert) groups for the routed
     experts) and phase 6d's train_lm_bsq model, lm-100m (18, 12 stacked
     layers, 5.81 GB).  The last two are the shapes of their BSQ states,
@@ -1951,7 +1978,8 @@ def profile_train(state, ctx, dev, card, steps=2):
     bgl = [(t, n) for k, (t, n) in by_name.items() if "bgl_" in k]
     bgl_ms = sum(t for t, _ in bgl) / steps
     bgl_bwd_ms = sum(t for k, (t, _) in by_name.items() if "bgl_grad" in k) / steps
-    print(f"[profile] BSQ train step, 2-layer full-width granite-3-2b, batch 8 x 64: wall "
+    print(f"[profile] BSQ train step, {TRAIN_LAYERS}-layer full-width granite-3-2b, batch 8 x 64: "
+          f"wall "
           f"{wall_ms:.2f} ms under the profiler, device busy {busy:.2f} ms (idle "
           f"{1 - busy / wall_ms:.1%}); bgl_sumsq {bgl_ms:.3f} ms per step ({bgl_ms / busy:.1%} "
           f"of the busy time, {sum(n for _, n in bgl) / steps:.0f} kernels; the backward "
@@ -2038,7 +2066,7 @@ def remat_memory(dev, card):
 
 
 def bsq_slice(dev, card):
-    """Phase 6: BSQ-train 2-layer full-width granite-3-2b through the
+    """Phase 6: BSQ-train full-width granite-3-2b (TRAIN_LAYERS layers) through the
     launcher, restore the step-4 checkpoint, export, serve."""
     import numpy as np
     import torch
@@ -2059,7 +2087,7 @@ def bsq_slice(dev, card):
     from repro_torch.tree import flatten_with_path, tree_map
 
     full = get_config("granite-3-2b")
-    cfg = full.scaled(n_layers=2)
+    cfg = full.scaled(n_layers=TRAIN_LAYERS)
     workdir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2069,7 +2097,7 @@ def bsq_slice(dev, card):
             "--ckpt-interval", str(ckpt_interval), "--workdir", str(workdir)])
 
     # run 1 saves the step-4 checkpoint; run 2 resumes from it to step 8 with
-    # its next checkpoint at step 12, so the card's disk takes one 32 GB save
+    # its next checkpoint at step 12, so the card's disk takes one save
     runs = [argv(TRAIN_INTERVAL, TRAIN_INTERVAL), argv(TRAIN_STEPS, TRAIN_STEPS + TRAIN_INTERVAL)]
     a = runs[1]
     print(f"[train] granite-3-2b at its published width (d_model={cfg.d_model}, d_ff="
@@ -2092,9 +2120,9 @@ def bsq_slice(dev, card):
             saved.update(_host_snapshot(tree))
         return orig_save(tree, directory, step, **kw)
 
-    def restore_and_compare(tree_like, directory):
+    def restore_and_compare(tree_like, directory, mesh=None):
         t0 = time.perf_counter()
-        tree, step = orig_restore_latest(tree_like, directory)
+        tree, step = orig_restore_latest(tree_like, directory, mesh=mesh)
         if tree is None:  # the first run starts from an empty workdir
             return tree, step
         torch.cuda.synchronize()
@@ -2345,7 +2373,8 @@ def dryrun_phase(dev, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 6's BSQ train step: 2 layers at full width, bf16 weights, batch 8 x 64
+    # a BSQ train step of 2 layers at full width (phase 6f's depth; phase 6
+    # trains TRAIN_LAYERS), bf16 weights, batch 8 x 64
     cfg2 = cfg.scaled(n_layers=2)
     bsq_cfg = BSQConfig(n_init=8, alpha=5e-3, mode="static", compute_dtype=torch.bfloat16)
     opt, lr_fn = SGDM(), step_decay(0.2, [100])
@@ -2737,7 +2766,7 @@ def lm_examples(dev, card):
     32 tokens served from the packed export: bitserial and flash),
     fault_tolerance (20 steps, host 2 dies, resume to 30), train_lm_bsq
     (the 12 x 512 LM, cut to 40 steps with requant at 20 and no workdir:
-    its 12 GB checkpoint would add to phase 6's 32 GB on the card
+    its 12 GB checkpoint would add to phase 6's 16 GB on the card
     machine's disk)."""
     import numpy as np
     import torch
@@ -4821,8 +4850,11 @@ def frontend_slice(dev, card, engine_cls, arch):
 
 # the mesh phase (4k): a 2x2 ("data", "model") mesh of 4 ranks sharing the
 # card through gloo; the 2-layer f32 parity model's requests and decode
-# steps, and the full-depth bf16 runs' traffic
+# steps, and the deep bf16 runs' traffic
 MESH_SHAPE = (2, 2)
+# the deep runs' depth: 20 of granite-3-2b's 40 layers since PR 25 (40
+# before), cut to keep the script well inside its time limit
+MESH_LAYERS = 20
 MESH_PARITY_STEPS = 4
 MESH_MAX_LEN, MESH_SLOTS, MESH_BLOCKS, MESH_NEW = 512, 8, 64, 8
 MESH_BUCKET = (4, 128)  # requests x prompt tokens
@@ -5007,8 +5039,9 @@ def _gloo_cuda_probe(mesh):
 
 def mesh_rank(mesh):
     """Phase 4k on one rank of the 2x2 mesh: the f32 parity model, then
-    full-depth bf16 granite-3-2b bucketed, continuous (paged kernel) and
-    spec decode, with this rank's kernel launches and packed bytes."""
+    bf16 granite-3-2b cut to MESH_LAYERS layers bucketed, continuous
+    (paged kernel) and spec decode, with this rank's kernel launches and
+    packed bytes."""
     import numpy as np
     import torch
 
@@ -5032,9 +5065,10 @@ def mesh_rank(mesh):
     with packed_shard_mesh(mesh):
         out["parity_logits"] = _mesh_parity_model(local, cfg2, prompts)
     del eng, local, p2
-    # full depth, f32: the model API's prefill logits of the bucketed
+    # MESH_LAYERS deep, f32: the model API's prefill logits of the bucketed
     # prompts (the bf16 runs below are held to one process by agreement)
-    cfg32 = get_config("granite-3-2b").scaled(dtype="float32", kv_cache_dtype="float32")
+    cfg32 = get_config("granite-3-2b").scaled(n_layers=MESH_LAYERS, dtype="float32",
+                                              kv_cache_dtype="float32")
     p32 = transformer.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev,
                                   pack_bits=N_BITS)
     local = elastic.reshard_tree(sharding.annotate_packed_specs(p32, mesh), mesh)
@@ -5042,8 +5076,8 @@ def mesh_rank(mesh):
     with packed_shard_mesh(mesh):
         out["deep_f32_logits"] = _mesh_deep_logits(local, cfg32, dev)
     del local
-    # full depth, bf16: every rank draws the same weights, keeps its blocks
-    cfg = get_config("granite-3-2b")
+    # MESH_LAYERS deep, bf16: every rank draws the same weights, keeps its blocks
+    cfg = get_config("granite-3-2b").scaled(n_layers=MESH_LAYERS)
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
                                      pack_bits=N_BITS)
@@ -5159,13 +5193,14 @@ def mesh_phase(dev, card, time_ms, median_ms):
     one card.  Paged and flash at a rank's shapes against their plain
     versions; then the ranks (``launch.mesh.run_on_mesh``, backend gloo):
     the 2-layer f32 parity model's greedy tokens and logits against the
-    same model in this process on the card, and full-depth bf16
-    granite-3-2b bucketed, continuous (paged kernel) and spec decode, each
-    rank's packed bytes, kernel launches, decode ms per step and TTFT; a
-    rank's failure fails the run.  Then bitserial against its plain
-    version at every shape the ranks gave it; last, full depth against
-    one process: f32 prefill logits, and in bf16 the prefill logits
-    beside the K-halves witness and the bucketed tokens (printed)."""
+    same model in this process on the card, and bf16 granite-3-2b cut to
+    MESH_LAYERS layers bucketed, continuous (paged kernel) and spec
+    decode, each rank's packed bytes, kernel launches, decode ms per step
+    and TTFT; a rank's failure fails the run.  Then bitserial against its
+    plain version at every shape the ranks gave it; last, MESH_LAYERS
+    deep against one process: f32 prefill logits, and in bf16 the prefill
+    logits beside the K-halves witness and the bucketed tokens
+    (printed)."""
     import numpy as np
     import torch
 
@@ -5179,7 +5214,7 @@ def mesh_phase(dev, card, time_ms, median_ms):
           f"(NCCL refuses two ranks on one GPU, and this machine has one card; gloo takes "
           f"the ranks' CUDA tensors for all_reduce and all_gather) [{card}]", flush=True)
     rep = {"mesh": list(MESH_SHAPE), "backend": "gloo", "kernels_at_shard_shapes": {}}
-    cfg = get_config("granite-3-2b")
+    cfg = get_config("granite-3-2b").scaled(n_layers=MESH_LAYERS)
     # paged and flash at the shapes a rank gives them (bitserial after the
     # ranks, at every shape they gave it)
     kv_l, G = cfg.n_kv_heads // m_ax, cfg.n_heads // cfg.n_kv_heads
@@ -5263,8 +5298,8 @@ def mesh_phase(dev, card, time_ms, median_ms):
     r0 = ranks[0]
     print(f"[4k] gloo on CUDA tensors: {r0['gloo_cuda']} [{card}]", flush=True)
     b, c, s = r0["bucketed"], r0["continuous"], r0["spec"]
-    print(f"[4k] 40-layer granite-3-2b bf16 6-bit on the 2x2 mesh: bucketed {MESH_BUCKET[0]} x "
-          f"{MESH_BUCKET[1]} tokens: TTFT {b['ttft_ms']:.1f} ms, decode "
+    print(f"[4k] {MESH_LAYERS}-layer granite-3-2b bf16 6-bit on the 2x2 mesh: bucketed "
+          f"{MESH_BUCKET[0]} x {MESH_BUCKET[1]} tokens: TTFT {b['ttft_ms']:.1f} ms, decode "
           f"{b['decode_ms_per_step']:.2f} ms per step; continuous (paged kernel, {MESH_SLOTS} "
           f"lanes): decode {c['decode_ms_per_step']:.2f} ms per step over {c['decode_steps']} "
           f"steps, TTFT p50 {np.percentile(c['ttft_ms'], 50):.1f} ms p90 "
@@ -5272,7 +5307,7 @@ def mesh_phase(dev, card, time_ms, median_ms):
           f"{s['accepted']}/{s['drafted']} drafts accepted; ranks' wall "
           f"{rep['ranks_wall_s']:.1f} s (bucketed {b['wall_s']:.1f}, continuous "
           f"{c['wall_s']:.1f}, spec {s['wall_s']:.1f}) [{card}]", flush=True)
-    # full depth in one process: f32 prefill logits (printed beside the
+    # MESH_LAYERS deep in one process: f32 prefill logits (printed beside the
     # 1e-4 of the 2-layer check)
     from repro_torch.models import transformer
 
@@ -5287,17 +5322,17 @@ def mesh_phase(dev, card, time_ms, median_ms):
     d32 = max((r["deep_f32_logits"] - want32).abs().max().item() for r in ranks)
     same32 = float((r0["deep_f32_logits"].argmax(-1) == want32.argmax(-1)).float().mean())
     check(all(bool(torch.isfinite(r["deep_f32_logits"]).all()) for r in ranks),
-          "[4k] non-finite 40-layer f32 logits")
+          f"[4k] non-finite {MESH_LAYERS}-layer f32 logits")
     for r in ranks:
         del r["deep_f32_logits"]
     rep["deep_f32"] = {"max_abs_dlogit": d32, "max_abs_logit": m32,
                        "first_token_agreement": same32}
-    print(f"[4k] 40-layer f32 prefill logits, mesh against one process: max|dlogit| "
+    print(f"[4k] {MESH_LAYERS}-layer f32 prefill logits, mesh against one process: max|dlogit| "
           f"{d32:.3e} of max|logit| {m32:.3e} ({d32 / m32:.3e}), first tokens agree "
           f"{100 * same32:.0f} % "
           f"[{card}]", flush=True)
 
-    # bf16 at full depth: the ranks' prefill logits (the first tokens)
+    # bf16 MESH_LAYERS deep: the ranks' prefill logits (the first tokens)
     # against one process's, plain and computing as the ranks do (K halves
     # rounded to bf16 and added in f32, _k_halves_logits); the top-2 gap of one
     # process's logits says how far a change may move them before an
@@ -5313,7 +5348,7 @@ def mesh_phase(dev, card, time_ms, median_ms):
     mesh16 = [r.pop("deep_bf16_logits").float() for r in ranks]
     check(all(torch.equal(m, mesh16[0]) for m in mesh16), "[4k] ranks' bf16 logits differ")
     check(bool(torch.isfinite(mesh16[0]).all() and torch.isfinite(halves16).all()),
-          "[4k] non-finite 40-layer bf16 logits")
+          f"[4k] non-finite {MESH_LAYERS}-layer bf16 logits")
     top2 = plain16.topk(2, dim=-1).values
     gap = float((top2[..., 0] - top2[..., 1]).median())
 
@@ -5325,8 +5360,8 @@ def mesh_phase(dev, card, time_ms, median_ms):
                "halves_vs_one": versus(halves16, plain16),
                "mesh_vs_halves": versus(mesh16[0], halves16),
                "max_abs_logit": plain16.abs().max().item(), "median_top2_gap": gap}
-    print(f"[4k] 40-layer bf16 prefill logits (max|logit| {witness['max_abs_logit']:.3e}, "
-          f"median top-2 gap {gap:.3e}): " + "; ".join(
+    print(f"[4k] {MESH_LAYERS}-layer bf16 prefill logits (max|logit| "
+          f"{witness['max_abs_logit']:.3e}, median top-2 gap {gap:.3e}): " + "; ".join(
               f"{k.replace('_vs_', ' against ')} max|dlogit| {v['max_abs_dlogit']:.3e}, first "
               f"tokens agree {100 * v['first_token_agreement']:.0f} %"
               for k, v in witness.items() if isinstance(v, dict)) + f" [{card}]", flush=True)
@@ -5336,14 +5371,472 @@ def mesh_phase(dev, card, time_ms, median_ms):
                 float(np.mean([x[u][0] == y[u][0] for u in x])))
 
     agree, first = agreement(one_toks, b["tokens"])
-    print(f"[4k] bf16 40-layer bucketed tokens: mesh against one process {100 * agree:.1f} % "
-          f"of positions agree (first tokens {100 * first:.0f} %) [{card}]", flush=True)
+    print(f"[4k] bf16 {MESH_LAYERS}-layer bucketed tokens: mesh against one process "
+          f"{100 * agree:.1f} % of positions agree (first tokens {100 * first:.0f} %) [{card}]",
+          flush=True)
     del one
     gc.collect()
     torch.cuda.empty_cache()
     rep.update(ranks=ranks, bf16_token_agreement=agree, bf16_first_token_agreement=first,
                bf16_prefill_witness=witness,
                launches={k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]})
+    return rep
+
+
+# the training mesh phase (6f): full-width granite-3-2b cut to MT_LAYERS
+# layers, BSQ in f32 on a 2x2 mesh of 4 gloo ranks on the card, MT_STEPS
+# steps of MT_BATCH x MT_SEQ; then the reduced config's checkpoint on 2x2
+# resumed on 4x1 and a 4x1 compressed step
+MT_LAYERS, MT_STEPS, MT_BATCH, MT_SEQ = 2, 2, 4, 64
+MT_SAMPLES = 1 << 16  # state elements sampled per leaf block
+MT_LOSS_TOL = 1e-5  # ce, reg, total: relative, f32 sums over ranks
+# grad_norm: relative.  The first step's norm (about 330) is clipped to 1,
+# so the next step's (about 0.37) carries the first step's f32 rounding
+# some 900 times over: 1e-7 x 900
+MT_GRAD_NORM_TOL = 1e-4
+MT_STATE_TOL = 1e-4  # sampled state elements: of the leaf block's largest |x|
+MT_RESUME_TOL = 1e-5  # the reduced resume against one process: absolute
+
+
+def _mt_cfg():
+    """Full-width granite-3-2b cut to MT_LAYERS layers, f32 activations and
+    cache (the published config computes in bf16)."""
+    from repro_torch.configs import get_config
+
+    return get_config("granite-3-2b").scaled(n_layers=MT_LAYERS, dtype="float32",
+                                             kv_cache_dtype="float32")
+
+
+def _mt_bsq_cfg():
+    import torch
+
+    from repro_torch.core import BSQConfig
+
+    return BSQConfig(n_init=8, alpha=5e-3, mode="static", compute_dtype=torch.float32)
+
+
+def _mt_fingerprint(x):
+    """A leaf block's f64 sum, its largest |x| and MT_SAMPLES of its
+    elements at positions drawn from its size (the same on both sides)."""
+    import torch
+
+    flat = x.reshape(-1)
+    gen = torch.Generator(device=flat.device).manual_seed(flat.numel())
+    idx = torch.randint(0, flat.numel(), (min(MT_SAMPLES, flat.numel()),), generator=gen,
+                        device=flat.device)
+    return (float(flat.double().sum()), float(flat.abs().max()) if flat.numel() else 0.0,
+            flat[idx].float().cpu().numpy())
+
+
+def _mt_export_hashes(packed):
+    """Per packed weight: the sha256 of its planes and of its sign bytes, its
+    bit count and its f32 scales (trained values: held to a tolerance)."""
+    import hashlib
+
+    return {k: tuple(hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+                     for t in (pw.planes, pw.sign)) + (pw.n_bits, pw.scale.cpu().numpy())
+            for k, pw in packed.items()}
+
+
+def _mt_same_export(got, want):
+    """(planes, sign and bit counts equal, the largest relative scale
+    difference)."""
+    import numpy as np
+
+    same = sorted(got) == sorted(want) and all(got[k][:3] == want[k][:3] for k in want)
+    err = max(float(np.max(np.abs(got[k][3] - want[k][3]) / np.abs(want[k][3])))
+              for k in want) if same else float("inf")
+    return same, err
+
+
+def _mt_served(packed, reps, state, ctx):
+    from repro_torch.core import merge_params
+    from repro_torch.core.requant import forward_value
+
+    served = {k: v for k, v in packed.items() if k != "embed"}
+    served["embed"] = forward_value(reps["embed"])
+    return merge_params(ctx.template, served, state["trainable"]["float"])
+
+
+def _mt_requests(cfg):
+    import numpy as np
+
+    from repro_torch.data import MarkovLM
+    from repro_torch.serve import Request
+
+    task = MarkovLM(vocab=cfg.vocab_size, seed=3)
+    return [Request(uid=i, tokens=task.sample(np.random.default_rng(50 + i), 1, 16)[0, :16]
+                    .astype(np.int32), max_new=8) for i in range(4)]
+
+
+def _mt_reduced_train(mesh, workdir, total, skip, dev=None):
+    """train_bsq of reduced granite-3-2b (f32) on ``mesh`` (or in one process
+    on ``dev``) from the seed-0 draw, checkpoints every 2 steps; ``skip``
+    batches passed over first."""
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import MarkovLM, sharded_lm_iterator
+    from repro_torch.dist import elastic
+    from repro_torch.optim import SGDM, step_decay
+    from repro_torch.train import (TrainerConfig, init_bsq_state, make_bsq_train_step,
+                                   make_requant_step, train_bsq)
+
+    cfg = reduced_config("granite-3-2b")
+    dev = mesh.device if mesh is not None else dev
+    state, ctx = init_bsq_state(torch.Generator(device=dev).manual_seed(0), cfg, _mt_bsq_cfg(),
+                                SGDM(), dev, mesh=mesh)
+    data = sharded_lm_iterator(MarkovLM(vocab=cfg.vocab_size, seed=13), 4, 16, device=dev,
+                               sharding=mesh)
+    for _ in range(skip):
+        next(data)
+    tcfg = TrainerConfig(total_steps=total, requant_interval=100, ckpt_interval=2,
+                         log_interval=1, workdir=workdir)
+    out = train_bsq(state, ctx, make_bsq_train_step(ctx, SGDM(), step_decay(0.2, [2]),
+                                                     mesh=mesh),
+                    make_requant_step(ctx, mesh), data, tcfg, mesh=mesh)
+    state = out["state"]
+    if mesh is not None:
+        state = elastic.gather_tree(state, mesh, elastic.train_state_specs(state, mesh,
+                                                                           ctx.template))
+    from repro_torch.tree import flatten_with_path
+
+    return {n: x.cpu().numpy() for n, x in flatten_with_path(state)}, \
+        [h["step"] for h in out["history"]]
+
+
+def mesh_train_rank(mesh, workdir):
+    """Phase 6f on one rank of the 2x2 mesh: MT_STEPS BSQ steps of
+    full-width granite-3-2b (MT_LAYERS layers, f32) on its blocks, their
+    launches, its bgl_sumsq launch against the plain version on its own
+    plane rows, its state's fingerprints, its export of the trained
+    blocks and one bucketed decode served from them; then the reduced
+    config's checkpoint at step 2."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.bsq import export_packed_blocks
+    from repro_torch.data import MarkovLM, sharded_lm_iterator
+    from repro_torch.kernels import bgl_sumsq as bgl
+    from repro_torch.kernels import ref
+    from repro_torch.optim import SGDM, step_decay
+    from repro_torch.train import init_bsq_state, make_bsq_train_step, state_reps
+    from repro_torch.tree import flatten_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    regularizer = importlib.import_module("repro_torch.core.regularizer")
+    dev = mesh.device
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords)}
+    cfg = _mt_cfg()
+    t0 = time.perf_counter()
+    state, ctx = init_bsq_state(torch.Generator(device=dev).manual_seed(0), cfg, _mt_bsq_cfg(),
+                                SGDM(), mesh=mesh)
+    torch.cuda.synchronize(dev)
+    out["init_s"] = time.perf_counter() - t0
+    step = make_bsq_train_step(ctx, SGDM(), step_decay(0.2, [MT_STEPS]), mesh=mesh)
+    data = sharded_lm_iterator(MarkovLM(vocab=cfg.vocab_size, seed=13), MT_BATCH, MT_SEQ,
+                               sharding=mesh)
+    batches = [next(data) for _ in range(MT_STEPS)]
+    _reset_launches()
+    before = mesh.collectives
+    metrics, dts = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize(dev)
+        dts.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out["launches"] = _launch_counts()
+    out["collectives_per_step"] = (mesh.collectives - before) / MT_STEPS
+    out["metrics"], out["step_s"] = metrics, dts
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    # the kernel on this rank's own plane rows, against its plain version
+    reps = state_reps(state, ctx)
+    xs = [regularizer._rows(getattr(r, k), r.group_axes) for k in ("wp", "wn")
+          for r in reps.values()]
+    got, want = bgl.bgl_sumsq_grouped_cuda(xs), ref.bgl_sumsq_grouped_ref(xs)
+    g = torch.rand(got.shape, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    grads = bgl.bgl_sumsq_grouped_backward_cuda(xs, g)
+    gs = torch.split(g, [x.shape[0] for x in xs])
+    out["bgl"] = {"shapes": [tuple(x.shape) for x in xs],
+                  "max_rel_err": float(((got - want).abs() / want.clamp_min(1e-30)).max()),
+                  "max_abs_err": float((got - want).abs().max()),
+                  "backward_bitwise": all(torch.equal(a, ref.bgl_sumsq_grad_ref(x, gi))
+                                          for a, x, gi in zip(grads, xs, gs))}
+    del xs, got, want, g, grads, gs
+    out["fingerprints"] = {n: _mt_fingerprint(x) for n, x in flatten_with_path(state)}
+    # export the trained blocks and serve one bucketed decode from them
+    t0 = time.perf_counter()
+    shapes = {k: tuple(x.shape) for k, x in flatten_with_path(ctx.template)}
+    packed = export_packed_blocks(reps, mesh, shapes)
+    torch.cuda.synchronize(dev)
+    out["export_s"] = time.perf_counter() - t0
+    out["export"] = _mt_export_hashes(packed)
+    served = _mt_served(packed, reps, state, ctx)
+    del reps, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_launches()
+    engine = checked_engine_cls()(served, cfg, max_len=64, mesh=mesh, placed=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = engine.generate(_mt_requests(cfg))
+    out["serve_launches"] = _launch_counts()
+    out["tokens"] = np.stack([r.tokens for r in sorted(res, key=lambda r: r.uid)]).tolist()
+    out["bad"] = int(engine.bad.item())
+    del engine, served, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the reduced config's checkpoint at step 2, written by rank 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        _mt_reduced_train(mesh, workdir, 2, 0)
+    return out
+
+
+def mesh_train_4x1_rank(mesh, workdir):
+    """Phase 6f on one rank of the 4x1 mesh: a compressed BSQ step of the
+    reduced config (params whole on every rank) with its launches, then
+    the 2x2 checkpoint resumed here to step 4 and gathered."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import MarkovLM, sharded_lm_iterator
+    from repro_torch.optim import SGDM, step_decay
+    from repro_torch.train import init_bsq_state, make_compressed_bsq_dp_step
+    from repro_torch.tree import flatten_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    cfg = reduced_config("granite-3-2b")
+    state, ctx = init_bsq_state(torch.Generator(device=dev).manual_seed(0), cfg, _mt_bsq_cfg(),
+                                SGDM(), dev)
+    add, step = make_compressed_bsq_dp_step(ctx, SGDM(), step_decay(0.2, [2]), mesh)
+    state = add(state)
+    data = sharded_lm_iterator(MarkovLM(vocab=cfg.vocab_size, seed=13), 8, 16, sharding=mesh)
+    _reset_launches()
+    state, m = step(state, next(data))
+    torch.cuda.synchronize(dev)
+    out = {"rank": mesh.rank, "compressed_launches": _launch_counts(),
+           "compressed_metrics": {k: float(v) for k, v in m.items()},
+           "compressed_params": {n: float(x.double().sum()) for n, x in
+                                 flatten_with_path(state["trainable"])}}
+    out["compressed_finite"] = all(bool(torch.isfinite(x).all())
+                                   for _, x in flatten_with_path(state))
+    del state
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        out["resumed"], out["resumed_steps"] = _mt_reduced_train(mesh, workdir, 4, 2)
+    out["resumed_text"] = text.getvalue()
+    return out
+
+
+def mesh_train_phase(dev, card, time_ms):
+    """Phase 6f: BSQ training on a ("data", "model") mesh, 4 gloo ranks on
+    the card.  On 2x2: full-width granite-3-2b cut to MT_LAYERS layers,
+    f32, MT_STEPS steps (each rank its blocks of the state and of the
+    batch), one grouped bgl_sumsq launch and one backward per rank per
+    step, each rank's kernel against its plain version on its own plane
+    rows, its export of the trained blocks served through one bucketed
+    decode; then one process (after the ranks exit) trains the same model
+    on the whole batches: losses within MT_LOSS_TOL (gradient norms within
+    MT_GRAD_NORM_TOL), each rank's state
+    fingerprints within MT_STATE_TOL, the export bytes of each rank equal
+    to the block of the one process's export, the served tokens equal.
+    The reduced config's checkpoint written at step 2 on 2x2 resumes on
+    4x1 to step 4, equal to one process's 4 steps within MT_RESUME_TOL; a
+    compressed BSQ step on 4x1.  The kernel at a rank's row shapes is
+    timed beside its bound, plain version and library call."""
+    import numpy as np
+    import torch
+
+    from types import SimpleNamespace
+
+    from repro_torch.core import export_packed
+    from repro_torch.data import MarkovLM, sharded_lm_iterator
+    from repro_torch.dist import sharding
+    from repro_torch.dist.elastic import local_scale, train_state_specs
+    from repro_torch.kernels import bgl_sumsq as bgl
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.optim import SGDM, step_decay
+    from repro_torch.train import init_bsq_state, make_bsq_train_step, state_reps
+    from repro_torch.tree import flatten_with_path
+
+    rep = {"mesh": [2, 2], "layers": MT_LAYERS, "steps": MT_STEPS,
+           "batch": [MT_BATCH, MT_SEQ]}
+    cfg = _mt_cfg()
+    workdir = ROOT / "build" / "chip_smoke_mesh_train"
+    shutil.rmtree(workdir, ignore_errors=True)
+    print(f"[6f] BSQ training of granite-3-2b at its published width cut to {MT_LAYERS} "
+          f"layers, f32, on a 2x2 (data, model) mesh: 4 gloo ranks on cuda:0, {MT_STEPS} steps "
+          f"of {MT_BATCH} x {MT_SEQ} [{card}]", flush=True)
+    t0 = time.perf_counter()
+    ranks = run_on_mesh(mesh_train_rank, 2, 2, backend="gloo", device=dev,
+                        args=(str(workdir),))
+    rep["ranks_wall_s"] = time.perf_counter() - t0
+    for r in ranks:
+        tag = f"[6f] rank {r['rank']} {r['coords']}"
+        la = r["launches"]
+        check(la["bgl_sumsq"] == MT_STEPS and la["bgl_sumsq_backward"] == MT_STEPS
+              and la["bitserial_matmul"] == la["flash_attention"] == la["paged_attention"] == 0,
+              f"{tag}: launches {la}, expected {MT_STEPS} + {MT_STEPS} bgl_sumsq and no other")
+        check(r["bgl"]["max_rel_err"] <= BGL_TOL and r["bgl"]["backward_bitwise"],
+              f"{tag}: bgl_sumsq on its rows vs plain {r['bgl']}")
+        check(r["bad"] == 0 and r["serve_launches"]["bitserial_matmul"] > 0,
+              f"{tag}: serving the export: bad {r['bad']}, launches {r['serve_launches']}")
+        check(r["tokens"] == ranks[0]["tokens"], f"{tag}: tokens differ from rank 0's")
+    # one process on the whole batches, after the ranks exit
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, ctx = init_bsq_state(torch.Generator(device=dev).manual_seed(0), cfg, _mt_bsq_cfg(),
+                                SGDM(), dev)
+    step = make_bsq_train_step(ctx, SGDM(), step_decay(0.2, [MT_STEPS]))
+    data = sharded_lm_iterator(MarkovLM(vocab=cfg.vocab_size, seed=13), MT_BATCH, MT_SEQ,
+                               device=dev)
+    want, t_one = [], []
+    for _ in range(MT_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, next(data))
+        torch.cuda.synchronize()
+        t_one.append(time.perf_counter() - t0)
+        want.append({k: float(v) for k, v in m.items()})
+    rep["one_process_step_s"], rep["one_process_peak_bytes"] = t_one, \
+        torch.cuda.max_memory_allocated()
+    print(f"[6f] losses per step, ranks / one process: "
+          f"{[{k: m[k] for k in ('ce', 'reg', 'grad_norm')} for m in ranks[0]['metrics']]} / "
+          f"{[{k: m[k] for k in ('ce', 'reg', 'grad_norm')} for m in want]}", flush=True)
+    worst = 0.0
+    for r in ranks:
+        for i, (m, w) in enumerate(zip(r["metrics"], want)):
+            for k in ("ce", "reg", "total", "grad_norm"):
+                e = abs(m[k] - w[k]) / abs(w[k])
+                worst = max(worst, e)
+                tol = MT_GRAD_NORM_TOL if k == "grad_norm" else MT_LOSS_TOL
+                check(e <= tol, f"[6f] rank {r['rank']} step {i} {k}: {m[k]} vs one process "
+                                f"{w[k]}")
+    rep["loss_max_rel_err"] = worst
+    specs = dict(sharding.flatten_specs(train_state_specs(
+        state, SimpleNamespace(shape={"data": 2, "model": 2}, coords={}))))
+    leaves = dict(flatten_with_path(state))
+    worst_state = 0.0
+    for r in ranks:
+        view = SimpleNamespace(shape={"data": 2, "model": 2}, coords=r["coords"])
+        for name, (tot, amax, sample) in r["fingerprints"].items():
+            block = sharding.local_block(leaves[name], specs[name], view)
+            w_tot, w_amax, w_sample = _mt_fingerprint(block)
+            err = float(np.abs(sample - w_sample).max()) / max(w_amax, 1e-30) \
+                if sample.size else 0.0
+            worst_state = max(worst_state, err)
+            check(sample.shape == w_sample.shape and err <= MT_STATE_TOL,
+                  f"[6f] rank {r['rank']} {name}: sampled elements differ by {err} of the "
+                  f"block's max |x| (sum {tot} vs {w_tot})")
+    rep["state_max_err_of_max"] = worst_state
+    # the one process's export, cut to each rank's blocks; its served tokens
+    reps = state_reps(state, ctx)
+    packed = export_packed(reps)
+    for r in ranks:
+        view = SimpleNamespace(shape={"data": 2, "model": 2}, coords=r["coords"])
+        blocks = {}
+        for name, pw in packed.items():
+            sspec = sharding.param_spec(f"{name}/sign", tuple(pw.sign.shape), view)
+            pspec = sharding.param_spec(f"{name}/planes", tuple(pw.planes.shape), view)
+            scspec = sharding.param_spec(f"{name}/scale", tuple(pw.scale.shape), view)
+            n_ax = tuple(sspec)[-1] if len(sspec) else None
+            blocks[name] = dataclasses.replace(
+                pw, planes=sharding.local_block(pw.planes, pspec, view),
+                sign=sharding.local_block(pw.sign, sspec, view),
+                scale=local_scale(pw.scale, scspec, n_ax, pw.sign.shape[-1], view))
+        same, scale_err = _mt_same_export(r["export"], _mt_export_hashes(blocks))
+        check(same and scale_err <= MT_LOSS_TOL,
+              f"[6f] rank {r['rank']}: its export differs from the block of one process's "
+              f"export (planes, sign, bits equal: {same}; scales within {scale_err})")
+        rep["export_scale_max_rel_err"] = max(rep.get("export_scale_max_rel_err", 0.0),
+                                              scale_err)
+    served = _mt_served(packed, reps, state, ctx)
+    del state, step, reps
+    gc.collect()
+    engine = checked_engine_cls()(served, cfg, max_len=64, device=dev)
+    res = engine.generate(_mt_requests(cfg))
+    one_tokens = np.stack([x.tokens for x in sorted(res, key=lambda x: x.uid)]).tolist()
+    check(ranks[0]["tokens"] == one_tokens, f"[6f] tokens served on the mesh "
+                                            f"{ranks[0]['tokens']} vs one process {one_tokens}")
+    del engine, served, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 4x1: a compressed step, and the 2x2 checkpoint resumed
+    t0 = time.perf_counter()
+    r41 = run_on_mesh(mesh_train_4x1_rank, 4, 1, backend="gloo", device=dev,
+                      args=(str(workdir),))
+    rep["ranks_4x1_wall_s"] = time.perf_counter() - t0
+    for r in r41:
+        la = r["compressed_launches"]
+        check(r["compressed_finite"] and la["bgl_sumsq"] == 1 and la["bgl_sumsq_backward"] == 1,
+              f"[6f] 4x1 rank {r['rank']} compressed step: finite {r['compressed_finite']}, "
+              f"launches {la}")
+        check(r["compressed_params"] == r41[0]["compressed_params"]
+              and r["compressed_metrics"] == r41[0]["compressed_metrics"],
+              f"[6f] 4x1 rank {r['rank']}: the compressed step's params or metrics differ "
+              "from rank 0's")
+        check(r["resumed_steps"] == [3, 4], f"[6f] 4x1 rank {r['rank']} resumed steps "
+                                            f"{r['resumed_steps']}")
+    check("resumed from step 2" in r41[0]["resumed_text"], "[6f] the 4x1 run did not resume")
+    whole, _ = _mt_reduced_train(None, None, 4, 0, dev)
+    resume_err = max(float(np.abs(r41[0]["resumed"][n] - x).max()) if x.size else 0.0
+                     for n, x in whole.items())
+    check(resume_err <= MT_RESUME_TOL, f"[6f] resumed on 4x1 vs one process: {resume_err}")
+    rep["resume_max_abs_err"] = resume_err
+    shutil.rmtree(workdir, ignore_errors=True)
+    # the kernel at a rank's row shapes, timed
+    shapes = ranks[0]["bgl"]["shapes"]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    xs = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    g = torch.rand((sum(x.shape[0] for x in xs),), generator=gen, device=dev)
+    g2 = [t[:, None] for t in torch.split(2 * g, [x.shape[0] for x in xs])]
+    gs = torch.split(g, [x.shape[0] for x in xs])
+    row_views = [x[i] for x in xs for i in range(x.shape[0])]
+    spin = 4_000_000
+    fwd = {"ms": time_ms(lambda: ops.bgl_sumsq_grouped(xs), spin=spin),
+           "plain_ms": time_ms(lambda: ref.bgl_sumsq_grouped_ref(xs), iters=5, spin=spin),
+           "library_ms": time_ms(lambda: torch._foreach_norm(row_views), spin=spin)}
+    fwd["bound_ms"], fwd["bound_by"] = bgl_bound(xs)
+    bwd = {"ms": time_ms(lambda: bgl.bgl_sumsq_grouped_backward_cuda(xs, g), spin=spin),
+           "plain_ms": time_ms(lambda: [ref.bgl_sumsq_grad_ref(x, gi) for x, gi in zip(xs, gs)],
+                               iters=5, spin=spin),
+           "library_ms": time_ms(lambda: torch._foreach_mul(xs, g2), spin=spin)}
+    bwd["bound_ms"], bwd["bound_by"] = bgl_bound(xs, backward=True)
+    rep["bgl_rank"] = {"forward": fwd, "backward": bwd, "views": len(xs),
+                       "bytes": sum(x.numel() * 4 for x in xs),
+                       "max_rel_err": max(r["bgl"]["max_rel_err"] for r in ranks),
+                       "max_abs_err": max(r["bgl"]["max_abs_err"] for r in ranks)}
+    del xs, g, g2, gs, row_views
+    rep["launches_per_rank"] = {r["rank"]: r["launches"] for r in ranks}
+    rep.update({k: [r[k] for r in ranks] for k in ("step_s", "peak_bytes", "init_s",
+                                                   "export_s", "collectives_per_step")})
+    rep["metrics"], rep["one_process_metrics"] = ranks[0]["metrics"], want
+    print(f"[6f] 2x2, {MT_LAYERS} full-width layers, f32: ranks' step s {rep['step_s'][0]}, "
+          f"one process {t_one}; peak per rank {[b / 1e9 for b in rep['peak_bytes']]} GB, one "
+          f"process {rep['one_process_peak_bytes'] / 1e9:.1f} GB; collectives per step "
+          f"{rep['collectives_per_step'][0]}; losses within {worst:.2e} relative of one "
+          f"process (ce {want[-1]['ce']:.6f}, reg {want[-1]['reg']:.3f}); sampled state within "
+          f"{worst_state:.2e} of each block's max; export planes and sign bytes equal on every rank, scales within {rep['export_scale_max_rel_err']:.2e}; tokens "
+          f"{ranks[0]['tokens'][0]} equal; bgl_sumsq {MT_STEPS} + {MT_STEPS} launches per "
+          f"rank, on its rows within {rep['bgl_rank']['max_rel_err']:.2e}, backward bitwise "
+          f"[{card}]", flush=True)
+    print(f"[6f] bgl_sumsq at a rank's {len(shapes)} views ({rep['bgl_rank']['bytes'] / 1e9:.2f}"
+          f" GB f32): forward {fwd['ms']:.4f} ms (bound {fwd['bound_ms']:.4f}, plain "
+          f"{fwd['plain_ms']:.4f}, _foreach_norm {fwd['library_ms']:.4f}); backward "
+          f"{bwd['ms']:.4f} ms (bound {bwd['bound_ms']:.4f}, plain {bwd['plain_ms']:.4f}, "
+          f"_foreach_mul {bwd['library_ms']:.4f}) [{card}]", flush=True)
+    print(f"[6f] reduced: the 2x2 checkpoint of step 2 resumed on 4x1 to step 4 within "
+          f"{resume_err:.2e} of one process; a compressed BSQ step on 4x1: params alike on "
+          f"every rank, 1 + 1 bgl_sumsq launches per rank; walls 2x2 "
+          f"{rep['ranks_wall_s']:.1f} s, 4x1 {rep['ranks_4x1_wall_s']:.1f} s [{card}]",
+          flush=True)
     return rep
 
 
@@ -5453,10 +5946,11 @@ def kernel_entries(report, max_err):
         "max_rel_err": max(r["max_rel_err"] for r in report["bgl"] + report["bgl_grouped"]),
         **{k: lm["forward"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "per_view_ms")},
-        "work": "one grouped launch: the 16 plane views (wp and wn of 8 tensors) of one BSQ "
-                "train step of 2-layer full-width granite-3-2b, f32, 16.04 GB; per_view_ms "
-                "sums 16 one-view calls; library_ms is one torch._foreach_norm over the 270 "
-                "rows",
+        "work": f"one grouped launch: the 16 plane views (wp and wn of 8 tensors) of one "
+                f"BSQ train step of phase 6's {TRAIN_LAYERS}-layer full-width granite-3-2b, f32, "
+                f"{4 * sum(r * c for r, c in BGL_STEP) / 1e9:.2f} GB; per_view_ms sums 16 "
+                f"one-view calls; library_ms is one torch._foreach_norm over the "
+                f"{sum(r for r, _ in BGL_STEP)} rows",
         "launches_resnet": report["paper"]["launches"]["bgl_sumsq"],
         **{f"{k}_resnet_step": rn["forward"][k] for k in ("ms", "plain_ms", "bound_ms",
                                                           "library_ms", "per_view_ms")},
@@ -5476,9 +5970,10 @@ def kernel_entries(report, max_err):
         "max_abs_err": max(r["backward_max_abs_err"] for r in report["bgl_grouped"]),
         **{k: lm["backward"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms")},
-        "work": "the gradient 2 x g[row] of the 16 granite-3-2b views in one launch, f32, "
-                "16.04 GB read and written; the gradient of kernel 4's function, which the "
-                "JAX package leaves to autodiff; plain_ms is the per-view elementwise ops it "
+        "work": f"the gradient 2 x g[row] of the 16 granite-3-2b views in one launch, f32, "
+                f"{4 * sum(r * c for r, c in BGL_STEP) / 1e9:.2f} GB read and written; the "
+                "gradient of kernel 4's function, which the JAX package leaves to "
+                "autodiff; plain_ms is the per-view elementwise ops it "
                 "replaces; library_ms is one torch._foreach_mul by (2 g)[:, None] per view",
         "launches_resnet": report["paper"]["launches"]["bgl_sumsq_backward"],
         **{f"{k}_resnet_step": rn["backward"][k] for k in ("ms", "plain_ms", "bound_ms",
@@ -5486,6 +5981,22 @@ def kernel_entries(report, max_err):
         **{f"{k}_lm_100m_step": lm100["backward"][k] for k in ("ms", "bound_ms", "library_ms")},
         "launches_qwen2_moe_train": report["parity_moe"]["train"]["bgl_backward_launches"],
     }
+    # the training mesh (6f): each rank's grouped launches over its own
+    # plane rows (a quarter of each tensor's), summed over the 4 ranks, and
+    # the kernel at a rank's row shapes
+    mt = report["mesh_train"]
+    for e, key, way in ((b_entry, "bgl_sumsq", "forward"),
+                        (bb_entry, "bgl_sumsq_backward", "backward")):
+        e["launches_mesh_train"] = sum(la[key] for la in mt["launches_per_rank"].values())
+        e["launches_mesh_train_per_rank"] = [la[key] for la in
+                                             mt["launches_per_rank"].values()]
+        for k in ("ms", "bound_ms", "library_ms", "plain_ms"):
+            e[f"{k}_mesh_train_rank"] = mt["bgl_rank"][way][k]
+        e["work_mesh_train"] = (f"a rank's {mt['bgl_rank']['views']} views on the 2x2 training "
+                                f"mesh (its blocks of {MT_LAYERS}-layer full-width "
+                                f"granite-3-2b's planes, "
+                                f"f32, {mt['bgl_rank']['bytes'] / 1e9:.2f} GB), one launch per "
+                                "regulariser call on each rank")
     # one gemma3-12b prefill call's attention: 40 windowed and 8 causal
     # launches at B = 2, S = 4096 (bf16), the bucketed run's main path
     f_rows = {(r["case"], r["dtype"]): r for r in report["flash"]}
@@ -5871,6 +6382,11 @@ def main() -> int:
     if want("6e"):
         report["dryrun"] = dryrun_phase(dev, card)
         phase_done("6e")
+    if want("6f"):
+        flush.append(torch.empty(256 * 2**20, dtype=torch.uint8, device=dev))
+        report["mesh_train"] = mesh_train_phase(dev, card, time_ms)
+        flush.clear()
+        phase_done("6f")
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

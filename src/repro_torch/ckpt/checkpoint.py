@@ -17,8 +17,16 @@ training step updating the state in place.  ``restore`` writes each
 leaf into the template's tensor when shape and dtype match, so a resumed
 run holds one copy of its state, not the fresh one and the restored one
 (32 GB each for 2-layer full-width granite-3-2b); any other leaf is put
-on the device of the template's leaf.  The mesh-sharded placement comes
-with the training mesh slice.
+on the device of the template's leaf.
+
+On a ("data", "model") mesh (``mesh=``) the files are the same whole
+tensors.  ``save`` gathers each leaf from the ranks' blocks on the
+calling thread (every rank calls it: a collective inside the writer
+thread could deadlock against the next step's), one leaf at a time, and
+only rank 0 keeps the host copies and writes.  ``restore`` reads the
+whole tensors and keeps this rank's block of each
+(``dist.elastic.train_state_specs`` on the whole shapes), so a state
+saved on one mesh resumes on another.
 """
 from __future__ import annotations
 
@@ -52,15 +60,36 @@ def _sha256(path: str) -> str:
     return h.hexdigest()
 
 
-def save(tree: PyTree, directory: str, step: int, shards: int = 1, blocking: bool = True):
+def _gathered_host_copies(tree: PyTree, mesh, specs: PyTree):
+    """(name, whole leaf on the host) of a tree of blocks: every rank joins
+    each leaf's gather, rank 0 keeps the copies (the others get None)."""
+    from ..dist.sharding import flatten_specs
+
+    spec = dict(flatten_specs(specs))
+    out = []
+    for n, x in flatten_with_path(tree):
+        whole = mesh.gather_block(x, spec[n]) if isinstance(x, torch.Tensor) else x
+        out.append((n, _host_copy(whole) if mesh.rank == 0 else None))
+    return out if mesh.rank == 0 else None
+
+
+def save(tree: PyTree, directory: str, step: int, shards: int = 1, blocking: bool = True,
+         mesh=None, specs: PyTree = None):
     """Save a tree at ``directory/step_<step>``; ``shards`` splits leaves
-    round-robin across files.  Non-blocking: returns the writer thread."""
+    round-robin across files.  Non-blocking: returns the writer thread.
+    ``mesh``/``specs``: the tree is this rank's blocks under ``specs``;
+    every rank calls it and rank 0 writes (the others return None)."""
+    if mesh is not None:
+        host = _gathered_host_copies(tree, mesh, specs)
+        if host is None:
+            return None
+    else:
+        host = [(n, _host_copy(x)) for n, x in flatten_with_path(tree)]
     final = os.path.join(directory, f"step_{step}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
-    host = [(n, _host_copy(x)) for n, x in flatten_with_path(tree)]
 
     def write():
         buckets = [dict() for _ in range(shards)]
@@ -119,11 +148,17 @@ def available_steps(directory: str):
     return sorted(steps)
 
 
-def _load(tree_like: PyTree, ckpt_dir: str):
+def _load(tree_like: PyTree, ckpt_dir: str, mesh=None):
     with open(os.path.join(ckpt_dir, "MANIFEST.json")) as f:
         manifest = json.load(f)
     files = {}
     out = {}
+    specs = None
+    if mesh is not None:
+        from ..dist.elastic import specs_for_shapes
+
+        specs = specs_for_shapes(tree_like, {n: tuple(v["shape"]) for n, v in
+                                             manifest["leaves"].items()}, mesh)
     try:
         for name, like in flatten_with_path(tree_like):
             info = manifest["leaves"][name]
@@ -131,6 +166,10 @@ def _load(tree_like: PyTree, ckpt_dir: str):
                 files[info["file"]] = np.load(os.path.join(ckpt_dir, info["file"]))
             # an npz member is read into a fresh, writable array
             arr = torch.from_numpy(files[info["file"]][name.replace("/", "|")])
+            if specs is not None:
+                from ..dist.sharding import local_block
+
+                arr = local_block(arr, specs[name], mesh).contiguous()
             if (isinstance(like, torch.Tensor) and like.shape == arr.shape
                     and like.dtype == arr.dtype):
                 with torch.no_grad():
@@ -144,25 +183,27 @@ def _load(tree_like: PyTree, ckpt_dir: str):
     return unflatten_like(tree_like, out)
 
 
-def restore(tree_like: PyTree, directory: str, step: int):
+def restore(tree_like: PyTree, directory: str, step: int, mesh=None):
     """Restore into the structure of ``tree_like``.  Shapes and dtypes come
     from the files.  A template tensor of the same shape and dtype is
     overwritten with the leaf and returned; any other leaf lands on the
     device of the template's leaf (the CPU for a leaf that is not a
-    tensor)."""
+    tensor).  ``mesh``: ``tree_like`` is this rank's blocks, and each whole
+    leaf read is cut to its block under the rules for this mesh."""
     ckpt_dir = os.path.join(directory, f"step_{step}")
     if not _verify(ckpt_dir):
         raise IOError(f"checkpoint {ckpt_dir} failed integrity check")
-    return _load(tree_like, ckpt_dir)
+    return _load(tree_like, ckpt_dir, mesh)
 
 
-def restore_latest(tree_like: PyTree, directory: str):
+def restore_latest(tree_like: PyTree, directory: str, mesh=None):
     """Newest checkpoint that passes integrity; returns (tree, step) or
-    (None, -1).  Each candidate's hashes are checked once."""
+    (None, -1).  Each candidate's hashes are checked once.  ``mesh`` as
+    :func:`restore` takes it."""
     for step in reversed(available_steps(directory)):
         ckpt_dir = os.path.join(directory, f"step_{step}")
         if _verify(ckpt_dir):
-            return _load(tree_like, ckpt_dir), step
+            return _load(tree_like, ckpt_dir, mesh), step
     return None, -1
 
 

@@ -118,6 +118,7 @@ def decompose(
     group_axes: Sequence[int] = (),
     n_max: Optional[int] = None,
     dtype=torch.float32,
+    scale: Optional[torch.Tensor] = None,
 ) -> BitRep:
     """Convert a float tensor to its bit representation (paper Fig. 1a).
 
@@ -125,12 +126,14 @@ def decompose(
     decomposition, with the sign split into Wp/Wn.  ``n_max`` (default
     ``n_bits + 1``) planes are allocated so precision adjustment has one
     bit of MSB headroom (paper §3.3); the headroom planes start masked.
+    ``scale``: the whole tensor's per-group scale where ``w`` is a block
+    of it (on a mesh; every other step is elementwise).
     """
     group_axes = tuple(group_axes)
     if n_max is None:
         n_max = n_bits + 1
     w = w.to(dtype)
-    s = extract_scale(w, group_axes)
+    s = extract_scale(w, group_axes) if scale is None else scale
     levels = 2**n_bits - 1
     q = torch.round(torch.abs(w / s) * levels).to(torch.int32)  # in [0, levels]
     pos = (w >= 0).to(dtype)

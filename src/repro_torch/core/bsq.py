@@ -14,7 +14,9 @@ Usage pattern (what ``train/step.py`` does)::
 
 ``reps`` is a flat dict name -> BitRep; names are the "/"-joined tree
 paths of the JAX package, in its flatten order (sorted dict keys).
-On a mesh, :func:`export_packed_sharded` packs only this rank's slice.
+On a mesh, :func:`export_packed_sharded` packs only this rank's slice of
+whole reps, and :func:`export_packed_blocks` packs the blocks of a state
+trained on the mesh.
 """
 from __future__ import annotations
 
@@ -25,9 +27,9 @@ import torch
 
 from .. import tree as tree_util
 from . import packing
-from .bitrep import BitRep, decompose, planes_to_int, total_numel
+from .bitrep import BitRep, decompose, extract_scale, planes_to_int, total_numel
 from .regularizer import memory_reweighed_bgl
-from .requant import requantize_dynamic, requantize_static
+from .requant import mesh_nonzero, requantize_dynamic, requantize_static
 from .scheme import QuantScheme, scheme_from_reps
 from .ste import bitrep_forward
 
@@ -98,35 +100,67 @@ def init_bitreps(
     qparams: Dict[str, torch.Tensor],
     cfg: BSQConfig,
     group_axes_fn: Callable[[str, torch.Tensor], Tuple[int, ...]] = default_group_axes,
+    mesh=None,
 ) -> Dict[str, BitRep]:
+    """Each weight's bit representation.  On ``mesh`` each rep is this
+    rank's block of the whole weight's (its rule's ``local_block``): the
+    scale is the whole weight's, the planes are decomposed on the block
+    only, so no rank holds a whole tensor's planes."""
     reps = {}
     for name, w in qparams.items():
+        ga = group_axes_fn(name, w)
         n_max = cfg.planes if cfg.mode == "static" else cfg.n_init
-        reps[name] = decompose(w, cfg.n_init, group_axes=group_axes_fn(name, w), n_max=n_max)
+        scale = None
+        if mesh is not None:
+            from ..dist.sharding import local_block, param_spec
+
+            scale = extract_scale(w.to(torch.float32), ga)
+            w = local_block(w, param_spec(name, tuple(w.shape), mesh), mesh)
+        reps[name] = decompose(w, cfg.n_init, group_axes=ga, n_max=n_max, scale=scale)
     return reps
 
 
-def reconstruct(reps: Dict[str, BitRep], cfg: BSQConfig) -> Dict[str, torch.Tensor]:
-    """STE forward for every rep -> float weights dict (paper Eq. 3)."""
+def reconstruct(reps: Dict[str, BitRep], cfg: BSQConfig, mesh=None,
+                specs: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """STE forward for every rep -> float weights dict (paper Eq. 3).  On
+    ``mesh`` each rep is this rank's block under its weight's spec in
+    ``specs``: the scale, whole on every rank, scales the block and enters
+    with its gradient summed over the axes that split the weight."""
+    from ..dist.sharding import spec_axes
+
     out = {}
     for name, r in reps.items():
         scale = r.scale if cfg.trainable_scale else r.scale.detach()
+        if mesh is not None:
+            scale = mesh.enter(scale, spec_axes(specs.get(name, ())))
         w = bitrep_forward(r.wp, r.wn, scale, r.mask, r.n_denom)
         out[name] = w.to(cfg.compute_dtype)
     return out
 
 
-def regularizer(reps: Dict[str, BitRep], cfg: BSQConfig, total_params: Optional[int] = None):
-    return memory_reweighed_bgl(reps, total_params=total_params, reweigh=cfg.reweigh)
+def regularizer(reps: Dict[str, BitRep], cfg: BSQConfig, total_params: Optional[int] = None,
+                mesh=None, specs: Optional[Dict] = None,
+                group_numel: Optional[Dict[str, int]] = None):
+    """Eq. 5's regulariser; ``mesh``, ``specs``, ``group_numel`` as
+    :func:`~repro_torch.core.regularizer.memory_reweighed_bgl` takes them."""
+    return memory_reweighed_bgl(reps, total_params=total_params, reweigh=cfg.reweigh,
+                                mesh=mesh, specs=specs, group_numel=group_numel)
 
 
-def requantize_tree(reps: Dict[str, BitRep], mode: str = "static") -> Dict[str, BitRep]:
-    fn = requantize_static if mode == "static" else requantize_dynamic
-    return {k: fn(r) for k, r in reps.items()}
+def requantize_tree(reps: Dict[str, BitRep], mode: str = "static", mesh=None
+                    ) -> Dict[str, BitRep]:
+    """Re-quantise every rep.  On ``mesh`` each rep is this rank's block;
+    the tests over the whole tensors are or-ed over the mesh, so the masks
+    come out the same bits on every rank."""
+    if mode == "static":
+        nz = mesh_nonzero(reps, mesh) if mesh is not None else {}
+        return {k: requantize_static(r, nz.get(k)) for k, r in reps.items()}
+    return {k: requantize_dynamic(r, mesh) for k, r in reps.items()}
 
 
-def extract_scheme(reps: Dict[str, BitRep], float_params: int = 0) -> QuantScheme:
-    return scheme_from_reps(reps, float_params=float_params)
+def extract_scheme(reps: Dict[str, BitRep], float_params: int = 0,
+                   group_numel: Optional[Dict[str, int]] = None) -> QuantScheme:
+    return scheme_from_reps(reps, float_params=float_params, group_numel=group_numel)
 
 
 def total_quantized_params(reps: Dict[str, BitRep]) -> int:
@@ -138,7 +172,7 @@ def total_quantized_params(reps: Dict[str, BitRep]) -> int:
 # --------------------------------------------------------------------------
 
 
-def _export_codes(r: BitRep):
+def _export_codes(r: BitRep, nz=None, mesh=None):
     """Export arithmetic: ``(q_shift, n_bits, scale)``.
 
     The integer codes shifted into the whole-tensor ``[lsb, msb]`` window
@@ -147,12 +181,19 @@ def _export_codes(r: BitRep):
     precision adjustment, in float64 as the JAX package computes it::
 
         scale'_g * q' / (2^{n'} - 1)  ==  s_g * q / (2^{n_denom} - 1)
+
+    On ``mesh`` ``r`` is this rank's block, ``nz`` the whole tensor's
+    ``requant.mesh_nonzero``, and which bits occur is or-ed over the mesh:
+    the window is the whole tensor's, the codes this block's.
     """
-    r2 = requantize_static(r)  # binary planes and a fresh mask
+    r2 = requantize_static(r, nz)  # binary planes and a fresh mask
     m = r2.mask.to(r2.wp.dtype)
     q = planes_to_int(r2.wp, m) - planes_to_int(r2.wn, m)
     mag = torch.abs(q)
-    nz = [b for b in range(r2.n_bits) if bool(((mag >> b) & 1).any())]
+    occurs = torch.stack([((mag >> b) & 1).any() for b in range(r2.n_bits)])
+    if mesh is not None:
+        occurs = mesh.any(occurs)
+    nz = [b for b in range(r2.n_bits) if bool(occurs[b])]
     lsb, msb = (min(nz), max(nz)) if nz else (0, 0)
     n_bits = msb - lsb + 1
     q_shift = ((mag >> lsb) * torch.sign(q)).to(torch.int32)
@@ -241,4 +282,40 @@ def export_packed_sharded(reps: Dict[str, BitRep], mesh) -> Dict[str, packing.Pa
                          mesh)
         out[name] = packing.PackedWeight(planes=local.planes, sign=local.sign, scale=sc,
                                          n_bits=n_bits, k=K, kn_spec=(k_ax, n_ax))
+    return out
+
+
+def export_packed_blocks(reps: Dict[str, BitRep], mesh, w_shapes: Dict[str, Tuple[int, ...]]
+                         ) -> Dict[str, packing.PackedWeight]:
+    """:func:`export_packed_sharded` from a state trained on the mesh: each
+    rep is this rank's block of the weight whose whole shape ``w_shapes``
+    gives.  The requant's tests and the ``[lsb, msb]`` window are the whole
+    tensor's (or-ed over the mesh), packing is elementwise along
+    byte-aligned K rows, so each rank's bytes are the block of
+    :func:`export_packed`'s on the gathered reps.  A weight whose block is
+    not whole bytes of K, or whose sign rule splits otherwise than its
+    weight's, raises."""
+    from ..dist.elastic import local_scale
+    from ..dist.sharding import param_spec
+
+    nz = mesh_nonzero(reps, mesh)
+    out = {}
+    for name, r in reps.items():
+        q_shift, n_bits, scale = _export_codes(r, nz[name], mesh)
+        shape = tuple(w_shapes[name])
+        lead, (K, N) = shape[:-2], shape[-2:]
+        pad = (None,) * len(shape)
+        w_spec = (tuple(param_spec(name, shape, mesh)) + pad)[:len(shape)]
+        s_spec = (tuple(param_spec(f"{name}/sign", lead + (-(-K // 8), N), mesh))
+                  + pad)[:len(shape)]
+        if w_spec != s_spec or q_shift.shape[-2] % 8:
+            raise NotImplementedError(
+                f"{name}: its block ({w_spec}, {tuple(q_shift.shape)}) is not whole bytes of "
+                f"the packed rows ({s_spec}); export the gathered reps")
+        scale = scale.expand(lead + tuple(scale.shape[-2:])).contiguous()
+        local = _pack_grouped(q_shift, torch.ones(lead + (1, 1)), n_bits)
+        sc = local_scale(scale, param_spec(f"{name}/scale", tuple(scale.shape), mesh),
+                         s_spec[-1], N, mesh)
+        out[name] = packing.PackedWeight(planes=local.planes, sign=local.sign, scale=sc,
+                                         n_bits=n_bits, k=K, kn_spec=(s_spec[-2], s_spec[-1]))
     return out

@@ -11,6 +11,17 @@ squares of every tensor's ``wp`` and ``wn`` go through one
 hand-written kernel on the card (and one of its backward), the plain
 version on the CPU (the JAX package's regulariser computes the same sums
 in jnp, ``sum wp^2 + sum wn^2``).
+
+On a ("data", "model") mesh each rank holds its block of every plane
+tensor.  Its one grouped call runs on the rows of its own blocks, and one
+``all_reduce`` over the mesh (a ``HostMesh.all_reduce`` with ``keep``,
+whose backward is the identity) sums the flat partial sums before any square root: a tensor's
+rows count on every rank that holds a distinct block of it and on one
+rank of each axis it is whole along (``dist.sharding.counted_once``).
+The backward is the kernel's on the local rows, the upstream gradient
+the same on every rank.  The dense rules never split a group axis (the
+leading layer axis), so the per-group epilogue is the same on every rank;
+its weights take the whole tensor's elements per group.
 """
 from __future__ import annotations
 
@@ -36,13 +47,20 @@ def _rows(planes: torch.Tensor, group_axes) -> torch.Tensor:
     return planes.reshape(planes.shape[0] * n_groups, -1)
 
 
-def _sumsq(reps: List[BitRep]) -> Tuple[torch.Tensor, ...]:
+def _sumsq(reps: List[BitRep], mesh=None, keep: Optional[List[float]] = None
+           ) -> Tuple[torch.Tensor, ...]:
     """Per tensor, ``sum wp^2 + sum wn^2`` per (bit, group), flat in (bit,
     group) order: one grouped call over ``[wp_1 .. wp_n, wn_1 .. wn_n]``,
-    its two halves added in one op, split per tensor."""
+    its two halves added in one op, split per tensor.  With ``keep`` the
+    rows are this rank's blocks', summed over ``mesh`` in one collective
+    with tensor i's rows counted where ``keep[i]`` is 1."""
     wp = [_rows(r.wp, r.group_axes) for r in reps]
     wn = [_rows(r.wn, r.group_axes) for r in reps]
     flat = ops.bgl_sumsq_grouped(wp + wn)
+    if keep is not None:
+        k = torch.cat([torch.full((x.shape[0],), float(c), device=flat.device)
+                       for x, c in zip(wp, keep)])
+        flat = mesh.all_reduce(flat, tuple(mesh.shape), keep=torch.cat([k, k]))
     half = flat.shape[0] // 2
     return torch.split(flat[:half] + flat[half:], [x.shape[0] for x in wp])
 
@@ -68,6 +86,9 @@ def memory_reweighed_bgl(
     reps: Dict[str, BitRep],
     total_params: Optional[int] = None,
     reweigh: bool = True,
+    mesh=None,
+    specs: Optional[Dict] = None,
+    group_numel: Optional[Dict[str, int]] = None,
 ) -> torch.Tensor:
     """Eq. 5 regulariser over a dict of bit representations.
 
@@ -76,17 +97,31 @@ def memory_reweighed_bgl(
     ``reweigh=False`` it is the plain sum of B_GL terms (the Fig. 2
     ablation baseline).  The sums of squares of every tensor are one
     grouped call; the per-tensor epilogue follows.
+
+    On ``mesh`` (more than one rank; a 1x1 mesh is the identity) each rep
+    holds this rank's block and ``specs`` maps each name to its weight's
+    spec; ``group_numel`` maps each name to the whole tensor's elements per
+    group (the module docstring).
     """
     if total_params is None:
         total_params = sum(total_numel(r) for r in reps.values())
     if not reps:
         return torch.zeros((), dtype=torch.float32)
-    sqs = _sumsq(list(reps.values()))
+    keep = None
+    if mesh is not None and mesh.size() > 1:
+        from ..dist.sharding import counted_once
+
+        if any(i < len(specs[k]) and specs[k][i] is not None
+               for k, r in reps.items() for i in r.group_axes):
+            raise NotImplementedError("a mesh rule splits a group axis (experts on 'model'): "
+                                      "the per-group sums on a mesh come with ROADMAP item 9c")
+        keep = [counted_once(specs[k], mesh) for k in reps]
+    sqs = _sumsq(list(reps.values()), mesh, keep)
     total = torch.zeros((), dtype=torch.float32, device=sqs[0].device)
-    for r, sq in zip(reps.values(), sqs):
+    for (name, r), sq in zip(reps.items(), sqs):
         g = torch.sum(_norms(r, sq), dim=0).to(torch.float32)  # (group_shape)
         if reweigh:
-            n_el = numel_per_group(r)
+            n_el = numel_per_group(r) if group_numel is None else group_numel[name]
             # group-broadcast shape, as in the JAX code: against the
             # group-shaped norms of a stacked tensor it broadcasts to every
             # (i, j) pair of groups (ROADMAP queue 3); kept for parity

@@ -13,11 +13,18 @@
 Both re-split the re-quantised integer ``q' = Round[sum wp 2^b] -
 Round[sum wn 2^b]`` into fresh positive/negative binary planes.  The
 work runs on the rep's device, one plane at a time.
+
+On a mesh a rep holds this rank's block: everything is elementwise but
+the per-(bit, group) any-nonzero, a maximum over axes the mesh splits.
+:func:`static_nonzero` gives a block's part, the caller ors the parts
+over the mesh (``HostMesh.any``) and hands the result to
+:func:`requantize_static`, so the masks are the same bits on every rank;
+:func:`requantize_dynamic` takes the mesh for its whole-tensor test.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -59,14 +66,43 @@ def _any_nonzero_planes(mag: torch.Tensor, n_bits: int, red: Tuple[int, ...]) ->
     return torch.stack(out)
 
 
-def requantize_static(rep: BitRep) -> BitRep:
-    """Mask-mode re-quantisation + precision adjustment."""
-    q = _requantized_int(rep)
-    wp, wn = _split_sign(q, rep.n_bits, rep.wp.dtype)
+def _static_nonzero(rep: BitRep, q: torch.Tensor) -> torch.Tensor:
     # per-(bit, group) any-nonzero: a plane of wp + wn is set exactly where
     # that bit of |q| is
     red = tuple(i for i in range(len(rep.w_shape)) if i not in rep.group_axes)
-    nz = _any_nonzero_planes(torch.abs(q), rep.n_bits, red)
+    return _any_nonzero_planes(torch.abs(q), rep.n_bits, red)
+
+
+def static_nonzero(rep: BitRep) -> torch.Tensor:
+    """``(n_bits, *gbcast)`` bool: which bits occur in each group of the
+    re-quantised codes of ``rep`` (on a mesh: of this rank's block)."""
+    return _static_nonzero(rep, _requantized_int(rep))
+
+
+def mesh_nonzero(reps, mesh) -> dict:
+    """:func:`static_nonzero` of every rep's block, or-ed over ``mesh`` in
+    one collective: the whole tensors' per-(bit, group) any-nonzero, the
+    same bits on every rank.  Or-ing a flag a tensor's copies share
+    changes nothing, so one reduction over the whole mesh serves tensors
+    split over any of its axes."""
+    nzs = {k: static_nonzero(r) for k, r in reps.items()}
+    if not nzs:
+        return nzs
+    flat = mesh.any(torch.cat([nz.reshape(-1) for nz in nzs.values()]))
+    out, off = {}, 0
+    for k, nz in nzs.items():
+        out[k] = flat[off:off + nz.numel()].reshape(nz.shape)
+        off += nz.numel()
+    return out
+
+
+def requantize_static(rep: BitRep, nz: Optional[torch.Tensor] = None) -> BitRep:
+    """Mask-mode re-quantisation + precision adjustment.  ``nz``: the
+    whole tensor's :func:`static_nonzero` where ``rep`` is a block."""
+    q = _requantized_int(rep)
+    wp, wn = _split_sign(q, rep.n_bits, rep.wp.dtype)
+    if nz is None:
+        nz = _static_nonzero(rep, q)
     nb = rep.n_bits
     idx = torch.arange(nb, device=q.device).reshape((nb,) + (1,) * (nz.ndim - 1))
     any_nz = torch.any(nz, dim=0, keepdim=True)
@@ -78,14 +114,16 @@ def requantize_static(rep: BitRep) -> BitRep:
     return dataclasses.replace(rep, wp=wp, wn=wn, mask=new_mask)
 
 
-def requantize_dynamic(rep: BitRep) -> BitRep:
+def requantize_dynamic(rep: BitRep, mesh=None) -> BitRep:
     """Paper-faithful physical precision adjustment.
 
     Strips all-zero MSB planes (the scale shrinks by
     ``(2^{n'}-1)/(2^n-1)``) and all-zero LSB planes (each removal
     doubles the scale), then re-splits signs.  Returns a BitRep whose
     plane count equals the new precision ``n'`` (>= 1: an all-zero tensor
-    keeps a single zero plane so the shapes stay valid).
+    keeps a single zero plane so the shapes stay valid).  On ``mesh``
+    ``rep`` is this rank's block and which bits occur is decided over the
+    whole tensor (one ``HostMesh.any``).
     """
     if rep.group_axes:
         raise ValueError(
@@ -96,7 +134,10 @@ def requantize_dynamic(rep: BitRep) -> BitRep:
     q = _requantized_int(rep, clamp=False)
     nb = rep.n_bits + 1  # paper: q' needs (n+1) bits
     mag = torch.abs(q)
-    nz = [b for b in range(nb) if bool(((mag >> b) & 1).any())]
+    occurs = torch.stack([((mag >> b) & 1).any() for b in range(nb)])
+    if mesh is not None:
+        occurs = mesh.any(occurs)
+    nz = [b for b in range(nb) if bool(occurs[b])]
     msb_keep, lsb_drop = (max(nz) + 1, min(nz)) if nz else (0, 0)
     n_new = max(msb_keep - lsb_drop, 1)
     q_shift = ((mag >> lsb_drop) * torch.sign(q)).to(torch.int32)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 
@@ -74,10 +74,14 @@ class QuantScheme:
         )
 
 
-def scheme_from_reps(reps: Mapping[str, BitRep], float_params: int = 0) -> QuantScheme:
+def scheme_from_reps(reps: Mapping[str, BitRep], float_params: int = 0,
+                     group_numel: Optional[Mapping[str, int]] = None) -> QuantScheme:
+    """The scheme of ``reps``; ``group_numel`` gives the whole tensors'
+    elements per group where the reps are blocks of them (on a mesh)."""
     bits = {}
     for k, r in reps.items():
         gshape = tuple(r.w_shape[i] for i in r.group_axes)  # drop broadcast 1s
         bits[k] = effective_bits(r).cpu().numpy().astype(np.int32).reshape(gshape)
-    numel = {k: numel_per_group(r) for k, r in reps.items()}
+    numel = {k: numel_per_group(r) if group_numel is None else int(group_numel[k])
+             for k, r in reps.items()}
     return QuantScheme(bits=bits, group_numel=numel, float_params=float_params)

@@ -3,8 +3,9 @@ PyTorch port of ``repro.data.pipeline``.
 
 Each host produces only its slice of the global batch (``host_slice``)
 and a background thread prefetches batches so the device never waits on
-host-side sampling.  The port runs one process; placing batches on a
-device mesh comes with the training mesh slice and raises until then.
+host-side sampling.  On a ("data", "model") mesh each rank (a process)
+keeps its block over the data axes of the global batch that the JAX
+package draws on one host, the batch of process 0.
 """
 from __future__ import annotations
 
@@ -93,14 +94,31 @@ def sharded_lm_iterator(
     numpy arrays (e.g. ``data.synthetic.MarkovLM``).  Batch ``step`` is
     drawn from ``SeedSequence([seed, process, step])``, the JAX package's
     stream, so both frameworks see the same tokens.
+
+    ``sharding``: a :class:`~repro_torch.launch.mesh.HostMesh`.  Each rank
+    draws the whole global batch of process 0 (JAX's on one host) and
+    keeps its rows under ``dist.sharding.data_batch_spec``, on the mesh's
+    device; a batch the data axes do not divide raises.
     """
-    if sharding is not None:
-        raise NotImplementedError("mesh-sharded batches come with the training mesh slice of "
-                                  "the port (ROADMAP item 9b)")
     pi, pc = 0, 1
     sl = host_slice(global_batch, pi, pc)
     local = sl.stop - sl.start
+    mesh = sharding
+    if mesh is not None:
+        from ..dist.sharding import data_batch_spec, dp_axes, local_block
+
+        n_dp = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
+        if n_dp > 1 and dp_axes(mesh, global_batch) is None:
+            raise ValueError(f"global batch {global_batch} does not divide over the mesh's "
+                             f"data axes ({mesh.shape})")
+        device = mesh.device
     device = resolve_device(device)
+
+    def place(v):
+        t = torch.from_numpy(np.asarray(v, np.int64))
+        if mesh is not None:
+            t = local_block(t, data_batch_spec(mesh, global_batch, t.ndim), mesh)
+        return t.to(device)
 
     def gen():
         step = 0
@@ -108,7 +126,7 @@ def sharded_lm_iterator(
             # distinct stream per (host, step): deterministic resume
             rng = np.random.default_rng(np.random.SeedSequence([seed, pi, step]))
             b = task.batch(rng, local, seq_len)
-            yield {k: torch.from_numpy(np.asarray(v, np.int64)).to(device) for k, v in b.items()}
+            yield {k: place(v) for k, v in b.items()}
             step += 1
 
     return Prefetcher(gen(), depth=prefetch)

@@ -82,6 +82,9 @@ class PartitionSpec(tuple):
     def __new__(cls, *axes):
         return super().__new__(cls, axes)
 
+    def __getnewargs__(self):  # pickles (to a spawned rank) as P(*axes)
+        return tuple(self)
+
     def __repr__(self) -> str:
         return "P(" + ", ".join(repr(a) for a in self) + ")"
 
@@ -156,6 +159,43 @@ def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
         if ax is not None:
             shape[dim] //= axis_size(mesh, ax)
     return tuple(shape)
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """The mesh axes a spec splits over, in the order they appear."""
+    out = []
+    for ax in spec:
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            if a is not None and a not in out:
+                out.append(a)
+    return tuple(out)
+
+
+def counted_once(spec, mesh) -> float:
+    """1.0 on the ranks whose block of a tensor under ``spec`` counts in a
+    sum over the whole mesh, else 0.0: every rank counts its distinct
+    block, and of the ranks along an axis the tensor is whole on, only
+    index 0 counts."""
+    split = spec_axes(spec)
+    return float(all(mesh.coords[ax] == 0 for ax, n in mesh.shape.items()
+                     if n > 1 and ax not in split))
+
+
+def flatten_specs(spec_tree, prefix: str = ""):
+    """``(name, spec)`` pairs of a spec tree (:func:`tree_param_specs`'s
+    output) in the JAX flatten order, a :class:`PartitionSpec` a leaf."""
+    if isinstance(spec_tree, PartitionSpec):
+        return [(prefix, spec_tree)]
+    if isinstance(spec_tree, dict):
+        items = [(str(k), spec_tree[k]) for k in sorted(spec_tree)]
+    elif isinstance(spec_tree, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(spec_tree)]
+    else:
+        return [(prefix, spec_tree)]
+    out = []
+    for k, v in items:
+        out.extend(flatten_specs(v, f"{prefix}/{k}" if prefix else k))
+    return out
 
 
 def mesh_labels(mesh) -> dict:

@@ -7,7 +7,8 @@ and dtypes, no storage, no card), and records the memory and the
 roofline terms of ``roofline.analysis`` against one H100's data-sheet
 figures (``roofline.hw``).  PyTorch port of ``repro.launch.dryrun``,
 whose records it keeps, on a mesh of one card (label ``"1"``); the
-``16x16`` and ``2x16x16`` meshes come with the training mesh slice of the port.
+``16x16`` and ``2x16x16`` meshes, with their collective bytes, come with
+the next mesh slice of the port (ROADMAP item 9b-ii).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b --shape decode_32k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out results/dryrun.json
@@ -161,7 +162,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, technique: str
     accounting takes them.  Eager meta runs every layer, so no superblock
     differencing (JAX's ``accounting_terms``) is needed: XLA's cost
     analysis counts a scanned loop body once, the counter sees every op.
-    ``multi_pod`` records a failed cell: the training mesh slice is not ported."""
+    ``multi_pod`` records a failed cell: the pod mesh is not ported (item 9b-ii)."""
     cfg = cfg_override if cfg_override is not None else get_config(arch)
     shape = SHAPES[shape_name]
     if microbatches is None:
@@ -174,8 +175,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, technique: str
     t0 = time.time()
     try:
         if multi_pod:
-            raise NotImplementedError("the 2x16x16 mesh comes with the training mesh slice of "
-                                      "the port (ROADMAP item 9b); this dry run covers one card")
+            raise NotImplementedError("the 2x16x16 mesh comes with the next mesh slice of "
+                                      "the port (ROADMAP item 9b-ii); this dry run covers one "
+                                      "card")
         # 1) the cell as it runs (microbatched): memory
         counter, arg_bytes, out_bytes, mf = _run(cfg, shape, technique, microbatches,
                                                  packed_bits)
@@ -227,9 +229,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--single-pod", action="store_true",
-                    help="the 16x16 mesh: not ported (the training mesh slice)")
+                    help="the 16x16 mesh: not ported (ROADMAP item 9b-ii)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the 2x16x16 mesh: not ported (the training mesh slice)")
+                    help="the 2x16x16 mesh: not ported (ROADMAP item 9b-ii)")
     ap.add_argument("--technique", default="bsq", choices=["bsq", "plain"])
     ap.add_argument("--microbatches", type=int, default=None)
     ap.add_argument("--out", default=None)
@@ -239,9 +241,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.single_pod or args.multi_pod:
-        raise SystemExit("--single-pod/--multi-pod: the 16x16 and 2x16x16 meshes come with the "
-                         "training mesh slice of the port (ROADMAP item 9b); without them the "
-                         f"dry run covers one card (mesh {MESH!r})")
+        raise SystemExit("--single-pod/--multi-pod: the 16x16 and 2x16x16 meshes, with their "
+                         "collective bytes, come with the next mesh slice of the port (ROADMAP "
+                         f"item 9b-ii); without them the dry run covers one card (mesh {MESH!r})")
     archs = [args.arch] if args.arch else ARCH_IDS
     shapes = [args.shape] if args.shape else list(SHAPES)
 

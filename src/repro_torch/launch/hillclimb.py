@@ -52,8 +52,8 @@ VARIANTS = {
          {}, {"remat_policy": "dots", "attn_scores_dtype": "bfloat16"}),
         ("dots_bf16_multipod",
          "H-A6: a larger mesh halves each device's batch rows, so A3's saved "
-         "set halves -> needs the multi-pod mesh, which comes with the mesh "
-         "slice (ROADMAP item 9): recorded as a failed cell until then",
+         "set halves -> needs the multi-pod mesh, which comes with the next mesh "
+         "slice (ROADMAP item 9b-ii): recorded as a failed cell until then",
          {"multi_pod": True}, {"remat_policy": "dots", "attn_scores_dtype": "bfloat16"}),
     ],
     # B: qwen2-moe x train_4k — the MoE train step.

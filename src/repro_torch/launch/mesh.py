@@ -19,12 +19,31 @@ runs on the CPU and on CUDA tensors, where several ranks share one card
 (NCCL refuses two ranks on one GPU).
 
 Every collective of the port goes through :class:`HostMesh`'s methods:
-``all_reduce`` and ``all_gather`` (and ``gather_block`` built on the
-latter).  An ``all_reduce`` leaves the same bits on every rank (gloo's
-and NCCL's algorithms reduce each element once and hand the result on),
-so every rank's host takes the same token from the logits.  Gloo takes CUDA tensors for both (``chip_smoke.py``
+``all_reduce`` (float sums, int32 sums, which are exact, and maxima),
+``any`` (one flag per rank, or-ed), ``all_gather`` (and ``gather_block``
+built on it) and ``reduce_scatter``.  An ``all_reduce`` leaves the same
+bits on every rank (gloo's and NCCL's algorithms reduce each element
+once and hand the result on), so every rank's host takes the same token
+from the logits.  Gloo takes CUDA tensors for these (``chip_smoke.py``
 phase 4k probes it on the card), so nothing is staged through the host
-by hand.
+by hand; NCCL takes only the rank's card, so a host tensor (a flag, a
+byte count, the step) crosses on ``device`` and comes back.
+:class:`LocalMesh` is the 1x1 mesh of one process without a process
+group: every collective there is the identity, so one train step serves
+both.
+
+Training differentiates through them.  On a tensor that requires grad
+``all_reduce`` (a sum) and ``all_gather`` are autograd functions whose
+backward is the conjugate for a computation that is the same on every
+rank of the axes downstream (the Megatron convention of the "model"
+axis): identity, and this rank's block.  :meth:`HostMesh.enter` is the
+other half (identity forward, the gradient summed over the axes: a
+tensor that every rank holds whole enters a rank-local product) and
+:meth:`HostMesh.shard_gather` is the data axis's FSDP gather (its
+backward is ``reduce_scatter``: each data rank's batch adds its part).
+:meth:`HostMesh.training_view` hides the data axis (size 1 there): the
+training forward runs on the "model" axis alone, its batch already this
+data rank's.
 """
 from __future__ import annotations
 
@@ -73,43 +92,150 @@ class HostMesh(AbstractMesh):
         self.coords = {"data": self.rank // model, "model": self.rank % model}
         dev_type = "cuda" if backend == "nccl" else "cpu"
         self.device_mesh = init_device_mesh(dev_type, (data, model), mesh_dim_names=AXES)
-        self.collectives = 0  # calls of the methods below (each a collective or more)
+        self._root = self  # a view counts its collectives on the mesh it views
+        self._count = 0
 
     def group(self, axis: str):
         return self.device_mesh.get_group(axis)
 
-    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
-        """``t`` summed (or maxed) over the ranks along ``axes`` (an axis
-        name or a tuple of them); a new tensor.  A 16-bit ``t`` is summed
-        in float32 and rounded back once, as the kernels accumulate."""
+    @property
+    def collectives(self) -> int:
+        """Collectives issued so far by this mesh and its views (settable:
+        a caller resets it before what it counts)."""
+        return self._root._count
+
+    @collectives.setter
+    def collectives(self, n: int) -> None:
+        self._root._count = n
+
+    def _issued(self) -> None:
+        self._root._count += 1
+
+    def live(self, axes) -> tuple:
+        """The axes of ``axes`` (a name or a tuple) with more than one rank."""
+        return tuple(ax for ax in _axes(axes) if self.shape[ax] > 1)
+
+    def training_view(self) -> "HostMesh":
+        """This rank's place as the training forward sees it: the data axis
+        has size 1 and index 0 (each rank's batch is its own, and its weight
+        blocks are gathered over "data" before the forward), so the
+        partition rules and the collectives run on the "model" axis alone.
+        The groups are this mesh's."""
+        import copy
+
+        v = copy.copy(self)
+        v.shape = {ax: (n if ax == "model" else 1) for ax, n in self.shape.items()}
+        v.coords = {ax: (i if ax == "model" else 0) for ax, i in self.coords.items()}
+        return v
+
+    def _groups(self, axes) -> list:
+        """The process groups of ``axes``'s live axes: one group (the
+        world's) where they are every live axis of the mesh, so a sum over
+        the whole mesh is one collective."""
+        import torch.distributed as dist
+
+        live = self.live(axes)
+        if len(live) > 1 and set(live) == set(self.live(tuple(self.shape))) \
+                and dist.get_world_size() == self.size():
+            return [None]
+        return [self.group(ax) for ax in live]
+
+    def size(self) -> int:
+        n = 1
+        for ax in self.shape:
+            n *= self.shape[ax]
+        return n
+
+    def _all_reduce(self, t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
         import torch.distributed as dist
 
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        work = t.to(torch.float32 if _sixteen_bit(t) else t.dtype, copy=True).contiguous()
-        for ax in _axes(axes):
-            if self.shape[ax] > 1:
-                self.collectives += 1
-                dist.all_reduce(work, op=red, group=self.group(ax))
+        work = t.to(device=self._wire(t), dtype=torch.float32 if _sixteen_bit(t) else t.dtype,
+                    copy=True).contiguous()
+        for g in self._groups(axes):
+            self._issued()
+            dist.all_reduce(work, op=red, group=g)
         return work.to(device=t.device, dtype=t.dtype)
+
+    def _wire(self, t: torch.Tensor) -> torch.device:
+        """Where ``t`` crosses: NCCL takes only this rank's card."""
+        return self.device if self.backend == "nccl" else t.device
+
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum",
+                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``t`` summed (or maxed) over the ranks along ``axes`` (an axis
+        name or a tuple of them); a new tensor.  A 16-bit ``t`` is summed
+        in float32 and rounded back once, as the kernels accumulate; an
+        integer ``t`` is summed exactly.  A sum of a tensor that requires
+        grad is differentiable, its backward the identity (the tensor's
+        use downstream is the same on every rank of ``axes``).  ``keep``
+        (broadcast against ``t``, 0 or 1) multiplies this rank's part of a
+        sum in the forward only: rows a rank holds a copy of, and that
+        another rank of the axes adds already, count once."""
+        if op == "sum" and self.live(axes) and (keep is not None or _differentiable(t)):
+            return _Psum.apply(t, self, axes, keep)
+        return self._all_reduce(t, axes, op)
+
+    def any(self, flags) -> torch.Tensor:
+        """Or of ``flags`` (a bool, or a bool/integer tensor, elementwise)
+        over the whole mesh: one ``all_reduce`` (max), the same bits on
+        every rank, on the device ``flags`` came from (the host for a
+        bool)."""
+        t = torch.as_tensor(flags).to(torch.int32)
+        return self._all_reduce(t, tuple(self.shape), "max") > 0
+
+    def enter(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """``t`` unchanged, its gradient summed over ``axes``: a tensor that
+        every rank of ``axes`` holds whole, entering work that is this
+        rank's part (a product by its block, a scale on its block)."""
+        if not (_differentiable(t) and self.live(axes)):
+            return t
+        return _Enter.apply(t, self, axes)
+
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """``t`` summed over the ranks along ``axes``, this rank's block of
+        the sum on ``dim`` kept: an ``all_reduce`` and a slice, since gloo
+        has no reduce-scatter (the same bits as one)."""
+        if not self.live(axes):
+            return t
+        return _block(self, self._all_reduce(t, axes), axes, dim % t.ndim).contiguous()
+
+    def shard_gather(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """:meth:`all_gather` whose backward is :meth:`reduce_scatter`: a
+        weight block gathered whole for the ranks of ``axes`` whose batches
+        differ (the data axis's FSDP), each adding its part of the
+        gradient."""
+        if not self.live(axes):
+            return t
+        if not _differentiable(t):
+            return self._all_gather(t, axes, dim)
+        return _ShardGather.apply(t, self, axes, dim)
 
     def all_gather(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """The blocks of ``t`` along ``axes`` concatenated on ``dim`` in
         block order (row-major over a tuple of axes): the inverse of
-        ``dist.sharding.local_block`` on that dim."""
+        ``dist.sharding.local_block`` on that dim.  Differentiable where
+        ``t`` requires grad, its backward this rank's block (the use
+        downstream is the same on every rank of ``axes``)."""
+        if _differentiable(t) and self.live(axes):
+            return _Gather.apply(t, self, axes, dim)
+        return self._all_gather(t, axes, dim)
+
+    def _all_gather(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
         import torch.distributed as dist
 
         dim = dim % t.ndim
-        work = t
+        work = t.to(self._wire(t))
         for ax in reversed(_axes(axes)):  # minor axis first: row-major block order
             n = self.shape[ax]
             if n == 1:
                 continue
-            self.collectives += 1
+            self._issued()
             parts = [torch.empty_like(work, memory_format=torch.contiguous_format)
                      for _ in range(n)]
             dist.all_gather(parts, work.contiguous(), group=self.group(ax))
             work = torch.cat(parts, dim=dim)
-        return work
+        return work.to(t.device)
 
     def gather_block(self, t: torch.Tensor, spec) -> torch.Tensor:
         """The whole tensor from this rank's block under ``spec``."""
@@ -119,8 +245,92 @@ class HostMesh(AbstractMesh):
         return t
 
 
+class LocalMesh(HostMesh):
+    """The 1x1 mesh of one process, with no process group: no axis is live,
+    so every collective of :class:`HostMesh` is the identity (a sum or a
+    maximum over one rank, a gather of one block) and issues nothing.
+    The train step off a mesh runs on it."""
+
+    def __init__(self, device="cpu"):
+        AbstractMesh.__init__(self, {"data": 1, "model": 1})
+        self.rank = 0
+        self.device = torch.device(device)
+        self.backend = None
+        self.coords = {"data": 0, "model": 0}
+        self._root = self
+        self._count = 0
+
+    def group(self, axis: str):
+        raise RuntimeError("a LocalMesh has no process groups")
+
+
 def _sixteen_bit(t: torch.Tensor) -> bool:
     return t.is_floating_point() and t.element_size() < 4
+
+
+def _differentiable(t: torch.Tensor) -> bool:
+    return t.requires_grad and torch.is_grad_enabled()
+
+
+def _block(mesh, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's block on ``dim`` of a tensor whole along ``axes``."""
+    from ..dist.sharding import block_range
+
+    live = mesh.live(axes)
+    lo, hi = block_range(mesh, live if len(live) > 1 else live[0], t.shape[dim])
+    return t.narrow(dim, lo, hi - lo)
+
+
+class _Psum(torch.autograd.Function):
+    """Sum over ranks forward (``keep`` masking this rank's part), identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, keep=None):
+        return mesh._all_reduce(t if keep is None else t * keep.to(t.dtype), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward, gradient summed over ranks backward."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._all_reduce(g, ctx.axes), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather forward, this rank's block of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim % t.ndim
+        return mesh._all_gather(t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(ctx.mesh, g, ctx.axes, ctx.dim).contiguous(), None, None, None
+
+
+class _ShardGather(torch.autograd.Function):
+    """All-gather forward, reduce-scatter of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim % t.ndim
+        return mesh._all_gather(t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(g, ctx.axes, ctx.dim), None, None, None
 
 
 def _axes(axes) -> tuple:
@@ -203,7 +413,8 @@ def run_on_mesh(fn: Callable, data: int, model: int, *, backend: str, device="cu
     if torch.device(device).type == "cuda":
         from ..kernels import _build
 
-        _build.build_all(["bitserial_matmul", "paged_attention", "flash_attention"])
+        _build.build_all(["bitserial_matmul", "paged_attention", "flash_attention",
+                          "bgl_sumsq"])
     threads = threads or max(1, (os.cpu_count() or 1) // world)
     with tempfile.TemporaryDirectory(prefix="repro_torch_mesh_") as tmp:
         mp.start_processes(_rank_main, args=(fn, data, model, backend, str(device), tmp,

@@ -59,6 +59,7 @@ from .common import (
     dense_init,
     local_heads_ok,
     packed_mesh,
+    packed_placement,
     paged_mesh,
 )
 
@@ -259,7 +260,11 @@ def attention(
 
     On a mesh ``shard_spec`` (the spec of the cache block prefill seeds)
     picks this rank's lanes and K/V heads for the flash kernel; the output
-    is gathered, and ``(k, v)`` are returned whole."""
+    is gathered, and ``(k, v)`` are returned whole.  Under
+    ``packed_shard_mesh(mesh, local_heads=True)`` (training) the plain
+    path keeps q, k, v and the output on this rank's heads where the
+    projections allow (``_qkv_sharded``), ``wo`` contracting its K block,
+    and ``(k, v)`` are this rank's heads."""
     sdt = _scores_dtype(scores_dtype)
     if flash and sdt != torch.float32:
         raise ValueError(
@@ -268,7 +273,18 @@ def attention(
             "prefill on the plain path (flash=False, or chunked prefill)")
     B, S, _ = x.shape
     G = n_heads // n_kv
-    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, active_planes)
+    mesh = packed_mesh()
+    local = False
+    if not flash and mesh is not None and packed_placement()[1]:
+        # training on a mesh: q, k, v keep this rank's heads into wo's K block
+        from ..dist.sharding import axis_size
+
+        n_ax = getattr(p["wq"], "kn_spec", (None, None))[1]
+        kv_ax = n_ax if n_ax is not None and n_kv % axis_size(mesh, n_ax) == 0 else None
+        q, k, v, n_heads, n_kv, _, local = _qkv_sharded(p, x, n_heads, n_kv, head_dim,
+                                                        active_planes, (None, None, kv_ax))
+    else:
+        q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, active_planes)
     positions = torch.arange(S, device=x.device)[None, :]
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
@@ -276,7 +292,6 @@ def attention(
     if S > q_chunk and S % q_chunk:
         raise ValueError(f"prefill length {S} is not a multiple of q_chunk={q_chunk}")
     if flash:
-        mesh = packed_mesh()
         if mesh is not None and shard_spec is not None:
             b0, b1, h0, h1, _ = _ranges(mesh, shard_spec, B, n_kv, 0)
             out = _flash(q[b0:b1, :, h0:h1], k[b0:b1, :, h0:h1], v[b0:b1, :, h0:h1], window)
@@ -294,7 +309,7 @@ def attention(
         w = _softmax_masked(s, _mask(qpos, kpos, window)[None, None, None])
         outs.append(_gqa_combine(w, v, x.dtype))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return dense_apply(out, p["wo"], active_planes), (k, v)
+    return dense_apply(out, p["wo"], active_planes, k_local=local), (k, v)
 
 
 def _pool_gather(cache_k: torch.Tensor, cache_v: torch.Tensor, block_table: torch.Tensor,

@@ -30,13 +30,15 @@ _packed_mesh_var: contextvars.ContextVar = contextvars.ContextVar(
 
 
 @contextlib.contextmanager
-def packed_shard_mesh(mesh):
+def packed_shard_mesh(mesh, local_heads: bool = False):
     """Run the enclosed model calls on ``mesh``: every matmul weight is this
     rank's block (a PackedWeight with ``kn_spec``, or a FloatBlock), run
     on its local bytes and stitched by collectives
     (``kernels.ops.bitserial_matmul_sharded``); caches are this rank's
-    blocks too.  ``mesh=None`` is a no-op (unsharded serving)."""
-    token = _packed_mesh_var.set(mesh)
+    blocks too.  ``mesh=None`` is a no-op (unsharded serving).
+    ``local_heads``: the plain attention path keeps q, k, v on this rank's
+    heads into ``wo``'s K block (training; ``models.attention``)."""
+    token = _packed_mesh_var.set(None if mesh is None else (mesh, local_heads))
     try:
         yield
     finally:
@@ -45,7 +47,14 @@ def packed_shard_mesh(mesh):
 
 def packed_mesh():
     """The mesh set by :func:`packed_shard_mesh` (None off a mesh)."""
-    return _packed_mesh_var.get()
+    placed = _packed_mesh_var.get()
+    return None if placed is None else placed[0]
+
+
+def packed_placement() -> tuple:
+    """``(mesh, local_heads)`` as :func:`packed_shard_mesh` set them, or
+    ``(None, False)``: what to set again to rerun a model call."""
+    return _packed_mesh_var.get() or (None, False)
 
 
 # The mesh over which paged decode runs shard-local (None = not): set by
@@ -87,8 +96,11 @@ def dense_apply(x: torch.Tensor, w, active_planes=None, k_local: bool = False) -
     ``torch.matmul`` stitched the same way (JAX computes float weights
     outside any kernel); the result is whole on every rank, the same bits
     on each.  ``k_local``: ``x`` is already this rank's K block (a
-    :func:`dense_group` output)."""
-    mesh = _packed_mesh_var.get()
+    :func:`dense_group` output).  Training differentiates through it:
+    ``x`` enters a FloatBlock's local product by ``HostMesh.enter`` (its
+    gradient summed over the weight's axes) and the stitch's collectives
+    carry their conjugates (``launch.mesh``)."""
+    mesh = packed_mesh()
     if isinstance(w, PackedWeight):
         if mesh is not None and w.kn_spec is not None and any(a is not None for a in w.kn_spec):
             return ops.bitserial_matmul_sharded(x, w, mesh, active_planes, k_local)
@@ -97,6 +109,8 @@ def dense_apply(x: torch.Tensor, w, active_planes=None, k_local: bool = False) -
         if mesh is None:
             raise ValueError("a FloatBlock is one rank's block of a weight: apply it under "
                              "packed_shard_mesh(mesh)")
+        if not k_local:
+            x = mesh.enter(x, tuple(a for a in w.kn_spec if a is not None))
         return ops.stitch(ops.local_product(x, w, mesh, k_local=k_local), mesh, *w.kn_spec)
     return x @ w.to(x.dtype)
 
@@ -127,8 +141,10 @@ def dense_group(x: torch.Tensor, ws, active_planes=None):
     ``kn_spec`` (k, n): each rank's N block of each product, the partial
     products of all of them summed over k in ONE ``all_reduce``.  ``x`` is
     whole on every rank."""
-    mesh = _packed_mesh_var.get()
+    mesh = packed_mesh()
     k_ax = _kn(ws[0])[0]
+    # training: x is whole on every rank, its gradient the sum of theirs
+    x = mesh.enter(x, tuple(a for a in _kn(ws[0]) if a is not None))
     parts = [ops.local_product(x, w, mesh, active_planes) for w in ws]
     sizes = [t.shape[-1] for t in parts]
     y = torch.cat(parts, dim=-1)
@@ -248,7 +264,7 @@ def mlp_apply(p: Params, x: torch.Tensor, kind: str, act_bits: int = 32,
     gated = kind in ("swiglu", "geglu")
     wide = [p["w_gate"], p["w_up"]] if gated else [p["w_up"]]
     # on a mesh: the hidden activation stays N-sharded into w_down
-    local = local_heads_ok(_packed_mesh_var.get(), wide, p["w_down"])
+    local = local_heads_ok(packed_mesh(), wide, p["w_down"])
     with checkpoint_name("mlp_wide"):
         if local:
             outs = dense_group(x, wide, active_planes)
@@ -337,11 +353,19 @@ def logits_apply(head, x: torch.Tensor, softcap: float = 0.0,
     return logits
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Mean CE over tokens; labels == -1 are masked."""
+def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor):
+    """(sum of the token NLLs, number of tokens) over unmasked tokens
+    (labels == -1 are masked): the two halves of :func:`cross_entropy`,
+    which a mesh sums over its data ranks before dividing."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels.clamp(min=0)[..., None].to(torch.int64))[..., 0]
     nll = lse - picked
     mask = (labels >= 0).to(torch.float32)
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll * mask), torch.sum(mask)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Mean CE over tokens; labels == -1 are masked."""
+    total, count = cross_entropy_sums(logits, labels)
+    return total / torch.clamp(count, min=1.0)

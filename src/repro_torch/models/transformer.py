@@ -75,6 +75,8 @@ from .common import (
     mlp_apply,
     mlp_init,
     packed_mesh,
+    packed_placement,
+    packed_shard_mesh,
     rmsnorm,
     rmsnorm_init,
 )
@@ -368,9 +370,15 @@ def _add_aux(aux: torch.Tensor, aux_i) -> torch.Tensor:
 
 
 def _superblock_fwd(x: torch.Tensor, aux: torch.Tensor, blk: Params, cfg: ModelConfig,
-                    cross_src, active_planes):
+                    cross_src, active_planes, placement=(None, False)):
     """One pass of the layer pattern (JAX's ``_superblock_fwd``), the
-    running router loss carried through, so remat leaves its sum's order."""
+    running router loss carried through, so remat leaves its sum's order.
+    ``placement``: the forward's ``packed_placement()``, set again when
+    remat recomputes the pass in the backward, outside the forward's
+    context."""
+    if placement[0] is not None and packed_placement() != placement:
+        with packed_shard_mesh(*placement):
+            return _superblock_fwd(x, aux, blk, cfg, cross_src, active_planes, placement)
     for i, kind in enumerate(cfg.layer_pattern):
         x, _, aux_i = _apply_layer_fwd(blk[f"p{i}"], x, cfg, kind, cross_src, active_planes)
         aux = _add_aux(aux, aux_i)
@@ -469,7 +477,8 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         blk = layer_slice(params["blocks"], b)
         if remat:
             x, aux = checkpoint(_superblock_fwd, x, aux, blk, cfg, cross_src, active_planes,
-                                use_reentrant=False, context_fn=context_fn)
+                                packed_placement(), use_reentrant=False,
+                                context_fn=context_fn)
         else:
             x, aux = _superblock_fwd(x, aux, blk, cfg, cross_src, active_planes)
     for i in range(cfg.n_tail_layers):

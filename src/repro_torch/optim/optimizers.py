@@ -30,18 +30,31 @@ PyTree = Any
 _f32 = np.float32
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, f32."""
+def global_norm(tree: PyTree, mesh=None, specs: PyTree = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, f32.
+
+    On a mesh each leaf of ``tree`` is this rank's block under its spec in
+    ``specs`` (the same structure): a leaf's square sum counts on the ranks
+    that hold distinct blocks of it and on one rank of each axis it is
+    whole along, and one ``all_reduce`` over the mesh sums them."""
     ls = [x.float() for x in leaves(tree)]
-    norms = torch._foreach_norm(ls)
-    return torch.sqrt(torch.sum(torch.stack(norms) ** 2))
+    sq = torch.stack(torch._foreach_norm(ls)) ** 2
+    if mesh is None or mesh.size() == 1:
+        return torch.sqrt(torch.sum(sq))
+    from ..dist.sharding import counted_once, flatten_specs
+
+    keep = torch.tensor([counted_once(s, mesh) for _, s in flatten_specs(specs)],
+                        dtype=sq.dtype, device=sq.device)
+    return torch.sqrt(mesh.all_reduce(torch.sum(sq * keep), tuple(mesh.shape)))
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: PyTree, max_norm: float) -> Tuple[PyTree, torch.Tensor]:
+def clip_by_global_norm(grads: PyTree, max_norm: float, mesh=None,
+                        specs: PyTree = None) -> Tuple[PyTree, torch.Tensor]:
     """Scale ``grads`` in place by ``min(1, max_norm / (norm + 1e-9))``;
-    returns (grads, norm).  No host sync: the factor stays on the device."""
-    norm = global_norm(grads)
+    returns (grads, norm).  No host sync: the factor stays on the device.
+    ``mesh``/``specs``: the grads are blocks (:func:`global_norm`)."""
+    norm = global_norm(grads, mesh, specs)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     torch._foreach_mul_(leaves(grads), scale)
     return grads, norm

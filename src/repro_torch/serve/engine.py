@@ -31,7 +31,9 @@ every weight (``dist.elastic.reshard_tree``) and runs every model call
 under ``models.common.packed_shard_mesh``; a bucket's prefill places its
 cache under ``dist.sharding.cache_tree_specs``, so a bucket the data axis
 does not divide runs with its batch axis replicated.  Only "attn" layer
-patterns run on a mesh (``transformer.check_mesh_kinds``).
+patterns run on a mesh (``transformer.check_mesh_kinds``).  ``placed``:
+the params are this rank's blocks already, as a state trained on the mesh
+exports them (``core.bsq.export_packed_blocks``), and are kept as given.
 """
 from __future__ import annotations
 
@@ -122,7 +124,7 @@ class ServeEngine:
                  spec_decode: bool = False, draft_planes: int = 2, gamma: int = 4,
                  precision_tiers: Optional[Dict[str, int]] = None, degrade: bool = False,
                  degrade_queue_depth: int = 2, degrade_hysteresis: int = 4,
-                 obs: Optional[Observability] = None, mesh=None):
+                 obs: Optional[Observability] = None, mesh=None, placed: bool = False):
         self.cfg = cfg
         self.max_len = max_len
         self.mesh = mesh
@@ -140,7 +142,13 @@ class ServeEngine:
             from ..dist import elastic, sharding
 
             transformer.check_mesh_kinds(cfg)
-            params = elastic.reshard_tree(sharding.annotate_packed_specs(params, mesh), mesh)
+            if placed:  # each packed weight is a block: the sum over the ranks
+                self.packed_bytes_global = int(mesh.all_reduce(
+                    torch.tensor(float(self.packed_bytes_global), dtype=torch.float64),
+                    tuple(mesh.shape)))
+            else:
+                params = elastic.reshard_tree(sharding.annotate_packed_specs(params, mesh),
+                                              mesh)
         self.params = serving_params(params, cfg, self.device)
         self.packed_bytes_local = sum(pw.hbm_bytes() for pw in packed_leaves(self.params))
         self.scheduler = None

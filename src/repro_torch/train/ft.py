@@ -8,8 +8,8 @@ worker process writes a heartbeat JSON (`hb_<host>.json`) every
 classifies hosts as healthy / suspect / dead from heartbeat age.  The
 trainer's recovery path on `dead`: stop, exclude the host and resume
 from the newest checkpoint, the flow ``repro_torch.examples.fault_tolerance``
-demonstrates end to end (rebuilding a device mesh comes with the port's training
-mesh slice).
+demonstrates end to end (on a device mesh the trainer resumes onto
+whatever mesh the restarted run has: ``train.trainer.train_bsq(mesh=)``).
 """
 from __future__ import annotations
 

@@ -11,6 +11,14 @@ Fault-tolerance model:
 
 A step's time is taken on the host clock after ``torch.cuda.synchronize``
 when the state lives on the card.
+
+On a ("data", "model") mesh (``mesh=``: every rank runs the loop on its
+blocks) the resume is elastic (``ckpt.restore(mesh=)`` cuts the whole
+tensors for this mesh, whatever mesh wrote them), a checkpoint is
+gathered by every rank and written by rank 0, the STOP file is decided
+once for all ranks (one ``HostMesh.any``: a rank that saw it while
+another did not would leave the other waiting in the next collective),
+and rank 0 alone prints and writes ``scheme.json`` and the history.
 """
 from __future__ import annotations
 
@@ -23,8 +31,7 @@ from typing import Callable, Dict, Iterator, Optional
 import torch
 
 from ..ckpt import checkpoint as ckpt
-from ..core import extract_scheme
-from .step import BSQTrainContext, state_reps
+from .step import BSQTrainContext, state_scheme
 
 
 @dataclasses.dataclass
@@ -54,8 +61,9 @@ class StragglerMonitor:
         return slow
 
 
-def _should_stop(workdir: Optional[str]) -> bool:
-    return workdir is not None and os.path.exists(os.path.join(workdir, "STOP"))
+def _should_stop(workdir: Optional[str], mesh=None) -> bool:
+    stop = workdir is not None and os.path.exists(os.path.join(workdir, "STOP"))
+    return stop if mesh is None else bool(mesh.any(stop))
 
 
 def _sync(metrics) -> None:
@@ -77,21 +85,31 @@ def train_bsq(
     data_iter: Iterator,
     tcfg: TrainerConfig,
     eval_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> Dict:
     """Run the BSQ phase.  Returns dict(state=, history=, scheme=, stragglers=).
 
     With a workdir holding checkpoints the run resumes from the newest
-    complete one (its leaves land where ``state``'s are)."""
+    complete one (its leaves land where ``state``'s are).  ``mesh``: the
+    state is this rank's blocks (the module docstring); the steps given
+    must be built for the same mesh."""
     history = []
     monitor = StragglerMonitor(tcfg.straggler_ema, tcfg.straggler_factor)
     start_step = int(state["step"])
+    lead = mesh is None or mesh.rank == 0
+    log = print if lead else (lambda *a, **k: None)
+    specs = None
+    if mesh is not None:
+        from ..dist.elastic import train_state_specs
+
+        specs = train_state_specs(state, mesh, ctx.template)
     if tcfg.workdir:
         os.makedirs(tcfg.workdir, exist_ok=True)
-        restored, step_found = ckpt.restore_latest(state, tcfg.workdir)
+        restored, step_found = ckpt.restore_latest(state, tcfg.workdir, mesh=mesh)
         if restored is not None:
             state = restored
             start_step = step_found
-            print(f"[trainer] resumed from step {step_found}")
+            log(f"[trainer] resumed from step {step_found}")
 
     pending_save = None
     for i in range(start_step, tcfg.total_steps):
@@ -105,9 +123,9 @@ def train_bsq(
 
         if (i + 1) % tcfg.requant_interval == 0:
             state = requant_step(state)
-            scheme = extract_scheme(state_reps(state, ctx))
-            print(f"[requant] step {i+1}: bits/para={scheme.bits_per_param:.2f} "
-                  f"comp={scheme.compression:.2f}x")
+            scheme = state_scheme(state, ctx)
+            log(f"[requant] step {i+1}: bits/para={scheme.bits_per_param:.2f} "
+                f"comp={scheme.compression:.2f}x")
 
         if (i + 1) % tcfg.log_interval == 0 or i == tcfg.total_steps - 1:
             rec = _record(metrics)
@@ -118,14 +136,16 @@ def train_bsq(
         if tcfg.workdir and (i + 1) % tcfg.ckpt_interval == 0:
             if pending_save is not None:
                 pending_save.join()
-            pending_save = ckpt.save(state, tcfg.workdir, i + 1, blocking=False)
-            ckpt.prune_old(tcfg.workdir, tcfg.keep_ckpts)
+            pending_save = ckpt.save(state, tcfg.workdir, i + 1, blocking=False, mesh=mesh,
+                                     specs=specs)
+            if lead:
+                ckpt.prune_old(tcfg.workdir, tcfg.keep_ckpts)
 
-        if _should_stop(tcfg.workdir):
-            print(f"[trainer] STOP file detected at step {i+1}; checkpointing and exiting")
+        if _should_stop(tcfg.workdir, mesh):
+            log(f"[trainer] STOP file detected at step {i+1}; checkpointing and exiting")
             if pending_save is not None:
                 pending_save.join()
-            ckpt.save(state, tcfg.workdir, i + 1, blocking=True)
+            ckpt.save(state, tcfg.workdir, i + 1, blocking=True, mesh=mesh, specs=specs)
             break
 
     if pending_save is not None:
@@ -133,10 +153,12 @@ def train_bsq(
 
     # final re-quantisation fixes the scheme (paper §3.3 "post-training")
     state = requant_step(state)
-    scheme = extract_scheme(state_reps(state, ctx))
+    scheme = state_scheme(state, ctx)
     if eval_fn is not None:
         history.append({"step": "final_eval", **eval_fn(state)})
-    if tcfg.workdir:
+    if mesh is not None:
+        mesh.any(False)  # every rank's last save is written before any returns
+    if tcfg.workdir and lead:
         with open(os.path.join(tcfg.workdir, "scheme.json"), "w") as f:
             f.write(scheme.to_json())
         with open(os.path.join(tcfg.workdir, "history.json"), "w") as f:

@@ -32,6 +32,7 @@ import repro_torch.core.bitrep as bitrep
 from repro_torch.core.regularizer import bgl, bit_group_norms, memory_reweighed_bgl
 from repro_torch.kernels import bgl_sumsq as tbgl
 from repro_torch.kernels import ops, ref
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 regularizer = importlib.import_module("repro_torch.core.regularizer")
 

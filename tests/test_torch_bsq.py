@@ -43,6 +43,7 @@ import repro_torch.core.ste as ste
 from repro_torch.core.packing import PackedWeight
 from repro_torch.kernels import ops, ref
 from repro_torch.models import transformer
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (w_shape, group_axes): one group, stacked layers, a non-leading group axis
 CASES = [((24, 16), ()), ((2, 16, 24), (0,)), ((4, 6, 8), (2,))]

@@ -40,6 +40,7 @@ from repro_torch.optim import SGDM, step_decay
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.train import init_bsq_state, make_bsq_train_step, make_requant_step
 from repro_torch.tree import tree_map
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.cuda
 

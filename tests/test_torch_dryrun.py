@@ -40,6 +40,7 @@ from repro_torch.optim import SGDM, AdamW
 from repro_torch.roofline import report
 from repro_torch.train import abstract_bsq_state, abstract_plain_state, init_bsq_state
 from repro_torch.tree import flatten_with_path
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

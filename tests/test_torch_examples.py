@@ -36,6 +36,7 @@ from repro_torch.examples import (fault_tolerance, quickstart, resnet20_bsq_pape
                                   serve_quantized, train_lm_bsq)
 from repro_torch.serve import Request, ServeEngine, dequantize_packed_params
 from repro_torch.train.ft import FailureDetector, Heartbeat
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _to_jax(tree):
@@ -144,10 +145,13 @@ def test_quickstart_and_train_lm_bsq_run():
     assert np.isfinite(out["history"][-1]["total"])
 
 
-def test_resnet_pipeline_and_finetune_run():
-    out = resnet20_bsq_paper.main(device="cpu", steps=20, width=8, batch=8)
+def test_resnet_pipeline_and_finetune_run(monkeypatch):
+    # a requant every 5 steps: the loop's requant runs twice in 10 steps
+    monkeypatch.setattr(resnet20_bsq_paper, "REQUANT_INTERVAL", 5)
+    out = resnet20_bsq_paper.main(device="cpu", steps=10, width=8, batch=8)
     hist = out["history"]
-    assert len(hist) == 20 and "bits_per_param" in hist[19]
+    assert len(hist) == 10 and "bits_per_param" in hist[4] and "bits_per_param" in hist[9]
+    assert "bits_per_param" not in hist[3]
     assert all(np.isfinite(h["loss"]) for h in hist)
     scheme = out["scheme"]
     assert len(scheme.layer_bits()) == 22 and 0 < scheme.bits_per_param <= 9

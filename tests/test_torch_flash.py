@@ -22,6 +22,7 @@ from repro.models.attention import attention as jattention
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops as tops
 from repro_torch.models.attention import attention
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

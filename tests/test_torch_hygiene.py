@@ -12,6 +12,7 @@ import torch
 
 import repro_torch
 from repro_torch.configs import reduced_config
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -98,8 +99,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, monkeypatch)
 def test_unported_paths_say_so():
     """The serve launcher's mesh flags run (4 gloo ranks on the CPU, tokens
     equal to the same command without a mesh); the training launcher's
-    and the dry run's meshes still say "mesh slice" (the training mesh
-    slice brings them); every layer kind and frontend is ported, so
+    mesh refuses a batch its data axis does not divide, as JAX's does;
+    the dry run's meshes still say "mesh slice" (the next mesh slice
+    brings them); every layer kind and frontend is ported, so
     ``init_params`` builds all ten reduced configs on the CPU."""
     from repro_torch.configs import ARCH_IDS
     from repro_torch.launch import serve as launcher
@@ -115,8 +117,9 @@ def test_unported_paths_say_so():
     for flags in (["--data-parallel", "2"], ["--model-parallel", "2"]):
         with pytest.raises(SystemExit, match="must be given together"):
             launcher.main(flags + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        train_launcher.main(["--device", "cpu", "--data-parallel", "2", "--model-parallel", "2"])
+    with pytest.raises(SystemExit, match="does not divide over the mesh's data axes"):
+        train_launcher.main(["--device", "cpu", "--data-parallel", "2", "--model-parallel", "2",
+                             "--batch", "3"])
     from repro_torch.launch import dryrun
 
     for flag in ("--single-pod", "--multi-pod"):

@@ -16,6 +16,7 @@ from repro_torch.core import packing as tpack
 from repro_torch.kernels import bitserial_matmul as tkern
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the shapes of tests/test_kernels.py::test_bitserial_matmul_sweep
 SHAPES = [(8, 64, 128, 4), (128, 512, 128, 8), (16, 128, 256, 3), (8, 64, 128, 1),

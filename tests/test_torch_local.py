@@ -42,6 +42,7 @@ from repro_torch.models.attention import decode_attention
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve.scheduler import SchedulerPolicy
 from repro_torch.serve.slots import SlotPool
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "gemma3-12b"
 TOL = (1e-5, 1e-4)  # (absolute, relative)

@@ -37,6 +37,7 @@ from repro_torch.models.common import packed_shard_mesh
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve.scheduler import SchedulerPolicy
 from repro_torch.serve.slots import BlockAllocator
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "granite-3-2b"
 MAX_LEN = 32

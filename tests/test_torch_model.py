@@ -24,6 +24,7 @@ from repro_torch.data import MarkovLM
 from repro_torch.models import transformer as ttf
 from repro_torch.obs.export import parse_prometheus, to_prometheus
 from repro_torch.serve import Request, ServeEngine
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "granite-3-2b"
 TOL = 2e-4

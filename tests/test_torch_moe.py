@@ -55,6 +55,7 @@ from repro_torch.serve.engine import serving_params
 from repro_torch.serve.scheduler import SchedulerPolicy
 from repro_torch.train import init_bsq_state, make_bsq_train_step
 from repro_torch.tree import flatten_with_path
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 QWEN, PHI = "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b"
 TOL = 2e-4

@@ -9,6 +9,7 @@ import torch
 from repro.core import packing as jpack
 from repro_torch import bridge
 from repro_torch.core import packing as tpack
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _w(seed, shape, scale=0.2):

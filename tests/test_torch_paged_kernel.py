@@ -20,6 +20,7 @@ from repro.kernels.ref import paged_attention_ref as j_paged_attention_ref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tkern
 from repro_torch.kernels.ref import paged_attention_ref
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 2e-5
 

@@ -43,6 +43,7 @@ from repro_torch.obs.quality import replay_plane_log
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve.scheduler import SchedulerPolicy, preemption_order
 from repro_torch.serve.slots import SlotPool, SlotState
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "granite-3-2b"
 N_BITS = 6

@@ -27,6 +27,7 @@ from repro_torch.configs import reduced_config
 from repro_torch.core.packing import PackedWeight, tree_leaves
 from repro_torch.obs import metrics as t_metrics
 from repro_torch.obs import quality as tq
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_BITS = 6
 TOL = 1e-5

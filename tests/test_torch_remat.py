@@ -28,6 +28,7 @@ from repro_torch.models import transformer
 from repro_torch.roofline import analysis
 from repro_torch.train.step import value_and_grad
 from repro_torch.tree import flatten_with_path, tree_map
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["granite-3-2b", "qwen2-moe-a2.7b", "llama-3.2-vision-11b"]
 POLICIES = ["nothing", "dots", "mlp_names", "dots_offload"]

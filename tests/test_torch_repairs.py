@@ -32,6 +32,7 @@ from repro_torch.configs import reduced_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import transformer as ttf
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 LOGIT_TOL = 2e-4

@@ -49,6 +49,7 @@ from repro_torch.core.qat import apply_scheme_dorefa, finetune_loss_fn
 from repro_torch.data import gaussian_blobs
 from repro_torch.examples import resnet20_bsq_paper as paper
 from repro_torch.models import resnet, transformer
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL, BN_TOL = 1e-4, 1e-5
 
@@ -158,7 +159,8 @@ def _jax_pipeline(jp, images, labels, steps, width):
     one batch: losses per step, then the requantised reps."""
     qp, fp = jbsq.partition_params(jp, jbsq.default_quant_predicate)
     cfg = JBSQConfig(n_init=8, alpha=paper.ALPHA, mode="static", compute_dtype=jnp.float32)
-    reps = jbsq.init_bitreps(qp, cfg, group_axes_fn=lambda n, w: ())
+    # jitted: eager JAX compiles each op anew for each of the 22 shapes
+    reps = jax.jit(lambda q: jbsq.init_bitreps(q, cfg, group_axes_fn=lambda n, w: ()))(qp)
     opt = JSGDM(momentum=0.9, weight_decay=1e-4)
     trainable = {k: r.trainable() for k, r in reps.items()}
     opt_state = opt.init(trainable)
@@ -183,7 +185,7 @@ def _jax_pipeline(jp, images, labels, steps, width):
         for k in trainable:
             trainable[k]["wp"] = jnp.clip(trainable[k]["wp"], 0, 2)
             trainable[k]["wn"] = jnp.clip(trainable[k]["wn"], 0, 2)
-    return losses, jbsq.requantize_tree(replace(trainable), "static")
+    return losses, jax.jit(lambda r: jbsq.requantize_tree(r, "static"))(replace(trainable))
 
 
 def test_bsq_pipeline_matches_jax():

@@ -46,6 +46,7 @@ from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve.engine import serving_params
 from repro_torch.serve.scheduler import SchedulerPolicy
 from repro_torch.tree import flatten_with_path, tree_map
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "recurrentgemma-9b"
 TOL = (1e-5, 1e-4)

@@ -24,6 +24,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import transformer
 from repro_torch.roofline import analysis, hw
 from repro_torch.roofline.analysis import RooflineTerms, _shape_bytes, collective_bytes
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _meta(*shape, dtype=torch.float32):

@@ -40,6 +40,7 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve.scheduler import ContinuousScheduler, SchedulerPolicy
 from repro_torch.serve.slots import BlockAllocator, SlotPool
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "granite-3-2b"
 TOL = 2e-4

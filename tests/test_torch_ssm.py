@@ -40,6 +40,7 @@ from repro_torch.models import transformer as ttf
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve.scheduler import SchedulerPolicy
 from repro_torch.tree import flatten_with_path, tree_map
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "mamba2-130m"
 TOL = (1e-5, 1e-4)  # (absolute, relative): mixer functions

@@ -35,6 +35,7 @@ from repro_torch.optim import SGDM, AdamW, clip_by_global_norm, cosine_warmup, s
 from repro_torch.train import (TrainerConfig, init_bsq_state, make_bsq_train_step,
                                make_requant_step, train_bsq)
 from repro_torch.tree import flatten_with_path, tree_map
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "granite-3-2b"
 STEPS = 3
@@ -269,8 +270,20 @@ def test_pipeline_matches_jax():
         for k in ("tokens", "labels"):
             assert a[k].dtype == torch.int64
             np.testing.assert_array_equal(a[k].numpy(), np.asarray(b[k]))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        sharded_lm_iterator(task, 4, 8, device="cpu", sharding=object())
+    # on a mesh each rank keeps its data block of JAX's one-host batch
+    from types import SimpleNamespace
+
+    from repro_torch.launch.mesh import AbstractMesh
+
+    rank = SimpleNamespace(shape={"data": 2, "model": 2}, coords={"data": 1, "model": 0},
+                           device=torch.device("cpu"))
+    block = next(sharded_lm_iterator(task, 4, 8, seed=3, sharding=rank))
+    whole = next(j_sharded_lm_iterator(task, 4, 8, seed=3))
+    for k in ("tokens", "labels"):
+        np.testing.assert_array_equal(block[k].numpy(), np.asarray(whole[k])[2:4])
+    with pytest.raises(ValueError, match="does not divide"):
+        sharded_lm_iterator(task, 4, 8, device="cpu",
+                            sharding=AbstractMesh({"data": 3, "model": 1}))
 
     def bad():
         yield 1
@@ -300,6 +313,6 @@ def test_launcher_trains_on_cpu_and_mesh_flags_raise(tmp_path):
     plain = launcher.main(["--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "8",
                            "--technique", "plain"])
     assert len(plain["history"]) == 1
-    for flag in ("--data-parallel", "--model-parallel"):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            launcher.main(["--device", "cpu", flag, "2"])
+    with pytest.raises(SystemExit, match="does not divide over the mesh's data axes"):
+        launcher.main(["--device", "cpu", "--data-parallel", "4", "--model-parallel", "1",
+                       "--batch", "2"])
