@@ -127,7 +127,8 @@ failure exits non-zero and none is caught:
    to 2 layers, ``embeds`` through ``prefill`` and ``decode_step``; every
    logit row within the phase-3 tolerance, greedy tokens identical,
    launches exact;
-4. full-width 40-layer granite-3-2b, bf16, 6-bit packed, served by the
+4. full-width granite-3-2b cut to 20 of its 40 layers (``SLICE_LAYERS``),
+   bf16, 6-bit packed, served by the
    bucketed ServeEngine (8 requests, two buckets, 32 tokens each), with
    the bitserial and flash launch counts checked exactly;
 4b. the continuous slice: the same model through
@@ -215,7 +216,7 @@ failure exits non-zero and none is caught:
    (2 layers, f32, 6-bit) through the bucketed engine and the model API,
    greedy tokens equal and logits within 1e-4 of the same model in this
    process on the card, every rank's logits bitwise alike; then granite-3-2b
-   cut to 20 of its 40 layers (``MESH_LAYERS``; 40 before PR 25): f32
+   cut to 10 of its 40 layers (``MESH_LAYERS``): f32
    prefill logits against this process (printed); bf16 bucketed (4 x 128
    tokens), continuous with the paged kernel (4 requests on 8 lanes, one
    128-token chunk per prompt) and spec decode, each rank's packed bytes
@@ -228,7 +229,31 @@ failure exits non-zero and none is caught:
    in bf16, the ranks' prefill logits against this process's, plain and
    computing each product as two K halves added as the ranks add them
    (the witness of where the tokens part; agreements printed), and the
-   bucketed tokens against this process's;
+   bucketed tokens against this process's; its decode ms per step on a
+   line of its own;
+4l. every other layer kind and the MoE FFN on the same 2x2 mesh, each
+   model at its published widths cut to the smallest depth that holds
+   each of its kinds (``MESH_KINDS``: gemma3-12b 6 layers, its rings
+   split over K/V heads; recurrentgemma-9b 3, its one K/V head's ring
+   split over slots and the RG-LRU state over lanes; mamba2-130m all 24;
+   llama-3.2-vision-11b 5 with 1600 cross tokens a lane; qwen2-moe-a2.7b
+   2, 30 of 60 experts a rank).  This process's f32 references first (the
+   bucketed engine's tokens, the model API's logits, the MoE routing);
+   then
+   one spawn of the ranks runs each model: f32 parity (tokens equal,
+   logits within 1e-4 of max(1, max|logit|), bitwise alike on every
+   rank; a routing that differs
+   from one process's must be a near-tie, and takes its experts), then
+   bf16 6-bit bucketed (4 x 256) and continuous with the paged kernel,
+   each rank's packed and float bytes against the whole model's,
+   launches of bitserial, paged and flash (windowed apart) checked
+   non-zero exactly where the model's kinds run them, scheduler digests
+   alike, decode ms per step, TTFT and collectives per decode step
+   printed; the vision model's decode with its cross tokens timed.
+   Then each kernel against its plain version at every shape the ranks
+   gave it (``_record_kernel_shapes``), at least recurrentgemma's
+   windowed prefill on half the query heads of its K/V head, gemma3's
+   paged decode on 4 of 8 K/V heads and the cross K/V at M 6400;
 6. the BSQ training slice: full-width granite-3-2b cut to 1 layer (2
    until phase 6f took their time),
    trained through ``repro_torch.launch.train.run``: 4 steps with a
@@ -303,7 +328,9 @@ failure exits non-zero and none is caught:
    ``_foreach_norm``/``_foreach_mul``;
 7. a ``{"kernels": [...]}`` line (the bitserial, runtime-plane, paged
    and flash entries add phase 4k's launches, summed over its ranks, and
-   their times at a rank's shapes; the bitserial decode and prefill
+   their times at a rank's shapes; the bitserial, paged and flash entries
+   phase 4l's launches and the count and worst error of the shapes its
+   ranks gave them; the bitserial decode and prefill
    entries, the runtime-plane entry with phase 4d's launches, flash and
    paged also carry ``vs_library``, their time over the library call's:
    below 1 beats it; the bitserial, flash, paged and bgl_sumsq entries
@@ -402,6 +429,9 @@ PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PAGED_REPEATS = 5  # time_ms runs whose median times a paged call
 # the continuous slice (phase 4b): 8 lanes, 64 blocks of 32 rows
 SLOTS, BLOCK, N_BLOCKS, MAX_LEN = 8, 32, 64, 512
+# phases 4, 4b, 5 and 4d's granite-3-2b: 20 of its 40 layers, cut to keep
+# the script well inside its time limit beside the mesh phases
+SLICE_LAYERS = 20
 # the policies' slice (phase 4d): 40 blocks overcommitted 1.5x; draft
 # steps at 3 of 6 planes, up to 4 a round; the runtime-plane kernel's M
 # values on that path (phase 2): 8 lanes, the verify chunk 8 x 4, and 40
@@ -1432,7 +1462,7 @@ def policies_parity(dev, card):
 
 
 def policies_slice(params, cfg, dev, card, engine_cls, ref_tokens):
-    """Phase 4d: full-width 40-layer granite-3-2b, bf16, 6-bit packed,
+    """Phase 4d: full-width granite-3-2b (phase 4's SLICE_LAYERS), bf16, 6-bit packed,
     through the continuous paged-kernel engine (8 lanes, 40 blocks of 32
     rows overcommitted 1.5x) on phase 4b's traffic: 16 requests, prompts
     uniform in [16, 300], Poisson arrivals at 0.5 per step, 32 new tokens
@@ -3122,7 +3152,7 @@ def granite_parity(dev, card, report):
 
 
 def granite_slice(dev, card, report, engine_cls):
-    """Phase 4: full-width 40-layer granite-3-2b, bf16, 6-bit packed, served
+    """Phase 4: full-width granite-3-2b cut to SLICE_LAYERS, bf16, 6-bit packed, served
     by the bucketed engine (8 requests, two buckets, 32 tokens each), the
     bitserial and flash launch counts checked exactly; then a profiled
     decode step.  Returns the params for phase 4b."""
@@ -3137,7 +3167,7 @@ def granite_slice(dev, card, report, engine_cls):
     from repro_torch.models import transformer
     from repro_torch.serve import Request
 
-    cfg = get_config("granite-3-2b")
+    cfg = get_config("granite-3-2b").scaled(n_layers=SLICE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
@@ -4852,9 +4882,9 @@ def frontend_slice(dev, card, engine_cls, arch):
 # card through gloo; the 2-layer f32 parity model's requests and decode
 # steps, and the deep bf16 runs' traffic
 MESH_SHAPE = (2, 2)
-# the deep runs' depth: 20 of granite-3-2b's 40 layers since PR 25 (40
-# before), cut to keep the script well inside its time limit
-MESH_LAYERS = 20
+# the deep runs' depth: 10 of granite-3-2b's 40 layers, cut to keep the
+# script well inside its time limit beside phase 4l
+MESH_LAYERS = 10
 MESH_PARITY_STEPS = 4
 MESH_MAX_LEN, MESH_SLOTS, MESH_BLOCKS, MESH_NEW = 512, 8, 64, 8
 MESH_BUCKET = (4, 128)  # requests x prompt tokens
@@ -4925,25 +4955,6 @@ def _mesh_launches():
     c = _launch_counts()
     return {"bitserial_matmul": c["bitserial_matmul"], "bitserial_active": bsm.active_launches,
             "paged_attention": c["paged_attention"], "flash_attention": c["flash_attention"]}
-
-
-def _record_bitserial_shapes():
-    """Wrap ``ops.bitserial_matmul``, the call through which every product
-    of a rank's block reaches the kernel, so that it records each
-    (M, K, N, dtype, scale groups) it is given; the wrapper launches
-    nothing itself.  Returns the set and the undo."""
-    from repro_torch.kernels import ops
-
-    shapes, plain = set(), ops.bitserial_matmul
-
-    def recorded(x, pw, active_planes=None):
-        groups = pw.scale.shape[-1] if pw.scale.numel() > 1 else None
-        shapes.add((x.numel() // x.shape[-1], pw.sign.shape[-2] * 8, pw.sign.shape[-1],
-                    str(x.dtype).split(".")[-1], groups))
-        return plain(x, pw, active_planes)
-
-    ops.bitserial_matmul = recorded
-    return shapes, lambda: setattr(ops, "bitserial_matmul", plain)
 
 
 def _k_halves_logits(params, cfg, dev):
@@ -5056,7 +5067,7 @@ def mesh_rank(mesh):
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = mesh.device
     out = {"rank": mesh.rank, "device": str(dev), "gloo_cuda": _gloo_cuda_probe(mesh)}
-    shapes, unrecord = _record_bitserial_shapes()
+    shapes, unrecord = _record_kernel_shapes()
     # parity: the same draws as the single-process run, this rank's blocks
     cfg2, p2, reqs2, prompts = _mesh_parity_setup(dev)
     eng = ServeEngine(p2, cfg2, max_len=64, mesh=mesh)
@@ -5151,7 +5162,7 @@ def mesh_rank(mesh):
     out["build_s"] = {n: _build.build_log.get(n, {}).get("seconds")
                       for n in ("bitserial_matmul", "paged_attention", "flash_attention")}
     unrecord()
-    out["bitserial_shapes"] = sorted(shapes, key=str)
+    out["bitserial_shapes"] = sorted(shapes["bitserial"], key=str)
     return out
 
 
@@ -5298,6 +5309,9 @@ def mesh_phase(dev, card, time_ms, median_ms):
     r0 = ranks[0]
     print(f"[4k] gloo on CUDA tensors: {r0['gloo_cuda']} [{card}]", flush=True)
     b, c, s = r0["bucketed"], r0["continuous"], r0["spec"]
+    print(f"[4k] decode ms per step at {MESH_LAYERS} layers, rank 0: bucketed "
+          f"{b['decode_ms_per_step']:.2f}, continuous {c['decode_ms_per_step']:.2f} [{card}]",
+          flush=True)
     print(f"[4k] {MESH_LAYERS}-layer granite-3-2b bf16 6-bit on the 2x2 mesh: bucketed "
           f"{MESH_BUCKET[0]} x {MESH_BUCKET[1]} tokens: TTFT {b['ttft_ms']:.1f} ms, decode "
           f"{b['decode_ms_per_step']:.2f} ms per step; continuous (paged kernel, {MESH_SLOTS} "
@@ -5380,6 +5394,546 @@ def mesh_phase(dev, card, time_ms, median_ms):
     rep.update(ranks=ranks, bf16_token_agreement=agree, bf16_first_token_agreement=first,
                bf16_prefill_witness=witness,
                launches={k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]})
+    return rep
+
+
+# the kinds' mesh phase (4l): every other layer kind and the MoE FFN on
+# the 2x2 mesh of phase 4k, each model at its published widths cut to the
+# smallest depth that holds each of its kinds
+MESH_KINDS = [("gemma3-12b", 6), ("recurrentgemma-9b", 3), ("mamba2-130m", 24),
+              (VISION, 5), ("qwen2-moe-a2.7b", 2)]
+KM_PARITY = (4, 32, 4)  # f32 parity: requests x prompt tokens, new tokens
+KM_BUCKET = (4, 256)  # bf16 bucketed: requests x prompt tokens
+KM_REQUESTS = 4  # bf16 continuous: requests on MESH_SLOTS lanes
+KM_NEW = 4  # bf16 new tokens a request (a decode step costs 24-124 collectives)
+KM_CROSS_STEPS = 2  # bf16 decode steps of the vision model with its cross tokens
+
+
+def _record_kernel_shapes():
+    """Wrap the three kernels' entry points (``ops.bitserial_matmul``, the
+    call through which every product of a rank's block reaches its
+    kernel, ``ops.flash_attention`` and ``ops.paged_attention``) so that
+    each records the shapes it is given: bitserial (M, K, N, dtype, scale
+    groups), flash (BH, BH of K/V, S, d, window, dtype), paged (lanes,
+    K/V heads, group, d, pool blocks, block rows, table width, dtype).
+    The wrappers launch nothing themselves.  Returns the sets by kernel
+    and the undo."""
+    from repro_torch.kernels import ops
+
+    shapes = {"bitserial": set(), "flash": set(), "paged": set()}
+    plain = ops.bitserial_matmul, ops.flash_attention, ops.paged_attention
+
+    def bitserial(x, pw, active_planes=None):
+        groups = pw.scale.shape[-1] if pw.scale.numel() > 1 else None
+        shapes["bitserial"].add((x.numel() // x.shape[-1], pw.sign.shape[-2] * 8,
+                                 pw.sign.shape[-1], str(x.dtype).split(".")[-1], groups))
+        return plain[0](x, pw, active_planes)
+
+    def flash(q, k, v, **kw):
+        shapes["flash"].add((q.shape[0], k.shape[0], q.shape[1], q.shape[2], kw.get("window"),
+                             str(q.dtype).split(".")[-1]))
+        return plain[1](q, k, v, **kw)
+
+    def paged(q, k_pool, v_pool, table, pos, **kw):
+        B, KV, G, d = q.shape
+        shapes["paged"].add((B, KV, G, d, k_pool.shape[0], k_pool.shape[1], table.shape[1],
+                             str(q.dtype).split(".")[-1]))
+        return plain[2](q, k_pool, v_pool, table, pos, **kw)
+
+    ops.bitserial_matmul, ops.flash_attention, ops.paged_attention = bitserial, flash, paged
+
+    def undo():
+        ops.bitserial_matmul, ops.flash_attention, ops.paged_attention = plain
+
+    return shapes, undo
+
+
+def _kinds_inputs(cfg, dev, B, S):
+    """The model API's inputs of phase 4l: prompts, and the vision model's
+    cross tokens (``cfg.frontend_tokens`` per lane), from fixed seeds."""
+    import numpy as np
+    import torch
+
+    reqs = _mesh_requests(cfg, B, S, 1, 60)
+    batch = {"tokens": torch.from_numpy(np.stack([r.tokens for r in reqs]).astype(np.int64))
+             .to(dev)}
+    if cfg.frontend == "vision":
+        gen = torch.Generator(device=dev).manual_seed(5)
+        batch["cross_embeds"] = torch.randn((B, cfg.frontend_tokens, cfg.d_model),
+                                            generator=gen, device=dev).to(cfg.compute_dtype)
+    return batch
+
+
+def _kinds_logits(params, cfg, dev, steps):
+    """Prefill of KM_PARITY's prompts (and cross tokens) and ``steps``
+    greedy decode steps through the model API: the stacked f32 logits on
+    the host."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    B, S, _ = KM_PARITY
+    batch = _kinds_inputs(cfg, dev, B, S)
+    with torch.inference_mode():
+        logits, cache = transformer.prefill(params, batch, cfg, 64)
+        out = [logits]
+        for t in range(steps):
+            logits, cache = transformer.decode_step(
+                params, cache, logits.argmax(-1)[:, None], S + t, cfg,
+                cross_embeds=batch.get("cross_embeds"))
+            out.append(logits)
+    return torch.stack(out).float().cpu()
+
+
+class _Routes:
+    """Phase 4l's MoE routing: one process's gates and experts, recorded
+    call by call (``record``), then on a rank (``impose``) each call's own
+    routing kept where it picks the same experts, and the recorded one
+    taken for the tokens where it does not: there the top-k margin must be
+    under 100 x the largest difference of the two sides' gates (a
+    near-tie that another order of the stitched router sum decides),
+    else the rank fails.  Counts the near-ties taken."""
+
+    def __init__(self, calls=None):
+        self.calls = [] if calls is None else calls
+        self.taken = self.tokens = 0
+
+    def record(self):
+        from repro_torch.models import moe
+
+        orig = moe._route
+
+        def route(gates, top_k):
+            w, e = orig(gates, top_k)
+            self.calls.append((gates.detach().cpu(), e.detach().cpu()))
+            return w, e
+
+        return mock.patch.object(moe, "_route", route)
+
+    def impose(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        orig, calls = moe._route, iter(self.calls)
+
+        def route(gates, top_k):
+            ref_g, ref_e = next(calls)
+            w, e = orig(gates, top_k)
+            ref_e = ref_e.to(e.device)
+            differ = (e.sort(-1).values != ref_e.sort(-1).values).any(-1)
+            self.tokens += differ.numel()
+            if not bool(differ.any()):
+                return w, e
+            srt = gates.sort(-1, descending=True).values
+            margin = (srt[..., top_k - 1] - srt[..., top_k]).cpu()
+            gap = (gates.cpu() - ref_g).abs().max()
+            d = differ.cpu()
+            check(bool((margin[d] < 100 * gap).all()),
+                  f"[4l] a routing differs from one process's away from a near-tie "
+                  f"(margins {margin[d].tolist()[:4]}, gates differ by {float(gap)})")
+            self.taken += int(d.sum())
+            e = torch.where(differ[..., None], ref_e, e)
+            return gates.gather(-1, e), e
+
+        return mock.patch.object(moe, "_route", route)
+
+
+def _kinds_reference(arch, layers, dev):
+    """Phase 4l's one-process side of a model's f32 parity: the bucketed
+    engine's greedy tokens and the model API's logits on the card, and
+    the MoE routing of both runs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    B, S, new = KM_PARITY
+    cfg = get_config(arch).scaled(n_layers=layers, dtype="float32", kv_cache_dtype="float32")
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                     pack_bits=N_BITS)
+    routes = _Routes()
+    with routes.record():
+        tokens = {r.uid: r.tokens.tolist() for r in ServeEngine(
+            params, cfg, max_len=64, device=dev).generate(_mesh_requests(cfg, B, S, new, 50))}
+        logits = _kinds_logits(params, cfg, dev, MESH_PARITY_STEPS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tokens": tokens, "logits": logits, "routes": routes.calls}
+
+
+def _float_bytes(tree, cfg=None) -> int:
+    """Bytes of the float leaves of a param tree (FloatBlock and RowsBlock
+    blocks included, PackedWeights not); with ``cfg`` each as serving
+    holds it (``core.packing.serving_cast``'s dtype), without allocating."""
+    import torch
+
+    from repro_torch.core.packing import (SERVED_IN_COMPUTE_DTYPE, FloatBlock, PackedWeight,
+                                          RowsBlock)
+
+    def walk(t, name=""):
+        if isinstance(t, dict):
+            return sum(walk(v, k) for k, v in t.items())
+        if isinstance(t, (list, tuple)):
+            return sum(walk(v, name) for v in t)
+        if isinstance(t, PackedWeight) or t is None:
+            return 0
+        if isinstance(t, (FloatBlock, RowsBlock)):
+            t = t.w
+            if t is None:
+                return 0
+        elt = t.element_size()
+        if cfg is not None and name in SERVED_IN_COMPUTE_DTYPE:
+            elt = torch.empty((), dtype=cfg.compute_dtype).element_size()
+        return t.numel() * elt
+
+    return walk(tree)
+
+
+def _kinds_launches():
+    from repro_torch.kernels import flash_attention as fa
+
+    c = _mesh_launches()
+    c["flash_windowed"] = fa.windowed_launches
+    return c
+
+
+def _placed_params(mesh, cfg, dev):
+    """This rank's blocks of the params drawn from seed 0 (the one-process
+    run's draws), and the whole model's packed and float bytes as serving
+    holds them.
+    The ranks draw one after another (a barrier between): a full-width
+    draw and its packing peak at several times the model's bytes, and
+    four at once do not fit the card."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.packing import packed_leaves
+    from repro_torch.dist import elastic, sharding
+    from repro_torch.models import transformer
+
+    local = whole = None
+    for turn in range(mesh.size()):
+        if turn == mesh.rank:
+            params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                             dev, pack_bits=N_BITS)
+            whole = (sum(pw.hbm_bytes() for pw in packed_leaves(params)),
+                     _float_bytes(params, cfg))
+            local = elastic.reshard_tree(sharding.annotate_packed_specs(params, mesh), mesh)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return local, whole
+
+
+def kinds_rank(mesh, refs):
+    """Phase 4l on one rank of the 2x2 mesh, model by model: the f32
+    parity model (its routing imposed where a near-tie differs), then
+    bf16 bucketed and continuous (paged kernel), each rank's packed and
+    float bytes, launches, decode ms per step, TTFT, collectives per
+    decode step; the shapes its kernels were given."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.common import packed_shard_mesh
+    from repro_torch.serve import SchedulerPolicy, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = mesh.device
+    shapes, unrecord = _record_kernel_shapes()
+    engine_cls = checked_engine_cls()
+    out = {"rank": mesh.rank}
+    for arch, layers in MESH_KINDS:
+        r = out[arch] = {}
+        B, S, new = KM_PARITY
+        # parity: the same draws as the one-process run, this rank's blocks
+        cfg32 = get_config(arch).scaled(n_layers=layers, dtype="float32",
+                                        kv_cache_dtype="float32")
+        local, _ = _placed_params(mesh, cfg32, dev)
+        routes = _Routes(refs[arch]["routes"])
+        with routes.impose():
+            eng = ServeEngine(local, cfg32, max_len=64, mesh=mesh, placed=True)
+            r["parity_tokens"] = {x.uid: x.tokens.tolist() for x in eng.generate(
+                _mesh_requests(cfg32, B, S, new, 50))}
+            with packed_shard_mesh(mesh):
+                r["parity_logits"] = _kinds_logits(eng.params, cfg32, dev, MESH_PARITY_STEPS)
+        r["near_ties"] = (routes.taken, routes.tokens)
+        del eng, local
+        gc.collect()
+        torch.cuda.empty_cache()
+        # bf16: the same draws, this rank's blocks
+        cfg = get_config(arch).scaled(n_layers=layers)
+        t0 = time.perf_counter()
+        params, (packed_whole, float_whole) = _placed_params(mesh, cfg, dev)
+        bucketed = engine_cls(params, cfg, max_len=MESH_MAX_LEN, mesh=mesh, placed=True)
+        policy = SchedulerPolicy(n_slots=MESH_SLOTS, chunked_prefill=True,
+                                 chunk_sizes=(MESH_CHUNK,), paged=True, block_size=BLOCK,
+                                 n_blocks=MESH_BLOCKS, paged_kernel=True)
+        continuous = engine_cls(params, cfg, max_len=MESH_MAX_LEN, mesh=mesh, continuous=True,
+                                policy=policy, placed=True)
+        del params
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        r["init_s"] = time.perf_counter() - t0
+        r["packed_bytes"] = (bucketed.packed_bytes_local, packed_whole)
+        r["float_bytes"] = (_float_bytes(bucketed.params), float_whole)
+        bucketed.generate(_mesh_requests(cfg, 1, 16, 2, 90))  # warm-up
+        # the main path: counts from 0, the runs, counts read after
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh.collectives = 0
+        t0 = time.perf_counter()
+        b_res = bucketed.generate(_mesh_requests(cfg, *KM_BUCKET, KM_NEW, 0))
+        torch.cuda.synchronize(dev)
+        r["bucketed"] = {"wall_s": time.perf_counter() - t0,
+                         "ttft_ms": float(np.mean([x.prefill_ms for x in b_res])),
+                         "decode_ms_per_step": float(np.mean([x.decode_ms_per_tok
+                                                              for x in b_res])),
+                         "tokens": {x.uid: x.tokens.tolist() for x in b_res}}
+        rng = np.random.default_rng(7)
+        lens = [int(n) for n in rng.integers(32, 128, size=KM_REQUESTS)]
+        arrivals = [int(a) for a in np.floor(np.cumsum(rng.exponential(1.0, KM_REQUESTS)))]
+        continuous.scheduler.digests = []
+        t0 = time.perf_counter()
+        c_res = continuous.generate(_mesh_requests(cfg, KM_REQUESTS, lens, KM_NEW, 20),
+                                    arrival_steps=arrivals)
+        torch.cuda.synchronize(dev)
+        sched, pool = continuous.scheduler, continuous.scheduler.pool
+        r["continuous"] = {"wall_s": time.perf_counter() - t0,
+                           "decode_steps": sched.decode_steps,
+                           "decode_ms_per_step": sched.decode_ms_total
+                           / max(sched.decode_steps, 1),
+                           "ttft_ms": sorted(x.prefill_ms for x in c_res),
+                           "tokens": {x.uid: x.tokens.tolist() for x in c_res},
+                           "digests": sched.digests,
+                           "drained": pool.allocator.free_count == pool.n_blocks}
+        if cfg.frontend == "vision":
+            # the model API with the cross tokens: their K/V at M = lanes x
+            # cfg.frontend_tokens on this rank's N block, every step
+            batch = _kinds_inputs(cfg, dev, KM_BUCKET[0], 64)
+            with torch.inference_mode(), packed_shard_mesh(mesh):
+                logits, cache = transformer.prefill(bucketed.params, batch, cfg, MESH_MAX_LEN)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                for t in range(KM_CROSS_STEPS):
+                    logits, cache = transformer.decode_step(
+                        bucketed.params, cache, logits.argmax(-1)[:, None], 64 + t, cfg,
+                        cross_embeds=batch["cross_embeds"])
+                torch.cuda.synchronize(dev)
+            r["cross_decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / KM_CROSS_STEPS
+            r["cross_finite"] = bool(torch.isfinite(logits).all())
+            del batch, logits, cache
+        r["launches"] = _kinds_launches()
+        r["collectives"] = mesh.collectives
+        r["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        # collectives of one bucketed decode step, counted alone
+        batch = _kinds_inputs(cfg, dev, KM_BUCKET[0], 16)
+        batch.pop("cross_embeds", None)
+        with torch.inference_mode(), packed_shard_mesh(mesh):
+            logits, cache = transformer.prefill(bucketed.params, batch, cfg, 64)
+            mesh.collectives = 0
+            transformer.decode_step(bucketed.params, cache, logits.argmax(-1)[:, None], 16, cfg)
+        r["collectives_per_decode_step"] = mesh.collectives
+        r["nonfinite"] = sum(int(e.bad.item()) for e in (bucketed, continuous)
+                             if e.bad is not None)
+        del bucketed, continuous, sched, pool, batch, logits, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    unrecord()
+    out["shapes"] = {k: sorted(v, key=str) for k, v in shapes.items()}
+    return out
+
+
+def _kinds_flash_case(dev, BH, BHkv, S, d, window, dname):
+    """The flash kernel against its plain version at one shape a rank gave it."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    dt = getattr(torch, dname)
+    gen = torch.Generator(device=dev).manual_seed(S + d)
+    q = torch.randn((BH, S, d), generator=gen, device=dev).to(dt)
+    k = torch.randn((BHkv, S, d), generator=gen, device=dev).to(dt)
+    v = torch.randn((BHkv, S, d), generator=gen, device=dev).to(dt)
+    got = ops.flash_attention(q, k, v, window=window)
+    want = ref.flash_attention_ref(q, k, v, window=window)
+    err = (got.float() - want.float()).abs().max().item()
+    scale_ = want.float().abs().max().item()
+    what = f"[4l] flash at BH={BH}/{BHkv} S={S} d={d} window={window} {dname}"
+    check(bool(torch.isfinite(got).all()) and err <= PAGED_TOL[dname] * scale_,
+          f"{what}: max err {err} > {PAGED_TOL[dname]} x {scale_}")
+    check(torch.equal(got, ops.flash_attention(q, k, v, window=window)),
+          f"{what}: a second call differs")
+    return {"BH": BH, "BHkv": BHkv, "S": S, "d": d, "window": window, "dtype": dname,
+            "max_abs_err": err, "max_abs_plain": scale_}
+
+
+def _kinds_paged_case(dev, B, KV, G, d, n_pool, bs, nb_lane, dname):
+    """The paged kernel against its plain version at one shape a rank gave
+    it: a random table over the rank's pool slice, positions from an
+    inactive lane to the table's last row."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    dt = getattr(torch, dname)
+    gen = torch.Generator(device=dev).manual_seed(B + d + nb_lane)
+    q = torch.randn((B, KV, G, d), generator=gen, device=dev).to(dt)
+    k = torch.randn((n_pool, bs, KV, d), generator=gen, device=dev).to(dt)
+    v = torch.randn((n_pool, bs, KV, d), generator=gen, device=dev).to(dt)
+    table = torch.randint(0, n_pool, (B, nb_lane), generator=gen, device=dev).to(torch.int32)
+    last = nb_lane * bs - 1
+    pos = torch.tensor([[-1, 0, last, last // 2][i % 4] for i in range(B)], dtype=torch.int32,
+                       device=dev)
+    got = ops.paged_attention(q, k, v, table, pos)
+    want = ref.paged_attention_ref(q, k, v, table, pos)
+    err = (got.float() - want.float()).abs().max().item()
+    scale_ = want.float().abs().max().item()
+    what = f"[4l] paged at B={B} KV={KV} G={G} d={d} pool {n_pool}x{bs} table {nb_lane} {dname}"
+    check(bool(torch.isfinite(got).all()) and err <= PAGED_TOL[dname] * scale_,
+          f"{what}: max err {err} > {PAGED_TOL[dname]} x {scale_}")
+    check(torch.equal(got, ops.paged_attention(q, k, v, table, pos)),
+          f"{what}: a second call differs")
+    return {"B": B, "KV": KV, "G": G, "d": d, "pool_blocks": n_pool, "block_rows": bs,
+            "table": nb_lane, "dtype": dname, "max_abs_err": err, "max_abs_plain": scale_}
+
+
+def kinds_mesh_phase(dev, card, time_ms):
+    """Phase 4l: every other layer kind and the MoE FFN served on the 2x2
+    mesh of 4 gloo ranks on the one card, each model (MESH_KINDS) at its
+    published widths cut in depth.  One process's f32 references first;
+    then the ranks (``kinds_rank``, one spawn for every model); then each
+    kernel against its plain version at every shape the ranks gave it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_on_mesh
+
+    d_ax, m_ax = MESH_SHAPE
+    print(f"[4l] the other layer kinds on the {d_ax}x{m_ax} mesh, {d_ax * m_ax} gloo ranks on "
+          f"cuda:0: " + ", ".join(f"{a} cut to {n} layers" for a, n in MESH_KINDS)
+          + f" [{card}]", flush=True)
+    t0 = time.perf_counter()
+    refs = {arch: _kinds_reference(arch, layers, dev) for arch, layers in MESH_KINDS}
+    rep = {"reference_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    ranks = run_on_mesh(kinds_rank, d_ax, m_ax, backend="gloo", device=dev,
+                        args=({a: {"routes": refs[a]["routes"]} for a in refs},))
+    rep["ranks_wall_s"] = time.perf_counter() - t0
+    rep["models"] = {}
+    for arch, layers in MESH_KINDS:
+        ref = refs[arch]
+        lmax = ref["logits"].abs().max().item()
+        tol = TOL["float32"] * max(1.0, lmax)
+        r0 = ranks[0][arch]
+        kinds = {k.split("+")[0] for k in get_config(arch).layer_pattern}
+        cross = arch == VISION
+        for r in ranks:
+            m, tag = r[arch], f"[4l] {arch} rank {r['rank']}"
+            check(m["parity_tokens"] == ref["tokens"],
+                  f"{tag}: f32 tokens {m['parity_tokens']} != one process's {ref['tokens']}")
+            err = (m["parity_logits"] - ref["logits"]).abs().max().item()
+            m["parity_max_abs_dlogit"] = err
+            check(err <= tol, f"{tag}: f32 logits differ by {err} > {tol} (max {lmax})")
+            check(torch.equal(m["parity_logits"], r0["parity_logits"]),
+                  f"{tag}: logits differ from rank 0's")
+            for run in ("bucketed", "continuous"):
+                check(m[run]["tokens"] == r0[run]["tokens"], f"{tag} {run}: tokens differ")
+            check(m["continuous"]["digests"] == r0["continuous"]["digests"]
+                  and len(m["continuous"]["digests"]) > 0, f"{tag}: scheduler digests differ")
+            check(m["continuous"]["drained"], f"{tag}: the pool is not drained")
+            check(m["nonfinite"] == 0 and m.get("cross_finite", True),
+                  f"{tag}: {m['nonfinite']} non-finite logits")
+            la = m["launches"]
+            must = {"bitserial_matmul": arch != "mamba2-130m",
+                    "flash_attention": bool(kinds & {"attn", "local"}),
+                    "flash_windowed": "local" in kinds, "paged_attention": "attn" in kinds}
+            for k, need in must.items():
+                check((la[k] > 0) == need, f"{tag}: {la[k]} {k} launches on the main path "
+                      f"({'must run' if need else 'runs none'})")
+            local, whole = m["packed_bytes"]
+            if whole:
+                check(local / whole < 0.3, f"{tag}: holds {local} of {whole} packed bytes")
+            flocal, fwhole = m["float_bytes"]
+            check(flocal / fwhole < 0.3, f"{tag}: holds {flocal} of {fwhole} float bytes")
+        for r in ranks:
+            del r[arch]["parity_logits"]
+        b, c = r0["bucketed"], r0["continuous"]
+        worst = max(r[arch]["parity_max_abs_dlogit"] for r in ranks)
+        print(f"[4l] {arch} ({layers} layers) f32 on the mesh: tokens == one process, "
+              f"max|dlogit| {worst:.3e} (max|logit| {lmax:.3e}; tolerance {tol:.3e}); "
+              f"routing near-ties taken from one process (taken, tokens routed) "
+              f"{[r[arch]['near_ties'] for r in ranks]} [{card}]", flush=True)
+        for r in ranks:
+            m = r[arch]
+            print(f"[4l] {arch} rank {r['rank']}: packed {m['packed_bytes'][0] / 1e6:.1f} of "
+                  f"{m['packed_bytes'][1] / 1e6:.1f} MB, float {m['float_bytes'][0] / 1e6:.1f} "
+                  f"of {m['float_bytes'][1] / 1e6:.1f} MB; launches {m['launches']}; peak "
+                  f"{m['peak_bytes'] / 1e9:.2f} GB; init {m['init_s']:.1f} s [{card}]",
+                  flush=True)
+        line = (f"[4l] {arch} bf16 6-bit on the mesh: decode {b['decode_ms_per_step']:.2f} ms "
+                f"per step bucketed ({KM_BUCKET[0]} x {KM_BUCKET[1]} tokens), "
+                f"{c['decode_ms_per_step']:.2f} continuous (paged kernel, {c['decode_steps']} "
+                f"steps); TTFT {b['ttft_ms']:.1f} ms bucketed, p50 "
+                f"{np.percentile(c['ttft_ms'], 50):.1f} continuous; "
+                f"{r0['collectives_per_decode_step']} collectives per decode step, "
+                f"{r0['collectives']} in the runs")
+        if cross:
+            line += (f"; with {KM_BUCKET[0]} x 1600 cross tokens "
+                     f"{r0['cross_decode_ms_per_step']:.2f} ms per decode step")
+        print(line + f" [{card}]", flush=True)
+        rep["models"][arch] = {
+            "layers": layers, "tolerance": tol, "max_abs_logit": lmax,
+            "ranks": [r[arch] for r in ranks]}
+    # every kernel against its plain version at every shape the ranks gave it
+    seen = {k: {tuple(x) for r in ranks for x in r["shapes"][k]} for k in
+            ("bitserial", "flash", "paged")}
+    rg, g3 = get_config("recurrentgemma-9b"), get_config("gemma3-12b")
+    vis = get_config(VISION)
+    B_l = KM_BUCKET[0] // d_ax
+    wanted = {
+        # recurrentgemma's windowed prefill: a rank's lanes and half of the
+        # query heads of its one K/V head
+        "flash": {(B_l * rg.n_heads // m_ax, B_l, KM_BUCKET[1], rg.resolved_head_dim,
+                   rg.window, "bfloat16")},
+        # gemma3's global layer: 4 of 8 K/V heads on a rank's lanes
+        "paged": {(MESH_SLOTS // d_ax, g3.n_kv_heads // m_ax,
+                   g3.n_heads // g3.n_kv_heads, g3.resolved_head_dim,
+                   MESH_BLOCKS // d_ax + 1, BLOCK, MESH_MAX_LEN // BLOCK, "bfloat16")},
+        # the cross K/V products on a rank's block, every lane's 1600 tokens
+        "bitserial": {(KM_BUCKET[0] * vis.frontend_tokens, vis.d_model // d_ax,
+                       vis.n_kv_heads * vis.resolved_head_dim // m_ax, "bfloat16", None)},
+    }
+    for k, w in wanted.items():
+        check(w <= seen[k], f"[4l] the ranks never gave the {k} kernel {w - seen[k]}")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows = {"bitserial": [bitserial_case(dev, gen, card, time_ms, M, K, N, g, getattr(torch, dt),
+                                         timed=False)
+                          for M, K, N, dt, g in sorted(seen["bitserial"], key=str)],
+            "flash": [_kinds_flash_case(dev, *s) for s in sorted(seen["flash"], key=str)],
+            "paged": [_kinds_paged_case(dev, *s) for s in sorted(seen["paged"], key=str)]}
+    for k, rs in rows.items():
+        worst = max(rs, key=lambda x: x["max_abs_err"] / max(x["max_abs_plain"], 1e-30))
+        print(f"[4l] {k} against its plain version at the {len(rs)} shapes the ranks gave it: "
+              f"every one within tolerance" + (", active=a bitwise truncate_packed"
+                                              if k == "bitserial" else "")
+              + f"; the worst relative error "
+              f"{worst['max_abs_err'] / max(worst['max_abs_plain'], 1e-30):.3e} at "
+              f"{ {x: y for x, y in worst.items() if x not in ('max_abs_err', 'max_abs_plain')} } "
+              f"[{card}]", flush=True)
+    rep["kernels_at_shard_shapes"] = rows
+    rep["launches"] = {k: sum(r[a]["launches"][k] for r in ranks for a, _ in MESH_KINDS)
+                       for k in ranks[0][MESH_KINDS[0][0]]["launches"]}
+    rep["collectives_per_decode_step"] = {a: ranks[0][a]["collectives_per_decode_step"]
+                                          for a, _ in MESH_KINDS}
     return rep
 
 
@@ -6168,6 +6722,19 @@ def kernel_entries(report, max_err):
     f_entry.update({"launches_mesh": ml["flash_attention"], "ms_mesh_rank": mf["ms"],
                     "bound_ms_mesh_rank": mf["bound_ms"], "library_ms_mesh_rank": mf["library_ms"],
                     "plain_ms_mesh_rank": mf["plain_ms"]})
+    # the kinds' mesh phase (4l): launches summed over its 4 ranks and 5
+    # models; the shapes the ranks gave each kernel, each held to its plain
+    # version (the worst relative error)
+    mk = report["mesh_kinds"]
+    for e, key, rows in ((entry, "bitserial_matmul", "bitserial"),
+                         (p_entry, "paged_attention", "paged"),
+                         (f_entry, "flash_attention", "flash")):
+        held = mk["kernels_at_shard_shapes"][rows]
+        e["launches_mesh_kinds"] = mk["launches"][key]
+        e["mesh_kinds_shapes_held_to_plain"] = len(held)
+        e["mesh_kinds_max_rel_err"] = max(r["max_abs_err"] / max(r["max_abs_plain"], 1e-30)
+                                          for r in held)
+    f_entry["launches_mesh_kinds_windowed"] = mk["launches"]["flash_windowed"]
     return [entry, d_entry, pre_entry, p_entry, b_entry, bb_entry, f_entry]
 
 
@@ -6364,6 +6931,11 @@ def main() -> int:
         report["mesh"] = mesh_phase(dev, card, time_ms, median_ms)
         flush.clear()
         phase_done("4k")
+    if want("4l"):
+        report["mesh_kinds"] = kinds_mesh_phase(dev, card, time_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("4l")
 
     # ---------------------------------------------------------------- 6
     if want("6"):

@@ -72,6 +72,25 @@ class FloatBlock:
         return dataclasses.replace(self, w=self.w.to(device))
 
 
+@dataclasses.dataclass
+class RowsBlock:
+    """A stacked (L, N) vector's block on a mesh whose rule splits its
+    layer axis too (the RG-LRU gate biases ``b_rgate``/``b_igate``, which
+    JAX's rules read as a matrix: ``P("data", "model")``): ``w`` is this
+    rank's (L/dl, N/dn) block, ``lo`` the first layer it holds, ``spec``
+    the two axes.  ``models.transformer.layer_slice`` gives layer b's row
+    where this rank holds it (``w`` None elsewhere), and the model adds
+    it into the partial product that its N block's reduction sums, so
+    the vector is never gathered.  Made by ``dist.elastic.reshard_tree``."""
+
+    w: Optional[torch.Tensor]
+    lo: int
+    spec: Tuple
+
+    def to(self, device) -> "RowsBlock":
+        return self if self.w is None else dataclasses.replace(self, w=self.w.to(device))
+
+
 def tree_leaves(tree) -> list:
     """Leaves of a nested dict/list/tuple param tree, PackedWeights kept whole."""
     if isinstance(tree, dict):

@@ -21,9 +21,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..core.packing import PACKABLE_SUFFIXES, FloatBlock, PackedWeight
+from ..core.packing import (PACKABLE_SUFFIXES, RECURRENT_MATRICES, FloatBlock, PackedWeight,
+                            RowsBlock)
 from ..tree import flatten_with_path, unflatten_like
-from .sharding import P, _canonical, _map_with_path, dp_axes, local_block, tree_param_specs
+from .sharding import (P, _canonical, _map_with_path, block_range, dp_axes, local_block,
+                       tree_param_specs)
 
 PyTree = Any
 
@@ -122,6 +124,21 @@ def gather_tree(tree: PyTree, mesh, spec_tree: PyTree) -> PyTree:
                                  else x for n, x in flatten_with_path(tree)})
 
 
+# Float matrices the model runs through ``models.common.dense_apply``: the
+# packable projections, the recurrent mixers' matrices and the MoE router.
+_STITCHED = frozenset(PACKABLE_SUFFIXES) | RECURRENT_MATRICES | {"router"}
+
+
+def _stitched(path: str) -> bool:
+    """Whether a float leaf is a (K, N) matmul ``dense_apply`` stitches.  The
+    stacked MoE experts are not: their expert axis splits over "model",
+    and ``models.moe`` runs each rank's experts on their blocks itself."""
+    segs = path.split("/")
+    expert = "moe" in segs and "shared" not in segs and segs[-1] in ("w_gate", "w_up",
+                                                                     "w_down")
+    return segs[-1] in _STITCHED and not expert
+
+
 def reshard_tree(tree: PyTree, mesh, spec_tree: Optional[PyTree] = None) -> PyTree:
     """Keep this rank's block of every leaf of ``tree`` under the dist
     rules (``spec_tree`` overrides the derived specs; it mirrors ``tree``).
@@ -129,10 +146,14 @@ def reshard_tree(tree: PyTree, mesh, spec_tree: Optional[PyTree] = None) -> PyTr
     A PackedWeight keeps its ``kn_spec`` (annotate it first,
     ``sharding.annotate_packed_specs``) and the whole weight's ``k``, its
     scale cut by :func:`local_scale`; a
-    float matmul (a packable leaf name) whose rule shards its trailing
-    (K, N) axes becomes a :class:`~repro_torch.core.packing.FloatBlock`,
-    the form ``models.common.dense_apply`` stitches.  Other leaves are
-    plain blocks (the embedding: the model reads its rule by name), and
+    float matmul (a packable leaf name, a recurrent mixer's matrix, the
+    MoE router) whose rule shards its trailing (K, N) axes becomes a
+    :class:`~repro_torch.core.packing.FloatBlock`, the form
+    ``models.common.dense_apply`` stitches; a stacked vector whose rule
+    splits its layer axis becomes a
+    :class:`~repro_torch.core.packing.RowsBlock`.  Other leaves are plain
+    blocks (the embedding and the MoE experts: the model reads their rules
+    by name), and
     so is every leaf of a train state (:func:`is_train_state`), whose specs
     default to :func:`train_state_specs`."""
     train = is_train_state(tree)
@@ -151,10 +172,12 @@ def reshard_tree(tree: PyTree, mesh, spec_tree: Optional[PyTree] = None) -> PyTr
                 t, planes=_block(t.planes, s.planes, mesh), sign=_block(t.sign, s.sign, mesh),
                 scale=local_scale(t.scale, s.scale, n_ax, t.sign.shape[-1], mesh))
         block = _block(t, s, mesh)
-        if (not train and isinstance(t, torch.Tensor) and t.ndim >= 2 and _sharded(s)
-                and path.rsplit("/", 1)[-1] in PACKABLE_SUFFIXES):
+        if not train and isinstance(t, torch.Tensor) and t.ndim >= 2 and _sharded(s):
             spec = tuple(s) + (None,) * (t.ndim - len(s))
-            return FloatBlock(block, (spec[-2], spec[-1]))
+            if _stitched(path):
+                return FloatBlock(block, (spec[-2], spec[-1]))
+            if t.ndim == 2 and path.startswith("blocks/"):
+                return RowsBlock(block, block_range(mesh, spec[0], t.shape[0])[0], spec)
         return block
 
     return walk(tree, spec_tree)

@@ -30,9 +30,10 @@ JAX launcher does (``--arch qwen2-moe-a2.7b`` and
 unless ``--device cpu`` is given.
 
 ``--data-parallel N --model-parallel M`` (given together, as in JAX)
-serve on an N x M ("data", "model") mesh: the launcher starts the N*M
-ranks itself (``launch.mesh.run_on_mesh``), each holding its block of
-every weight and of the KV pool, and rank 0 prints.  ``--dist-backend``
+serve any ``--arch`` on an N x M ("data", "model") mesh: the launcher
+starts the N*M ranks itself (``launch.mesh.run_on_mesh``), each holding
+its block of every weight, of the KV pool and rings and of the lanes'
+recurrent state, and rank 0 prints.  ``--dist-backend``
 picks the ``torch.distributed`` backend: ``nccl`` (one card per rank, the
 default on the card), ``gloo`` (the CPU, the default with ``--device
 cpu``; on the card, several ranks sharing one card).

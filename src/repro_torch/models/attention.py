@@ -43,8 +43,13 @@ combines each rank's partial softmax.  The paged paths run shard-local
 under ``common.paged_shard_mesh`` (:func:`_paged_attend_sharded`: lanes
 and their pool blocks co-shard, block ids translated by a subtraction
 and a clip, as JAX's ``_paged_attend_sharded``); a pool split over data
-without its lanes gathers the pool for the read.  Prefill runs the flash
-kernel on each rank's lanes and heads.
+without its lanes gathers the pool for the read.  Ring buffers split as
+the contiguous cache does: over K/V heads, or over their slots where the
+K/V heads do not (a decode row lands on the rank holding slot ``pos mod
+Wc``; reads combine partial softmaxes).  Prefill runs the flash kernel
+on each rank's lanes and heads, or, where the K/V heads do not split, on
+its share of each K/V head's query heads.  The "+cross" sublayer is a
+Megatron pair on each rank's heads.
 """
 from __future__ import annotations
 
@@ -106,7 +111,8 @@ def _qkv_sharded(p: Params, x: torch.Tensor, n_heads: int, n_kv: int, head_dim: 
     mesh = packed_mesh()
     kv_ax = spec[2]
     ws = [p["wq"], p["wk"], p["wv"]]
-    if kv_ax is not None and local_heads_ok(mesh, ws, p["wo"]) and ws[0].kn_spec[1] == kv_ax:
+    if kv_ax is not None and local_heads_ok(mesh, ws, p["wo"], heads=n_kv) \
+            and ws[0].kn_spec[1] == kv_ax:
         from ..dist.sharding import axis_size
 
         d = axis_size(mesh, kv_ax)
@@ -189,8 +195,10 @@ def _ranges(mesh, spec, B: int, n_kv: int, s_local: int):
     return b0, b1, h0, h1, axis_index(mesh, spec[1]) * s_local
 
 
-def _gather_heads(out: torch.Tensor, mesh, b_ax, kv_ax) -> torch.Tensor:
-    """(B_l, Sq, KV_l, G, d) local output -> the whole (B, Sq, KV*G*d)."""
+def _gather_heads(out: torch.Tensor, mesh, b_ax, kv_ax, g_ax=None) -> torch.Tensor:
+    """(B_l, Sq, KV_l, G_l, d) local output -> the whole (B, Sq, KV*G*d)."""
+    if g_ax is not None:
+        out = mesh.all_gather(out, g_ax, dim=3)
     if kv_ax is not None:
         out = mesh.all_gather(out, kv_ax, dim=2)
     if b_ax is not None:
@@ -293,10 +301,18 @@ def attention(
         raise ValueError(f"prefill length {S} is not a multiple of q_chunk={q_chunk}")
     if flash:
         if mesh is not None and shard_spec is not None:
+            from ..dist.sharding import axis_size, block_range
+
             b0, b1, h0, h1, _ = _ranges(mesh, shard_spec, B, n_kv, 0)
-            out = _flash(q[b0:b1, :, h0:h1], k[b0:b1, :, h0:h1], v[b0:b1, :, h0:h1], window)
-            out = _gather_heads(out.reshape(b1 - b0, S, h1 - h0, G, head_dim), mesh,
-                                shard_spec[0], shard_spec[2])
+            # K/V heads that do not split (the rule moved "model" to the
+            # sequence): this rank's share of each K/V head's query heads
+            g_ax = shard_spec[1] if shard_spec[2] is None and shard_spec[1] is not None \
+                and G % axis_size(mesh, shard_spec[1]) == 0 else None
+            g0, g1 = block_range(mesh, g_ax, G)
+            out = _flash(q[b0:b1, :, h0:h1, g0:g1], k[b0:b1, :, h0:h1], v[b0:b1, :, h0:h1],
+                         window)
+            out = _gather_heads(out.reshape(b1 - b0, S, h1 - h0, g1 - g0, head_dim), mesh,
+                                shard_spec[0], shard_spec[2], g_ax)
         else:
             out = _flash(q, k, v, window)
         return dense_apply(out, p["wo"], active_planes), (k, v)
@@ -449,17 +465,22 @@ def _paged_attend_gathered(mesh, spec, q_heads, k_row, v_row, cache_k, cache_v, 
 
 
 def _decode_contiguous_sharded(mesh, spec, q, k, v, cache_k, cache_v, posb, active, *,
-                               n_kv: int, head_dim: int, x_dtype) -> torch.Tensor:
-    """One-token decode over this rank's block of a contiguous cache
-    ((B, S, KV, hd) under ``spec``): its lanes and K/V heads write their
-    row where it falls in the local sequence rows and attend; the output
-    (B, 1, KV*G*d) comes back whole."""
+                               n_kv: int, head_dim: int, x_dtype, ring: bool = False,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """One-token decode over this rank's block of a contiguous cache or a
+    ring ((B, S, KV, hd) under ``spec``): its lanes and K/V heads write
+    their row where it falls in the local rows (a ring's slot ``pos mod
+    Wc``, Wc the whole ring's) and attend; the output (B, 1, KV*G*d)
+    comes back whole."""
+    from ..dist.sharding import axis_size
+
     B = q.shape[0]
     G = q.shape[2] // n_kv
     S_l = cache_k.shape[1]
     b0, b1, h0, h1, s0 = _ranges(mesh, spec, B, n_kv, S_l)
     lane_pos = posb[b0:b1, 0]
-    rows = lane_pos - s0
+    Wc = S_l * axis_size(mesh, spec[1])
+    rows = (torch.remainder(lane_pos, Wc) if ring else lane_pos) - s0
     own = (rows >= 0) & (rows < S_l)
     if active is not None:
         own &= active[b0:b1]
@@ -470,7 +491,14 @@ def _decode_contiguous_sharded(mesh, spec, q, k, v, cache_k, cache_v, posb, acti
     cache_v[bidx, r] = torch.where(keep, v[b0:b1, 0, h0:h1].to(cache_v.dtype), cache_v[bidx, r])
     qs = q[b0:b1, :, h0 * G:h1 * G].reshape(b1 - b0, 1, h1 - h0, G, head_dim) * (head_dim**-0.5)
     kpos = s0 + torch.arange(S_l, device=q.device)
-    valid = (kpos[None, :] <= lane_pos[:, None])[:, None, :]
+    if ring:  # slot s holds the absolute position pos - ((pos - s) mod Wc)
+        kpos = lane_pos[:, None] - torch.remainder(lane_pos[:, None] - kpos[None, :], Wc)
+        valid = kpos >= 0
+        if window is not None and window < Wc:
+            valid &= (lane_pos[:, None] - kpos) < window
+        valid = valid[:, None, :]
+    else:
+        valid = (kpos[None, :] <= lane_pos[:, None])[:, None, :]
     out = _attend_local(qs, cache_k, cache_v, valid, spec[1], mesh, x_dtype, torch.float32,
                         decode=True)
     return _gather_heads(out, mesh, spec[0], spec[2])
@@ -556,10 +584,9 @@ def decode_attention(
                 out = _paged_attend_gathered(mesh, shard_spec, *args, **kw)
         return dense_apply(out.reshape(B, 1, -1), p["wo"], active_planes, k_local=local)
     if mesh is not None:
-        if ring:
-            raise NotImplementedError("ring buffers on a mesh come with the next mesh slice")
         out = _decode_contiguous_sharded(mesh, shard_spec, q, k, v, cache_k, cache_v, posb,
-                                         active, n_kv=n_kv, head_dim=head_dim, x_dtype=x.dtype)
+                                         active, n_kv=n_kv, head_dim=head_dim, x_dtype=x.dtype,
+                                         ring=ring, window=window)
         return dense_apply(out, p["wo"], active_planes, k_local=local)
     Wc = cache_k.shape[1]
     if per_slot:
@@ -626,6 +653,50 @@ def _ring_chunk_attend(qs, k, v, cache_k, cache_v, start, qpos, n_valid, window,
     return out
 
 
+def _ring_chunk_sharded(mesh, spec, qs, k, v, cache_k, cache_v, start, qpos, n_valid, window,
+                        dtype, sdt) -> torch.Tensor:
+    """:func:`_ring_chunk_attend` over this rank's block of the rings
+    ((B, Wc, KV, hd) under ``spec``): its lanes and K/V heads, and its
+    slots where the rule splits them (one K/V head: "model" on the slot
+    axis).  The chunk's own keys count on the first slot shard; split
+    slots combine each shard's partial softmax.  Then each rank rebuilds
+    its own slots.  Returns the whole (B, C, KV*G*d)."""
+    from ..dist.sharding import axis_index, axis_size
+
+    B, C = qpos.shape
+    n_kv = k.shape[2]
+    S_l = cache_k.shape[1]
+    b0, b1, h0, h1, s0 = _ranges(mesh, spec, B, n_kv, S_l)
+    s_ax = spec[1]
+    Wc = S_l * axis_size(mesh, s_ax)
+    qs, k, v = qs[b0:b1, :, h0:h1], k[b0:b1, :, h0:h1], v[b0:b1, :, h0:h1]
+    start, qpos, n_valid = start[b0:b1], qpos[b0:b1], n_valid[b0:b1]
+    Bl, dev = b1 - b0, qs.device
+    # this rank's slots: slot s holds the latest processed position
+    # congruent to it, r_s < 0 where the lane never reached it
+    slots = s0 + torch.arange(S_l, device=dev)
+    r = (start[:, None] - 1) - torch.remainder(start[:, None] - 1 - slots[None, :], Wc)
+    valid = (r >= 0)[:, None, :].expand(Bl, C, S_l)
+    if window is not None:
+        valid = valid & ((qpos[:, :, None] - r[:, None, :]) < window)
+    keys, vals = cache_k.to(dtype), cache_v.to(dtype)
+    if axis_index(mesh, s_ax) == 0:
+        ci = torch.arange(C, device=dev)
+        valid = torch.cat([_mask(ci, ci, window)[None].expand(Bl, C, C), valid], dim=-1)
+        keys, vals = torch.cat([k.to(dtype), keys], dim=1), torch.cat([v.to(dtype), vals], dim=1)
+    out = _attend_local(qs, keys, vals, valid, s_ax, mesh, dtype, sdt, decode=False)
+    # rebuild this rank's slots: each takes the latest real chunk position
+    # congruent to it, else keeps its content
+    last = start + n_valid - 1
+    p_s = last[:, None] - torch.remainder(last[:, None] - slots[None, :], Wc)
+    in_chunk = (p_s >= start[:, None])[..., None, None]
+    idx = torch.clamp(p_s - start[:, None], 0, C - 1)[..., None, None].expand(Bl, S_l,
+                                                                              *k.shape[2:])
+    cache_k.copy_(torch.where(in_chunk, k.to(cache_k.dtype).gather(1, idx), cache_k))
+    cache_v.copy_(torch.where(in_chunk, v.to(cache_v.dtype).gather(1, idx), cache_v))
+    return _gather_heads(out, mesh, spec[0], spec[2])
+
+
 def prefill_chunk_attention(
     p: Params,
     x: torch.Tensor,
@@ -681,7 +752,7 @@ def prefill_chunk_attention(
     G = n_heads // n_kv
     mesh = packed_mesh() if shard_spec is not None else None
     local = False
-    if mesh is None or ring:
+    if mesh is None:
         q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, active_planes)
     else:
         q, k, v, n_heads, n_kv, shard_spec, local = _qkv_sharded(
@@ -694,12 +765,14 @@ def prefill_chunk_attention(
     k = apply_rope(k, qpos, rope_theta)
     qs = q.reshape(B, C, n_kv, G, head_dim) * (head_dim**-0.5)
     if ring:
+        n_valid = n_valid.to(device=dev, dtype=torch.int64)
         if mesh is not None:
-            raise NotImplementedError("ring buffers on a mesh come with the next mesh slice")
+            out = _ring_chunk_sharded(mesh, shard_spec, qs, k, v, cache_k, cache_v, start, qpos,
+                                      n_valid, window, x.dtype, sdt)
+            return dense_apply(out, p["wo"], active_planes, k_local=local)
         return dense_apply(
-            _ring_chunk_attend(qs, k, v, cache_k, cache_v, start, qpos,
-                               n_valid.to(device=dev, dtype=torch.int64), window, x.dtype,
-                               sdt),
+            _ring_chunk_attend(qs, k, v, cache_k, cache_v, start, qpos, n_valid, window,
+                               x.dtype, sdt),
             p["wo"], active_planes)
     n_valid = n_valid.to(dev)
     if mesh is not None:
@@ -815,14 +888,32 @@ def cross_attention(
     all T keys; the combine in ``x.dtype``.  Scores and combine stay plain
     PyTorch (JAX computes them outside any kernel, and its flash kernel
     takes one length for q and k).  ``active_planes`` reaches all four
-    projections, as JAX's ``active_plane_count`` context does."""
+    projections, as JAX's ``active_plane_count`` context does.
+
+    On a mesh whose blocks allow it (``common.local_heads_ok``) the four
+    projections are a Megatron pair on this rank's K/V heads: q from the
+    whole ``x`` and k, v from the whole ``kv_src``, their partial
+    products summed in one reduction, the scores and combine on its
+    heads, ``wo`` on its K block; else every product is stitched whole."""
     B, S, _ = x.shape
     G = n_heads // n_kv
-    q = dense_apply(x, p["wq"], active_planes).reshape(B, S, n_kv, G, head_dim)
+    mesh = packed_mesh()
+    local = local_heads_ok(mesh, [p["wq"], p["wk"], p["wv"]], p["wo"], heads=n_kv)
+    if local:
+        from ..dist.sharding import axis_size
+
+        n_kv //= axis_size(mesh, p["wq"].kn_spec[1])
+        q, k, v = dense_group([x, kv_src, kv_src], [p["wq"], p["wk"], p["wv"]], active_planes)
+    else:
+        q = dense_apply(x, p["wq"], active_planes)
+        k = dense_apply(kv_src, p["wk"], active_planes)
+        v = dense_apply(kv_src, p["wv"], active_planes)
+    q = q.reshape(B, S, n_kv, G, head_dim)
     q = q * torch.tensor(head_dim**-0.5, dtype=q.dtype)
-    k = dense_apply(kv_src, p["wk"], active_planes).reshape(B, -1, n_kv, head_dim)
-    v = dense_apply(kv_src, p["wv"], active_planes).reshape(B, -1, n_kv, head_dim)
+    k = k.reshape(B, -1, n_kv, head_dim)
+    v = v.reshape(B, -1, n_kv, head_dim)
     w = torch.softmax(_gqa_scores(q, k), dim=-1)
     out = _gqa_combine(w, v, x.dtype)
     del w  # (B, K, G, S, T) f32: free it before the output projection
-    return dense_apply(out, p["wo"], active_planes)
+    return dense_apply(out, p["wo"], active_planes, k_local=local)
+

@@ -14,7 +14,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..core.packing import FloatBlock, PackedWeight
+from ..core.packing import FloatBlock, PackedWeight, RowsBlock
 from ..core.ste import relu6_act_quantize
 from ..kernels import ops
 
@@ -119,12 +119,15 @@ def _kn(w):
     return w.kn_spec if isinstance(w, (PackedWeight, FloatBlock)) else None
 
 
-def local_heads_ok(mesh, wide, narrow) -> bool:
+def local_heads_ok(mesh, wide, narrow, heads: Optional[int] = None) -> bool:
     """Whether products by ``wide`` (col-parallel, sharing one ``kn_spec``
     (k, n)) can stay N-sharded into ``narrow`` (row-parallel, K over the
     same n): each rank's N block of the first is then the K block of the
     second, so the pair costs one K reduction and one stitch, the
-    Megatron layout (``dense_group`` then ``dense_apply(k_local=True)``)."""
+    Megatron layout (``dense_group`` then ``dense_apply(k_local=True)``).
+    ``heads``: the attention heads the N axis holds, which must split
+    whole over the n axis (a single K/V head split over "model" would cut
+    its head_dim; then K and V are stitched whole)."""
     if mesh is None:
         return False
     kn = _kn(wide[0])
@@ -132,25 +135,106 @@ def local_heads_ok(mesh, wide, narrow) -> bool:
         return False
     if _kn(narrow) is None or _kn(narrow)[0] != kn[1]:
         return False
+    if heads is not None:
+        from ..dist.sharding import axis_size
+
+        if heads % axis_size(mesh, kn[1]):
+            return False
     return all(ops.shardable(w, mesh) for w in list(wide) + [narrow]
                if isinstance(w, PackedWeight))
 
 
-def dense_group(x: torch.Tensor, ws, active_planes=None):
+def dense_group(x, ws, active_planes=None, biases=None):
     """``[x @ w for w in ws]`` on a mesh, for weights that share one
     ``kn_spec`` (k, n): each rank's N block of each product, the partial
     products of all of them summed over k in ONE ``all_reduce``.  ``x`` is
-    whole on every rank."""
+    whole on every rank, or a list of such inputs, one per weight (the
+    cross-attention's q from the text, k and v from the cross tokens).
+    ``biases``: a :class:`~repro_torch.core.packing.RowsBlock` of each
+    weight or None, added into its partial product (:func:`_row_share`)."""
     mesh = packed_mesh()
-    k_ax = _kn(ws[0])[0]
+    k_ax, n_ax = _kn(ws[0])
+    xs = x if isinstance(x, (list, tuple)) else [x] * len(ws)
+    axes = tuple(a for a in (k_ax, n_ax) if a is not None)
     # training: x is whole on every rank, its gradient the sum of theirs
-    x = mesh.enter(x, tuple(a for a in _kn(ws[0]) if a is not None))
-    parts = [ops.local_product(x, w, mesh, active_planes) for w in ws]
-    sizes = [t.shape[-1] for t in parts]
-    y = torch.cat(parts, dim=-1)
-    if k_ax is not None:
-        y = mesh.all_reduce(y, k_ax)
-    return torch.split(y, sizes, dim=-1)
+    entered = {id(t): mesh.enter(t, axes) for t in xs}
+    parts = [_row_share(ops.local_product(entered[id(t)], w, mesh, active_planes), b, mesh,
+                        k_ax, n_ax)
+             for t, w, b in zip(xs, ws, biases or [None] * len(ws))]
+    if k_ax is None:
+        return parts
+    flat = mesh.all_reduce(torch.cat([t.reshape(-1) for t in parts]), k_ax)
+    return [t.reshape(part.shape) for t, part in
+            zip(torch.split(flat, [t.numel() for t in parts]), parts)]
+
+
+def dense_whole(x: torch.Tensor, ws, active_planes=None, biases=None):
+    """``[dense_apply(x, w) + b for w, b in zip(ws, biases)]`` (no bias
+    where ``biases`` is None), each whole on every rank; on a mesh, where
+    the weights are blocks sharing one ``kn_spec`` (k, n), the partial
+    products of all of them cost one reduction over k (:func:`dense_group`)
+    and one gather over n.  A :class:`~repro_torch.core.packing.RowsBlock`
+    bias (this rank's block of a stacked vector, its layer axis split like
+    k) is added into the partial product by the one rank of the reduction
+    that holds it."""
+    mesh = packed_mesh()
+    biases = biases or [None] * len(ws)
+    kn = _kn(ws[0])
+    if mesh is None or kn is None or any(_kn(w) != kn for w in ws) or not all(
+            ops.shardable(w, mesh) for w in ws if isinstance(w, PackedWeight)):
+        if any(isinstance(b, RowsBlock) for b in biases):
+            raise NotImplementedError("a bias whose layer axis the mesh splits needs its "
+                                      "weight's K reduction over the same axis")
+        return [_biased(dense_apply(x, w, active_planes), b) for w, b in zip(ws, biases)]
+    parts = dense_group(x, ws, active_planes, biases)
+    if kn[1] is not None:
+        sizes = [t.shape[-1] for t in parts]
+        # the gather lays the ranks' [w0 | w1 | ...] blocks side by side
+        y = mesh.all_gather(torch.cat(parts, dim=-1), kn[1], dim=-1)
+        y = y.reshape(*y.shape[:-1], -1, sum(sizes))
+        parts = [t.reshape(*t.shape[:-2], -1) for t in torch.split(y, sizes, dim=-1)]
+    return [_biased(t, b) for t, b in zip(parts, biases)]
+
+
+def _biased(y: torch.Tensor, b) -> torch.Tensor:
+    """``y + b`` for a whole bias tensor; ``y`` for None or a RowsBlock
+    (added into the partial product already)."""
+    return y if b is None or isinstance(b, RowsBlock) else y + b.to(y.dtype)
+
+
+def _row_share(y: torch.Tensor, b, mesh, k_ax, n_ax) -> torch.Tensor:
+    """A partial product plus this rank's share of a RowsBlock bias: its
+    row of the layer where it holds it, counted once over ``k_ax`` (the
+    layer axis's ranks along k hold distinct layers; ranks of a k the
+    layer axis is whole on hold copies, and index 0 adds)."""
+    if not isinstance(b, RowsBlock):
+        return y
+    from ..dist.sharding import axis_index
+
+    l_ax, bn_ax = b.spec
+    if bn_ax != n_ax or (l_ax is not None and l_ax != k_ax):
+        raise NotImplementedError(f"a bias block {b.spec} against a weight block "
+                                  f"{(k_ax, n_ax)}: its rows do not line up with the reduction")
+    if b.w is None or (l_ax is None and k_ax is not None and axis_index(mesh, k_ax)):
+        return y
+    return y + b.w.to(y.dtype)
+
+
+def lanes(lane_ax, B: int):
+    """This rank's lanes ``[b0, b1)`` of a batch of ``B`` under the cache
+    rule's batch entry ``lane_ax`` (a recurrent state's or a cache
+    block's spec[0]): every lane where it is None (off a mesh, or a batch
+    the data axes do not divide)."""
+    if lane_ax is None:
+        return 0, B
+    from ..dist.sharding import block_range
+
+    return block_range(packed_mesh(), lane_ax, B)
+
+
+def gather_lanes(t: torch.Tensor, lane_ax) -> torch.Tensor:
+    """The whole batch of a tensor this rank holds its :func:`lanes` of."""
+    return t if lane_ax is None else packed_mesh().all_gather(t, lane_ax, dim=0)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,16 @@ step routes all lanes (inactive ones included) as one group, in lane
 order.  The combine never uses ``index_add_``: on the card its atomics
 would change the order of the adds, and a bf16 sum with it, from run to
 run.
+
+On a ("data", "model") mesh (``common.packed_shard_mesh``) x is whole on
+every rank and the router is a block whose gates are stitched whole, so
+routing and dispatch run identically on every rank.  Each rank holds its
+block of the stacked experts under the rules (experts over "model", the
+hidden width f over "data"): it fills the dispatch rows of its own
+experts only, runs them on its f columns, and weighs their outputs into
+its partial y; one ``all_reduce`` over the whole mesh sums the partials
+(over f and over the experts) into y.  The shared experts are a dense
+MLP under the Megatron rule.
 """
 from __future__ import annotations
 
@@ -29,7 +39,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init, mlp_apply, mlp_init
+from .common import dense_apply, dense_init, mlp_apply, mlp_init, packed_mesh
 
 Params = Dict[str, torch.Tensor]
 
@@ -89,7 +99,8 @@ def _ranks(top_e: torch.Tensor, n_experts: int):
     return order, counts, offs, rank
 
 
-def _dispatch(xg: torch.Tensor, top_e: torch.Tensor, n_experts: int, capacity: int):
+def _dispatch(xg: torch.Tensor, top_e: torch.Tensor, n_experts: int, capacity: int,
+              experts=None):
     """Scatter every group's tokens into its (E*C, d) expert buffer.
 
     ``xg`` (G, T, d); ``top_e`` (G, T, k).  The assignment at rank r of
@@ -98,32 +109,43 @@ def _dispatch(xg: torch.Tensor, top_e: torch.Tensor, n_experts: int, capacity: i
     token at sorted position ``offs[e] + r``), so every row is written
     once.  Returns ``(buf (G, E*C, d), slot (G, T*k), keep (G, T*k))``
     with ``slot`` and ``keep`` in the token-major order of the flattened
-    assignments; a dropped assignment's slot is ``E * C``."""
+    assignments; a dropped assignment's slot is ``E * C``.  ``experts``
+    ``(e0, e1)``: fill the rows of those experts only, ``buf`` (G,
+    (e1-e0)*C, d) (a mesh rank's experts); ``slot`` stays global."""
     G, T, k = top_e.shape
     E, C = n_experts, capacity
+    e0, e1 = experts or (0, E)
     order, counts, offs, rank = _ranks(top_e, E)
     keep = rank < C
     slot = torch.where(keep, top_e.reshape(G, T * k) * C + rank, torch.full_like(rank, E * C))
     # row e*C + r <- the token at sorted position offs[e] + r, if r < counts[e]
     r = torch.arange(C, device=xg.device)
-    src = (offs[:, :, None] + r).reshape(G, E * C)
-    filled = (r < counts[:, :, None]).reshape(G, E * C)
-    tok = order.gather(1, src.clamp(max=T * k - 1)) // k  # (G, E*C)
-    buf = xg.gather(1, tok[:, :, None].expand(G, E * C, xg.shape[-1]))
+    rows = (e1 - e0) * C
+    src = (offs[:, e0:e1, None] + r).reshape(G, rows)
+    filled = (r < counts[:, e0:e1, None]).reshape(G, rows)
+    tok = order.gather(1, src.clamp(max=T * k - 1)) // k  # (G, rows)
+    buf = xg.gather(1, tok[:, :, None].expand(G, rows, xg.shape[-1]))
     buf = torch.where(filled[:, :, None], buf, torch.zeros((), dtype=xg.dtype, device=xg.device))
     return buf, slot, keep
 
 
 def _combine(out_flat: torch.Tensor, top_e: torch.Tensor, probs: torch.Tensor,
-             slot: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+             slot: torch.Tensor, keep: torch.Tensor, experts=None,
+             capacity: int = 0) -> torch.Tensor:
     """Each token's k expert outputs, weighted by ``probs * keep`` cast to
     the output dtype first, summed in ascending expert order from zeros in
     the output dtype (the order of JAX's sorted scatter-add).  ``out_flat``
-    (G, E*C, d); the rest token-major (G, T, k) or (G, T*k)."""
+    (G, E*C, d); the rest token-major (G, T, k) or (G, T*k).  ``experts``
+    ``(e0, e1)`` (and ``capacity``): ``out_flat`` holds those experts' rows
+    only, and the assignments to other experts weigh zero."""
     G, T, k = top_e.shape
     d = out_flat.shape[-1]
-    slot_c = slot.clamp(max=out_flat.shape[1] - 1).reshape(G, T, k)
-    w = (probs * keep.reshape(G, T, k).to(probs.dtype)).to(out_flat.dtype)
+    keep = keep.reshape(G, T, k)
+    if experts is not None:
+        slot = slot.reshape(G, T, k) - experts[0] * capacity
+        keep = keep & (top_e >= experts[0]) & (top_e < experts[1])
+    slot_c = slot.clamp(0, out_flat.shape[1] - 1).reshape(G, T, k)
+    w = (probs * keep.to(probs.dtype)).to(out_flat.dtype)
     asc = torch.argsort(top_e, dim=-1)  # the k experts of a token are distinct
     slot_c, w = slot_c.gather(-1, asc), w.gather(-1, asc)
     y = torch.zeros((G, T, d), dtype=out_flat.dtype, device=out_flat.device)
@@ -145,21 +167,46 @@ def _experts(p: Params, ein: torch.Tensor, mlp_kind: str) -> torch.Tensor:
     return torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
 
 
+def _expert_block(mesh, n_experts: int, d: int, d_ff: int):
+    """On a mesh: this rank's experts ``(e0, e1)`` under the stacked
+    experts' rule and whether its partial y counts in the sum over the
+    mesh (1.0, or 0.0 on a rank whose block another rank of an axis the
+    experts are whole on holds too)."""
+    from ..dist.sharding import block_range, counted_once, param_spec
+
+    spec = tuple(param_spec("moe/w_gate", (n_experts, d, d_ff), mesh)) + (None,) * 3
+    return block_range(mesh, spec[0], n_experts), counted_once(spec[:3], mesh)
+
+
 def moe_apply(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
               capacity_factor: float, mlp_kind: str,
-              n_shared: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (y (B, S, d), the Switch load-balance loss f32)."""
+              n_shared: int = 0, d_ff: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (y (B, S, d), the Switch load-balance loss f32).  On a
+    mesh ``d_ff`` (the experts' whole hidden width) places the experts'
+    blocks (the module docstring)."""
+    if packed_mesh() is not None and not d_ff:
+        raise ValueError("moe_apply on a mesh needs d_ff, the experts' whole hidden width")
     B, S, d = x.shape
     G, T = (B, S) if S > 1 else (1, B)
     xg = x.reshape(G, T, d)
-    gates = xg.to(torch.float32) @ p["router"].to(torch.float32)  # (G, T, E)
+    gates = dense_apply(xg.to(torch.float32), p["router"])  # (G, T, E) f32
     C = moe_capacity(T, top_k, n_experts, capacity_factor)
     top_w, top_e = _route(gates, top_k)
     probs = torch.softmax(top_w, dim=-1)  # normalise over the chosen k
 
-    buf, slot, keep = _dispatch(xg, top_e, n_experts, C)
-    out = _experts(p, buf.reshape(G, n_experts, C, d), mlp_kind)
-    y = _combine(out.reshape(G, n_experts * C, d), top_e, probs, slot, keep).reshape(B, S, d)
+    mesh = packed_mesh()
+    experts, counted = ((0, n_experts), 1.0) if mesh is None else \
+        _expert_block(mesh, n_experts, d, d_ff)
+    e0, e1 = experts
+    buf, slot, keep = _dispatch(xg, top_e, n_experts, C, experts)
+    out = _experts(p, buf.reshape(G, e1 - e0, C, d), mlp_kind)
+    y = _combine(out.reshape(G, (e1 - e0) * C, d), top_e, probs, slot, keep, experts, C)
+    if mesh is not None:
+        if not counted:  # another rank adds this block's partial y
+            y = torch.zeros_like(y)
+        # the one reduction of the layer: over f's blocks and over the experts
+        y = mesh.all_reduce(y, tuple(mesh.shape))
+    y = y.reshape(B, S, d)
 
     probs_full = torch.softmax(gates, dim=-1)  # (G, T, E)
     onehot = F.one_hot(top_e, n_experts).to(torch.float32)  # (G, T, k, E)

@@ -13,6 +13,13 @@ The dtypes are JAX's: prefill convolves in ``x.dtype``, decode convolves
 in f32 and casts after the SiLU; ``dt``, the state and the inter-chunk
 term are f32; the gated norm is ``rmsnorm`` at its default eps.  No
 Pallas kernel is on this path in JAX, and none is here.
+
+On a ("data", "model") mesh (``common.packed_shard_mesh``; ``lane_ax``,
+the state's batch entry under the cache rules) ``in_proj``'s output is
+stitched whole before the z | x | B | C | dt split (its N block would cut
+across the pieces); the conv, the SSD scan, the skip and the gated norm
+(over all of d_inner) run on this rank's lanes and their state; the
+lanes' outputs are gathered before the row-parallel ``out_proj``.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import (causal_conv, causal_conv_window, conv_tail, dense_apply, dense_init,
-                     rmsnorm)
+                     gather_lanes, lanes, rmsnorm)
 
 Params = Dict[str, torch.Tensor]
 
@@ -52,8 +59,11 @@ def ssm_init(gen: torch.Generator, d_model: int, expand: int, head_dim: int, sta
     }
 
 
-def _split(p: Params, x: torch.Tensor, d_inner: int, state: int, H: int):
+def _split(p: Params, x: torch.Tensor, d_inner: int, state: int, H: int, lane_ax=None):
+    """z, xBC, dt of this rank's lanes (every lane off a mesh)."""
     proj = dense_apply(x, p["in_proj"])
+    b0, b1 = lanes(lane_ax, proj.shape[0])
+    proj = proj[b0:b1]
     z = proj[..., :d_inner]
     xBC = proj[..., d_inner:2 * d_inner + 2 * state]
     dt = proj[..., -H:]
@@ -109,13 +119,14 @@ def ssd_chunked(xs: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.T
 
 
 def _gated_out(p: Params, y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor,
-               d_inner: int) -> torch.Tensor:
-    """The skip term, the SiLU gate, the gated norm and ``out_proj``."""
+               d_inner: int, lane_ax=None) -> torch.Tensor:
+    """The skip term, the SiLU gate, the gated norm and ``out_proj`` (the
+    lanes gathered before it on a mesh)."""
     d_skip = p["d_skip"].to(xs.dtype)
     y = y + xs * d_skip.reshape((1,) * (xs.ndim - 2) + (-1, 1))
     y = y.reshape(*z.shape[:-1], d_inner)
     y = rmsnorm(p["norm"], y * F.silu(z))
-    return dense_apply(y, p["out_proj"])
+    return dense_apply(gather_lanes(y, lane_ax), p["out_proj"])
 
 
 def _xs_b_c(conv_out: torch.Tensor, d_inner: int, state: int, H: int, head_dim: int):
@@ -124,21 +135,22 @@ def _xs_b_c(conv_out: torch.Tensor, d_inner: int, state: int, H: int, head_dim: 
 
 
 def ssm_apply(p: Params, x: torch.Tensor, *, expand: int, head_dim: int, state: int,
-              chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Train/prefill forward. Returns (y, final_state)."""
+              chunk: int = 256, lane_ax=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train/prefill forward. Returns (y, final_state); on a mesh the
+    final state of this rank's lanes (``lane_ax``)."""
     d_inner, H, _ = ssm_dims(x.shape[-1], expand, head_dim, state)
-    z, xBC, dt = _split(p, x, d_inner, state, H)
+    z, xBC, dt = _split(p, x, d_inner, state, H, lane_ax)
     xs, Bm, Cm = _xs_b_c(F.silu(causal_conv(xBC, p["conv_w"], p["conv_b"])), d_inner, state,
                          H, head_dim)
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
     a = -torch.exp(p["a_log"])
     y, hT = ssd_chunked(xs, dt, a, Bm, Cm, chunk=chunk)
-    return _gated_out(p, y, xs, z, d_inner), hT
+    return _gated_out(p, y, xs, z, d_inner, lane_ax), hT
 
 
 def ssm_prefill_chunk(p: Params, x: torch.Tensor, ssm_state: torch.Tensor,
                       conv_state: torch.Tensor, n_valid: torch.Tensor, *, expand: int,
-                      head_dim: int, state: int):
+                      head_dim: int, state: int, lane_ax=None):
     """Chunked prefill: C tokens per lane (``x`` (B, C, D)) with the state
     (B, H, P, N) f32 and the pre-conv xBC tail (B, W-1, conv_dim) carried
     across chunks (the continuous-batching slot pool).
@@ -148,10 +160,13 @@ def ssm_prefill_chunk(p: Params, x: torch.Tensor, ssm_state: torch.Tensor,
     recurrence, so the returned state is the state at each lane's last
     real token, and a lane with ``n_valid = 0`` passes its state and conv
     tail through unchanged.  Returns (y (B, C, D), final state, new conv
-    tail), new tensors; the inputs are not written."""
+    tail), new tensors; the inputs are not written.  On a mesh the state,
+    tail and ``n_valid`` are this rank's lanes' (``lane_ax``)."""
     C, d_model = x.shape[1:]
     d_inner, H, _ = ssm_dims(d_model, expand, head_dim, state)
-    z, xBC, dt = _split(p, x, d_inner, state, H)
+    z, xBC, dt = _split(p, x, d_inner, state, H, lane_ax)
+    b0, b1 = lanes(lane_ax, x.shape[0])
+    n_valid = n_valid[b0:b1]
     W = p["conv_w"].shape[0]
     # causal conv with the previous chunk's tail as left context (zeros at
     # admission == causal_conv's zero padding, so chunk 0 matches prefill)
@@ -165,16 +180,17 @@ def ssm_prefill_chunk(p: Params, x: torch.Tensor, ssm_state: torch.Tensor,
     dtv = dtv.masked_fill(~valid[..., None], 0.0)
     a = -torch.exp(p["a_log"])
     y, hT = ssd_chunked(xs, dtv, a, Bm, Cm, chunk=C, h0=ssm_state)
-    return _gated_out(p, y, xs, z, d_inner), hT, new_conv
+    return _gated_out(p, y, xs, z, d_inner, lane_ax), hT, new_conv
 
 
 def ssm_decode(p: Params, x: torch.Tensor, ssm_state: torch.Tensor, conv_state: torch.Tensor,
-               *, expand: int, head_dim: int, state: int):
+               *, expand: int, head_dim: int, state: int, lane_ax=None):
     """Single-token recurrent step: h' = exp(dt a) h + dt x (x) B; y = C.h.
     ``x`` (B, 1, D).  Returns (y (B, 1, D), new state, new conv tail), new
-    tensors; the inputs are not written."""
+    tensors; the inputs are not written.  On a mesh the state and tail
+    are this rank's lanes' (``lane_ax``)."""
     d_inner, H, _ = ssm_dims(x.shape[-1], expand, head_dim, state)
-    z, xBC, dt = _split(p, x, d_inner, state, H)
+    z, xBC, dt = _split(p, x, d_inner, state, H, lane_ax)
     f32 = torch.float32
     # conv over [conv_state ; xBC] in f32, as JAX's einsum over the
     # promoted window
@@ -190,4 +206,4 @@ def ssm_decode(p: Params, x: torch.Tensor, ssm_state: torch.Tensor, conv_state: 
     inp = torch.einsum("bhp,bn->bhpn", xs.to(f32) * dtv[..., None], Bm.to(f32))
     h = ssm_state * decay[:, :, None, None] + inp
     y = torch.einsum("bhpn,bn->bhp", h, Cm.to(f32)).to(x.dtype)
-    return _gated_out(p, y[:, None], xs[:, None], z, d_inner), h, new_conv
+    return _gated_out(p, y[:, None], xs[:, None], z, d_inner, lane_ax), h, new_conv

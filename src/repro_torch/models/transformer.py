@@ -53,6 +53,7 @@ from ..configs.base import ModelConfig
 from ..core.packing import (
     FloatBlock,
     PackedWeight,
+    RowsBlock,
     pack_model_params,
     serving_cast,
     stack_packed,
@@ -71,6 +72,7 @@ from .common import (
     embed_apply,
     embed_apply_sharded,
     embed_init,
+    lanes,
     logits_apply,
     mlp_apply,
     mlp_init,
@@ -205,8 +207,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
 
 def layer_slice(tree, b: int):
     """Layer ``b`` of a stacked tree (PackedWeight and FloatBlock fields
-    sliced alike; each slice of a contiguous stacked tensor is
-    contiguous)."""
+    sliced alike, a RowsBlock to layer b's row where this rank holds it;
+    each slice of a contiguous stacked tensor is contiguous)."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, b) for k, v in tree.items()}
     if isinstance(tree, PackedWeight):
@@ -215,6 +217,9 @@ def layer_slice(tree, b: int):
                             kn_spec=tree.kn_spec)
     if isinstance(tree, FloatBlock):
         return FloatBlock(tree.w[b], tree.kn_spec)
+    if isinstance(tree, RowsBlock):
+        held = tree.lo <= b < tree.lo + tree.w.shape[0]
+        return RowsBlock(tree.w[b - tree.lo] if held else None, b, tree.spec)
     return tree[b]
 
 
@@ -270,14 +275,17 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tens
 
 
 def check_mesh_kinds(cfg: ModelConfig) -> None:
-    """Refuse, on a mesh, a model with layers other than "attn" (or with
-    experts): the other kinds' mesh paths come with the next mesh slice."""
+    """Refuse BSQ training on a mesh of a model with layers other than
+    "attn" (or with experts).  Every kind serves on a mesh; training them
+    there (the regulariser's sums over a group axis split over "model")
+    comes with the next mesh slice."""
     bad = sorted({k for k in cfg.layer_pattern if k != "attn"})
     if bad or cfg.n_experts:
         what = bad + (["moe experts"] if cfg.n_experts else [])
         raise NotImplementedError(
-            f"{cfg.name} on a mesh: {what} (local rings, MoE experts on 'model', recurrent "
-            "state, '+cross') come with the next mesh slice; this one serves 'attn' layers")
+            f"{cfg.name}: BSQ training on a mesh of {what} comes with the next mesh slice "
+            "(ROADMAP queue 1: the regulariser's sums over groups split over 'model'); "
+            "these kinds serve on a mesh, and train on one process")
 
 
 def _inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
@@ -319,7 +327,7 @@ def _mlp_residual(p: Params, x: torch.Tensor, cfg: ModelConfig, active_planes):
         y, aux = moe_mod.moe_apply(
             p["moe"], h2, top_k=cfg.top_k, n_experts=cfg.n_experts,
             capacity_factor=cfg.capacity_factor, mlp_kind=cfg.mlp_type,
-            n_shared=cfg.n_shared_experts)
+            n_shared=cfg.n_shared_experts, d_ff=cfg.d_ff)
         return x + y, aux
     return x + mlp_apply(p["mlp"], h2, cfg.mlp_type, cfg.act_bits, active_planes), None
 
@@ -342,15 +350,19 @@ def _apply_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     an "ssm" layer, ``{"state", "conv_tail"}`` of an "rglru" one.
     ``flash`` routes self-attention through the flash kernel (serving
     prefill), on a mesh over the lanes and heads of ``shard_spec`` (the
-    cache blocks it seeds); ``aux`` as :func:`_mlp_residual` gives it."""
+    cache blocks it seeds; a recurrent mixer runs on its lanes, and its
+    state in the seed is theirs); ``aux`` as :func:`_mlp_residual` gives
+    it."""
     base = _base_kind(kind)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    lane_ax = _lane_ax(shard_spec)
     if base == "ssm":
-        out, hT = ssm_mod.ssm_apply(p["mixer"], h, chunk=cfg.ssm_chunk, **_ssm_kw(cfg))
+        out, hT = ssm_mod.ssm_apply(p["mixer"], h, chunk=cfg.ssm_chunk, lane_ax=lane_ax,
+                                    **_ssm_kw(cfg))
         # the conv tail is recomputed from these at the prefill->decode handoff
         seed = {"state": hT, "conv_tail_src": h[:, -(cfg.ssm_conv - 1):]}
     elif base == "rglru":
-        out, (hT, conv_tail) = rglru_mod.rglru_apply(p["mixer"], h)
+        out, (hT, conv_tail) = rglru_mod.rglru_apply(p["mixer"], h, lane_ax=lane_ax)
         seed = {"state": hT, "conv_tail": conv_tail}
     else:
         out, (k, v) = attn_mod.attention(
@@ -363,6 +375,11 @@ def _apply_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     x = _cross_residual(p, x + out, cfg, kind, cross_src, active_planes)
     x, aux = _mlp_residual(p, x, cfg, active_planes)
     return x, seed, aux
+
+
+def _lane_ax(spec):
+    """The lane (batch) entry of a cache block's spec on a mesh, or None."""
+    return None if spec is None else spec[0]
 
 
 def _add_aux(aux: torch.Tensor, aux_i) -> torch.Tensor:
@@ -524,51 +541,52 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=No
     bounded already.  A "+cross" layer's cache is its mixer's: the cross
     sublayer keeps none.
 
-    With ``mesh`` each K/V leaf is this rank's block under the cache rules
-    (``dist.sharding.cache_spec``, or ``paged_block_spec`` for the pool,
-    whose local slice then carries its own sentinel block), and the one
-    layer's spec rides on the tensor as ``mesh_spec``."""
+    With ``mesh`` each leaf is this rank's block under the cache rules
+    (``dist.sharding.cache_spec``: K/V over lanes and heads, or lanes and
+    ring slots where the K/V heads do not split; a recurrent state and
+    conv tail over lanes only, so each rank holds its lanes' whole state;
+    ``paged_block_spec`` for the pool, whose local slice then carries its
+    own sentinel block), and the leaf's spec rides on the tensor as
+    ``mesh_spec``."""
     device = resolve_device(device)
-    if mesh is not None:
-        check_mesh_kinds(cfg)
     from ..dist import sharding as dist_sharding
     dtype = cfg.cache_dtype if dtype is None else dtype
     heads = (cfg.n_kv_heads, cfg.resolved_head_dim)
+
+    def zeros(name, shape, dt, lead, pool=False):
+        spec = None
+        if mesh is not None:
+            if pool:
+                spec = dist_sharding.paged_block_spec((paged_blocks,) + shape[1:], mesh)
+                local = dist_sharding.local_shape((paged_blocks,) + shape[1:], spec, mesh)
+                shape = (local[0] + 1,) + local[1:]  # the local sentinel block
+            else:
+                spec = dist_sharding.cache_spec(name, shape, mesh)
+                shape = dist_sharding.local_shape(shape, spec, mesh)
+        t = torch.zeros(lead + shape, dtype=dt, device=device)
+        t.mesh_spec = spec
+        return t
 
     def layer(kind, lead=()):
         kind = _base_kind(kind)
         if kind == "ssm":
             _, H, conv_dim = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
                                               cfg.ssm_state)
-            return {"state": torch.zeros(lead + (batch, H, cfg.ssm_head_dim, cfg.ssm_state),
-                                         dtype=torch.float32, device=device),
-                    "conv": torch.zeros(lead + (batch, cfg.ssm_conv - 1, conv_dim),
-                                        dtype=dtype, device=device)}
+            return {"state": zeros("state", (batch, H, cfg.ssm_head_dim, cfg.ssm_state),
+                                   torch.float32, lead),
+                    "conv": zeros("conv", (batch, cfg.ssm_conv - 1, conv_dim), dtype, lead)}
         if kind == "rglru":
-            return {"state": torch.zeros(lead + (batch, cfg.d_model), dtype=torch.float32,
-                                         device=device),
-                    "conv": torch.zeros(lead + (batch, 3, cfg.d_model), dtype=dtype,
-                                        device=device)}
+            return {"state": zeros("state", (batch, cfg.d_model), torch.float32, lead),
+                    "conv": zeros("conv", (batch, 3, cfg.d_model), dtype, lead)}
+        pool = kind != "local" and paged_blocks is not None
         if kind == "local":
             shape = (batch, min(cfg.window, max_len)) + heads
-        elif paged_blocks is not None:
+        elif pool:
             shape = (paged_blocks + 1, block_size) + heads
         else:
             shape = (batch, max_len + int(drop_row)) + heads
-        spec = None
-        if mesh is not None:
-            if paged_blocks is not None:
-                spec = dist_sharding.paged_block_spec((paged_blocks,) + shape[1:], mesh)
-                local = dist_sharding.local_shape((paged_blocks,) + shape[1:], spec, mesh)
-                shape = (local[0] + 1,) + local[1:]  # the local sentinel block
-            else:
-                spec = dist_sharding.cache_spec("k", shape, mesh)
-                shape = dist_sharding.local_shape(shape, spec, mesh)
-        out = {"k": torch.zeros(lead + shape, dtype=dtype, device=device),
-               "v": torch.zeros(lead + shape, dtype=dtype, device=device)}
-        for t in out.values():
-            t.mesh_spec = spec
-        return out
+        return {"k": zeros("k", shape, dtype, lead, pool),
+                "v": zeros("v", shape, dtype, lead, pool)}
 
     cache = {"blocks": {f"p{i}": layer(kind, (cfg.n_superblocks,))
                         for i, kind in enumerate(cfg.layer_pattern)}}
@@ -585,19 +603,24 @@ def _layer_cache(cache, key):
 
 
 def cache_leaf_spec(cache, key):
-    """The spec of one layer's K/V blocks on a mesh (``init_cache``'s
-    ``mesh_spec``), or None."""
+    """The spec of one layer's cache blocks on a mesh (``init_cache``'s
+    ``mesh_spec`` of its K/V, or of its recurrent state), or None."""
     leaves = cache["blocks"][key[2]] if key[0] == "blocks" else cache["tail"][key[1]]
-    return getattr(leaves.get("k"), "mesh_spec", None)
+    return getattr(leaves.get("k", leaves.get("state")), "mesh_spec", None)
 
 
-def _store_recurrent(c, state: torch.Tensor, conv: torch.Tensor, active=None) -> None:
+def _store_recurrent(c, state: torch.Tensor, conv: torch.Tensor, active=None,
+                     lane_ax=None) -> None:
     """Write a recurrent layer's new ``state`` and ``conv`` into its cache
     ``c`` IN PLACE.  ``active`` ((B,) bool) keeps the old values of the
     lanes that are not decoding, bitwise: idle lanes would integrate
     garbage without bound, and a lane mid-way through a chunked prefill
-    would lose its carried state."""
+    would lose its carried state.  On a mesh the cache, state and conv
+    are this rank's lanes (``lane_ax``), whose rows of ``active`` it
+    reads."""
     if active is not None:
+        b0, b1 = lanes(lane_ax, active.shape[0])
+        active = active[b0:b1]
         state = torch.where(active.reshape((-1,) + (1,) * (state.ndim - 1)), state, c["state"])
         conv = torch.where(active[:, None, None], conv.to(c["conv"].dtype), c["conv"])
     c["state"].copy_(state)
@@ -624,29 +647,30 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos, cfg: ModelConf
     The step's tensor shapes depend only on B and the table's width, and
     nothing here syncs the host.  "local" layers write and read their
     ring buffer (slot ``pos % Wc``) and ignore the table; recurrent layers
-    are position-free and ignore ``pos`` and the table."""
-    if packed_mesh() is not None:
-        check_mesh_kinds(cfg)
+    are position-free and ignore ``pos`` and the table.  On a mesh each
+    layer runs on this rank's blocks of its cache (``cache_leaf_spec``)."""
     x = tokens.to(cfg.compute_dtype) if tokens.ndim == 3 else _embed(params, tokens, cfg)
     cross_src = _cross_src(cross_embeds, cfg)
     for p, key, kind in _layers(params, cfg):
         base = _base_kind(kind)
         c = _layer_cache(cache, key)
+        spec = cache_leaf_spec(cache, key)
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
         if base == "ssm":
             out, state, conv = ssm_mod.ssm_decode(p["mixer"], h, c["state"], c["conv"],
-                                                  **_ssm_kw(cfg))
-            _store_recurrent(c, state, conv, active)
+                                                  lane_ax=_lane_ax(spec), **_ssm_kw(cfg))
+            _store_recurrent(c, state, conv, active, _lane_ax(spec))
         elif base == "rglru":
-            out, state, conv = rglru_mod.rglru_decode(p["mixer"], h, c["state"], c["conv"])
-            _store_recurrent(c, state, conv, active)
+            out, state, conv = rglru_mod.rglru_decode(p["mixer"], h, c["state"], c["conv"],
+                                                      lane_ax=_lane_ax(spec))
+            _store_recurrent(c, state, conv, active, _lane_ax(spec))
         else:
             out = attn_mod.decode_attention(
                 p["mixer"], h, c["k"], c["v"], pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
                 window=_window(cfg, kind), ring=base == "local", active=active,
                 active_planes=active_planes, block_table=block_table,
-                paged_kernel=paged_kernel, shard_spec=cache_leaf_spec(cache, key),
+                paged_kernel=paged_kernel, shard_spec=spec,
             )
         x = _cross_residual(p, x + out, cfg, kind, cross_src, active_planes)
         x, _ = _mlp_residual(p, x, cfg, active_planes)
@@ -668,15 +692,16 @@ def _seed_layer_cache(p: Params, cfg: ModelConfig, kind: str, seed, c, spec=None
     its conv tail, left-padded with zeros when the prompt is shorter than
     the tail.  An "ssm" layer's tail is the xBC part of the last W-1
     normed inputs through ``in_proj``, recomputed here as JAX does.  On a
-    mesh (``spec``, the K/V blocks' spec) only this rank's block is
-    written."""
+    mesh (``spec``, the layer's cache blocks' spec) only this rank's block
+    is written: a recurrent seed's state is its lanes' already."""
     kind = _base_kind(kind)
     if kind in ("ssm", "rglru"):
         if kind == "ssm":
             d_inner, _, conv_dim = ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_expand,
                                                     cfg.ssm_head_dim, cfg.ssm_state)
             proj = dense_apply(seed["conv_tail_src"], p["mixer"]["in_proj"])
-            tail = proj[..., d_inner:d_inner + conv_dim]
+            b0, b1 = lanes(_lane_ax(spec), proj.shape[0])
+            tail = proj[b0:b1, :, d_inner:d_inner + conv_dim]
         else:
             tail = seed["conv_tail"]
         c["state"].copy_(seed["state"])
@@ -685,14 +710,22 @@ def _seed_layer_cache(p: Params, cfg: ModelConfig, kind: str, seed, c, spec=None
     k, v = seed["k"], seed["v"]
     ck, cv = c["k"], c["v"]
     S = k.shape[1]
-    if spec is not None:  # this rank's block: its lanes, heads and sequence rows
-        from ..dist.sharding import axis_index, block_range
+    if spec is not None:  # this rank's block: its lanes, heads and sequence rows or slots
+        from ..dist.sharding import axis_index, axis_size, block_range
 
         mesh = packed_mesh()
         b0, b1 = block_range(mesh, spec[0], k.shape[0])
         h0, h1 = block_range(mesh, spec[2], k.shape[2])
-        s0 = axis_index(mesh, spec[1]) * ck.shape[1]
-        hi = min(S, s0 + ck.shape[1])
+        s_l = ck.shape[1]
+        s0 = axis_index(mesh, spec[1]) * s_l
+        if kind == "local":  # the last min(Wc, S) positions, each in its slot pos % Wc
+            wc = s_l * axis_size(mesh, spec[1])
+            pos = torch.arange(max(0, S - wc), S, device=ck.device)
+            mine = pos[(pos % wc >= s0) & (pos % wc < s0 + s_l)]
+            ck[:, mine % wc - s0] = k[b0:b1, mine][:, :, h0:h1].to(ck.dtype)
+            cv[:, mine % wc - s0] = v[b0:b1, mine][:, :, h0:h1].to(cv.dtype)
+            return
+        hi = min(S, s0 + s_l)
         if hi > s0:
             ck[:, :hi - s0] = k[b0:b1, s0:hi, h0:h1].to(ck.dtype)
             cv[:, :hi - s0] = v[b0:b1, s0:hi, h0:h1].to(cv.dtype)
@@ -765,22 +798,23 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor, start: torch.Tens
     drafted position at once.  ``active_planes`` (an int32 device tensor
     on the card) runs every packed projection at that many planes.
     ``cross_embeds`` (B, T, D) feeds the "+cross" sublayers; the chunk's
-    input stays tokens, as in JAX."""
-    if packed_mesh() is not None:
-        check_mesh_kinds(cfg)
+    input stays tokens, as in JAX.  On a mesh each layer runs on this
+    rank's blocks of its cache (``cache_leaf_spec``)."""
     x = _embed(params, tokens, cfg)
     cross_src = _cross_src(cross_embeds, cfg)
     for p, key, kind in _layers(params, cfg):
         base = _base_kind(kind)
         c = _layer_cache(cache, key)
+        lane_ax = _lane_ax(cache_leaf_spec(cache, key))
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
         if base == "ssm":
             out, state, conv = ssm_mod.ssm_prefill_chunk(p["mixer"], h, c["state"], c["conv"],
-                                                         n_valid, **_ssm_kw(cfg))
+                                                         n_valid, lane_ax=lane_ax,
+                                                         **_ssm_kw(cfg))
             _store_recurrent(c, state, conv)
         elif base == "rglru":
             out, state, conv = rglru_mod.rglru_prefill_chunk(p["mixer"], h, c["state"],
-                                                             c["conv"], n_valid)
+                                                             c["conv"], n_valid, lane_ax)
             _store_recurrent(c, state, conv)
         else:
             out = attn_mod.prefill_chunk_attention(

@@ -30,8 +30,9 @@ rank serving the same requests) the engine annotates the packed weights
 every weight (``dist.elastic.reshard_tree``) and runs every model call
 under ``models.common.packed_shard_mesh``; a bucket's prefill places its
 cache under ``dist.sharding.cache_tree_specs``, so a bucket the data axis
-does not divide runs with its batch axis replicated.  Only "attn" layer
-patterns run on a mesh (``transformer.check_mesh_kinds``).  ``placed``:
+does not divide runs with its batch axis replicated.  Every layer kind
+and the MoE FFN serve on a mesh (rings over heads or slots, recurrent
+state over lanes, experts over "model").  ``placed``:
 the params are this rank's blocks already, as a state trained on the mesh
 exports them (``core.bsq.export_packed_blocks``), and are kept as given.
 """
@@ -141,7 +142,6 @@ class ServeEngine:
         if mesh is not None:
             from ..dist import elastic, sharding
 
-            transformer.check_mesh_kinds(cfg)
             if placed:  # each packed weight is a block: the sum over the ranks
                 self.packed_bytes_global = int(mesh.all_reduce(
                     torch.tensor(float(self.packed_bytes_global), dtype=torch.float64),

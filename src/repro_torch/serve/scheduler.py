@@ -730,7 +730,7 @@ class ContinuousScheduler:
         the prompts then stream through chunk steps."""
         wall = obs_trace.now()
         rec = self.obs.recorder
-        reset_recurrent_slots(self.pool.cache, slots)
+        reset_recurrent_slots(self.pool.cache, slots, self.engine.mesh)
         for pend, slot in zip(batch, slots):
             req = pend.request
             self._admit_seq += 1

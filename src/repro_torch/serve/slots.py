@@ -41,11 +41,15 @@ ring mask hides the last occupant's slots).
 **On a mesh** (``SlotPool(mesh=...)``) each rank holds its block of the
 pool under the dist rules (``dist.sharding.slot_pool_specs`` /
 ``block_pool_specs``: lanes or pool blocks over the data axes, K/V heads
-over model; a local pool slice carries its own sentinel block), and the
+over model; rings as the contiguous cache, or over their slots where the
+K/V heads do not split; recurrent state and conv tails over the lanes
+only; a local pool slice carries its own sentinel block), and the
 allocator keeps one free list per table shard
 (``dist.sharding.table_shards``).  The control vectors and the block
 table are the same on every rank: every rank runs the same host
 scheduler, and the attention paths take their lanes' rows of the table.
+A lane's admission writes its state on the ranks that hold the lane
+(:func:`scatter_slots`, :func:`reset_recurrent_slots`).
 
 Caches and control vectors are updated in place.  Eviction is free: a
 finished lane is marked inactive on the host and its stale rows are
@@ -266,7 +270,7 @@ def scatter_slots(pool_cache, part_cache, slots, mesh=None) -> None:
         pt = parts[path]
         axis = _slot_axis(path)
         if getattr(pl, "mesh_spec", None) is not None:
-            _scatter_block(pl, pt, axis, slots, mesh)
+            _scatter_block(pl, pt, axis, slots, mesh, path[-1] in ("state", "conv"))
             continue
         keep, slots_np = _live_slots(slots, pl.shape[axis])
         lanes = torch.as_tensor(slots_np[keep], dtype=torch.int64, device=pl.device)
@@ -276,10 +280,11 @@ def scatter_slots(pool_cache, part_cache, slots, mesh=None) -> None:
         dst.index_copy_(axis, lanes, src)
 
 
-def _scatter_block(pl, pt, axis: int, slots, mesh) -> None:
+def _scatter_block(pl, pt, axis: int, slots, mesh, recurrent: bool) -> None:
     """:func:`scatter_slots` for one leaf on a mesh: lane ``s`` of the
-    pool, if this rank holds it, takes its sequence rows and K/V heads of
-    the whole fragment."""
+    pool, if this rank holds it, takes its sequence rows (or ring slots)
+    and K/V heads of the whole fragment, or its whole recurrent state or
+    conv tail."""
     from ..dist.sharding import axis_index, axis_size, block_range
 
     lead = (None,) * axis
@@ -287,11 +292,17 @@ def _scatter_block(pl, pt, axis: int, slots, mesh) -> None:
     spec = pl.mesh_spec
     n_slots = pl.shape[axis] * axis_size(mesh, spec[0])
     b0, b1 = block_range(mesh, spec[0], n_slots)
+    keep, slots_np = _live_slots(slots, n_slots)
+    if recurrent:  # a lane's whole state or conv tail
+        for i in keep:
+            lane = int(slots_np[i])
+            if b0 <= lane < b1:
+                pl.select(axis, lane - b0).copy_(whole.select(axis, int(i)))
+        return
     h0, h1 = block_range(mesh, spec[2], whole.shape[axis + 2])
     s_l = pl.shape[axis + 1]
     s0 = axis_index(mesh, spec[1]) * s_l
     rows = min(whole.shape[axis + 1], s0 + s_l) - s0
-    keep, slots_np = _live_slots(slots, n_slots)
     for i in keep:
         lane = int(slots_np[i])
         if rows > 0 and b0 <= lane < b1:
@@ -299,18 +310,26 @@ def _scatter_block(pl, pt, axis: int, slots, mesh) -> None:
             pl.select(axis, lane - b0).narrow(axis, 0, rows).copy_(src)
 
 
-def reset_recurrent_slots(pool_cache, slots) -> None:
+def reset_recurrent_slots(pool_cache, slots, mesh=None) -> None:
     """Zero the recurrent leaves (``state``/``conv``) of lanes ``slots``,
     IN PLACE; padding entries (``>= n_slots``) are skipped.  Attention
     rows need no reset (the chunk and decode masks confine every read to
     rows the new occupant wrote), so on an "attn"-only model this leaves
-    the cache as it is."""
+    the cache as it is.  On a ``mesh`` the leaves are this rank's lanes
+    (their ``mesh_spec``): only the rank that holds a lane zeroes it."""
+    from ..dist.sharding import axis_size, block_range
+
     for path, pl in _leaves(pool_cache):
         if path[-1] not in ("state", "conv"):
             continue
         axis = _slot_axis(path)
-        keep, slots_np = _live_slots(slots, pl.shape[axis])
-        lanes = torch.as_tensor(slots_np[keep], dtype=torch.int64, device=pl.device)
+        spec = getattr(pl, "mesh_spec", None)
+        lane_ax = spec[0] if spec is not None else None
+        n_slots = pl.shape[axis] * axis_size(mesh, lane_ax)
+        b0, b1 = block_range(mesh, lane_ax, n_slots) if lane_ax is not None else (0, n_slots)
+        keep, slots_np = _live_slots(slots, n_slots)
+        own = [int(s) - b0 for s in slots_np[keep] if b0 <= s < b1]
+        lanes = torch.as_tensor(own, dtype=torch.int64, device=pl.device)
         pl.index_fill_(axis, lanes, 0)
 
 

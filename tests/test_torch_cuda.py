@@ -81,6 +81,13 @@ def _packed(M, K, N, n_bits, groups, seed, dev):
     (4, 2048, 152064, 6, None), (8, 2048, 152064, 6, None),
     (4, 4096, 4096, 6, None), (4, 4096, 1024, 6, None), (1024, 4096, 1024, 6, None),
     (4, 4096, 32256, 6, None),
+    # a rank's blocks on the 2x2 mesh: gemma3-12b's q/o, k/v, gate/up and
+    # down at a bucket of 4; recurrentgemma-9b's one K/V head cut to 128 of
+    # its 256 columns at 8 lanes; qwen2-moe's shared MLP; llama-3.2-vision's
+    # cross K/V over 4 lanes x 1600 tokens (M 6400)
+    (4, 1920, 2048, 6, None), (4, 1920, 1024, 6, None), (4, 1920, 7680, 6, None),
+    (4, 7680, 1920, 6, None), (8, 2048, 128, 6, None), (8, 1024, 2816, 6, None),
+    (6400, 2048, 512, 6, None),
 ])
 def test_kernel_matches_plain_version_and_active_is_truncate(cuda, M, K, N, n_bits, groups,
                                                              dtype):
@@ -219,6 +226,9 @@ def _paged_case(B, KV, G, d, bs, nb_lane, dtype, seed, dev):
     # MHA (G 1) and phi3.5-moe's G 4
     (128, 32, 1, None, 33, [-1, 0, 31, 700, 1023]),
     (128, 32, 4, None, 33, [1023, 300, -1, 64, 0]),
+    # a rank of the 2x2 mesh on gemma3-12b's global layer: 4 lanes of its
+    # data shard, d 256, G 2, 16 table entries (512 rows)
+    (256, 32, 2, None, 16, [-1, 0, 300, 511]),
 ])
 def test_paged_kernel_matches_plain_version(cuda, d, bs, G, window, nb_lane, pos, dtype):
     B, KV = len(pos), 2
@@ -501,6 +511,11 @@ def test_bsq_train_steps_on_card_match_cpu(cuda):
     # (16 heads, MHA) and of phi3.5-moe's 256 (32 query heads over 8)
     (16, 1024, 128, None, True, 1),
     (32, 256, 128, None, True, 4),
+    # a rank of the 2x2 mesh: recurrentgemma-9b's windowed prefill over 2
+    # lanes, 8 of the 16 query heads of its one K/V head; gemma3-12b's
+    # local layers over 2 lanes x 4 of its 8 K/V heads
+    (16, 256, 256, 2048, True, 8),
+    (16, 256, 256, 1024, True, 2),
 ])
 def test_flash_kernel_matches_plain_version(cuda, BH, S, d, window, causal, G, dtype):
     gen = torch.Generator(device=cuda).manual_seed(S + d)

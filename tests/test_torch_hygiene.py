@@ -98,8 +98,10 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, monkeypatch)
 
 def test_unported_paths_say_so():
     """The serve launcher's mesh flags run (4 gloo ranks on the CPU, tokens
-    equal to the same command without a mesh); the training launcher's
-    mesh refuses a batch its data axis does not divide, as JAX's does;
+    equal to the same command without a mesh), on an "attn" arch and on
+    recurrentgemma-9b's rglru and local layers; the training launcher's
+    mesh refuses BSQ training of that pattern (naming the next mesh
+    slice) and a batch its data axis does not divide, as JAX's does;
     the dry run's meshes still say "mesh slice" (the next mesh slice
     brings them); every layer kind and frontend is ported, so
     ``init_params`` builds all ten reduced configs on the CPU."""
@@ -114,6 +116,19 @@ def test_unported_paths_say_so():
     assert len(mesh) == len(single) == 8
     for a, b in zip(sorted(mesh, key=lambda r: r.uid), sorted(single, key=lambda r: r.uid)):
         np.testing.assert_array_equal(a.tokens, b.tokens)
+    # a pattern of rglru and local layers serves on the mesh too, with the
+    # tokens of the same command without one; BSQ training of it on a mesh
+    # waits for the next mesh slice
+    argv = ["--device", "cpu", "--arch", "recurrentgemma-9b", "--packed-bits", "6",
+            "--requests", "4", "--prompt-len", "20", "--max-new", "6"]
+    mesh = launcher.main(argv + ["--data-parallel", "2", "--model-parallel", "2"])
+    single = launcher.main(argv)
+    assert len(mesh) == len(single) == 4
+    for a, b in zip(sorted(mesh, key=lambda r: r.uid), sorted(single, key=lambda r: r.uid)):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    with pytest.raises(NotImplementedError, match="next mesh slice"):
+        train_launcher.main(["--device", "cpu", "--arch", "recurrentgemma-9b",
+                             "--data-parallel", "2", "--model-parallel", "2", "--batch", "4"])
     for flags in (["--data-parallel", "2"], ["--model-parallel", "2"]):
         with pytest.raises(SystemExit, match="must be given together"):
             launcher.main(flags + ["--device", "cpu"])
