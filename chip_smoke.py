@@ -74,9 +74,9 @@ failure exits non-zero and none is caught:
    bitwise equal, and time the kernel, the plain version and one
    ``scaled_dot_product_attention`` call (a yardstick only); 2b and 2d
    print each row's rate, its share of the bound and kernel / SDPA;
-3. full-width granite-3-2b cut to 2 layers, f32, 6-bit packed: the card
+3. full-width granite-3-2b cut to 1 layer (2 until phase 6g), f32, 6-bit packed: the card
    (kernels) against the CPU (plain path) on the same params;
-3b. the same 2-layer model through the continuous paged-kernel engine
+3b. the same 1-layer model through the continuous paged-kernel engine
    on the card (3 requests of 16-44 prompt tokens and 4 new on 2 lanes,
    reused), the bucketed engine on the card and the continuous engine on
    the CPU: identical greedy tokens (phase 3's 2 new tokens and 3b's
@@ -127,7 +127,7 @@ failure exits non-zero and none is caught:
    to 2 layers, ``embeds`` through ``prefill`` and ``decode_step``; every
    logit row within the phase-3 tolerance, greedy tokens identical,
    launches exact;
-4. full-width granite-3-2b cut to 20 of its 40 layers (``SLICE_LAYERS``),
+4. full-width granite-3-2b cut to 10 of its 40 layers (``SLICE_LAYERS``),
    bf16, 6-bit packed, served by the
    bucketed ServeEngine (8 requests, two buckets, 32 tokens each), with
    the bitserial and flash launch counts checked exactly;
@@ -216,7 +216,7 @@ failure exits non-zero and none is caught:
    (2 layers, f32, 6-bit) through the bucketed engine and the model API,
    greedy tokens equal and logits within 1e-4 of the same model in this
    process on the card, every rank's logits bitwise alike; then granite-3-2b
-   cut to 10 of its 40 layers (``MESH_LAYERS``): f32
+   cut to 6 of its 40 layers (``MESH_LAYERS``, 10 until phase 6g): f32
    prefill logits against this process (printed); bf16 bucketed (4 x 128
    tokens), continuous with the paged kernel (4 requests on 8 lanes, one
    128-token chunk per prompt) and spec decode, each rank's packed bytes
@@ -235,7 +235,8 @@ failure exits non-zero and none is caught:
    model at its published widths cut to the smallest depth that holds
    each of its kinds (``MESH_KINDS``: gemma3-12b 6 layers, its rings
    split over K/V heads; recurrentgemma-9b 3, its one K/V head's ring
-   split over slots and the RG-LRU state over lanes; mamba2-130m all 24;
+   split over slots and the RG-LRU state over lanes; mamba2-130m 6 of
+   24 (all 24 before phase 6g took the time);
    llama-3.2-vision-11b 5 with 1600 cross tokens a lane; qwen2-moe-a2.7b
    2, 30 of 60 experts a rank).  This process's f32 references first (the
    bucketed engine's tokens, the model API's logits, the MoE routing);
@@ -256,15 +257,16 @@ failure exits non-zero and none is caught:
    paged decode on 4 of 8 K/V heads and the cross K/V at M 6400;
 6. the BSQ training slice: full-width granite-3-2b cut to 1 layer (2
    until phase 6f took their time),
-   trained through ``repro_torch.launch.train.run``: 4 steps with a
-   requant and a checkpoint at step 4, then a second run that resumes
-   from that checkpoint to step 8 (requant at 8; its next checkpoint
-   would be at 12: the card's machine takes at most 45 GiB of disk
-   writes, and a checkpoint is 16 GB).  The bgl_sumsq launches are
+   trained through ``repro_torch.launch.train.run``: 2 steps with a
+   requant and a checkpoint at step 2, then a second run that resumes
+   from that checkpoint to step 4 (requant at 4; its next checkpoint
+   would be at 6: the card's machine takes at most 45 GiB of disk
+   writes, and a checkpoint is 16 GB; 4 and 8 steps before phase 6g took
+   the time).  The bgl_sumsq launches are
    checked exactly (one grouped forward and one backward launch per
    step, and no serving kernel launches), every step's loss
    finite, the resume's restore held bit for bit against a host copy of
-   the state saved at step 4 (the config's remat, "nothing", as JAX
+   the state saved at step 2 (the config's remat, "nothing", as JAX
    trains); then the final scheme, ``export_packed``, a profile of two
    train steps and 4 requests served from the exported packed weights
    through the bitserial and flash kernels; last, where activations set
@@ -309,7 +311,7 @@ failure exits non-zero and none is caught:
    printing ``[ok]``;
 6f. BSQ training on a ("data", "model") mesh: 4 gloo ranks on the card
    (``launch.mesh.run_on_mesh``).  On 2x2, full-width granite-3-2b cut to
-   2 layers, f32 (activations too), 2 steps of 4 x 64 tokens through
+   1 layer (2 until phase 6g), f32 (activations too), 2 steps of 4 x 64 tokens through
    ``train.step.make_bsq_train_step(mesh=)``: each rank holds its block
    of every plane, moment and batch (FSDP over "data", Megatron pairs
    over "model"); its launches (exactly 2 + 2 bgl_sumsq, nothing else),
@@ -326,6 +328,27 @@ failure exits non-zero and none is caught:
    (params alike on every rank, 1 + 1 launches per rank).  The kernel at
    a rank's row shapes is timed beside its bound, plain version and
    ``_foreach_norm``/``_foreach_mul``;
+6g. BSQ training of every other layer kind on the same 2x2 mesh, f32, 2
+   steps of 4 x 64 tokens each: mamba2-130m at its published width and
+   all 24 layers (about 7 GB of BSQ state a rank), and reduced
+   qwen2-moe-a2.7b (2 of 4 experts a "model" rank, their (layer, expert)
+   groups split), recurrentgemma-9b (rglru and a local layer of one K/V
+   head), gemma3-12b (local) and llama-3.2-vision-11b ("+cross", random
+   cross embeds): per rank and model exactly 2 + 2 bgl_sumsq launches
+   and nothing else, each rank's kernel against its plain version on its
+   own rows (the split expert rows among them; backward bitwise), the
+   routing near-ties counted; after the ranks exit, one process trains
+   each model on the whole batches: losses within 1e-5, the first
+   gradient norm within 1e-4 and the next within ``MK_GRAD_NORM_TOL``,
+   sampled state within 1e-4 of each block's max |x| (the reps' scales
+   and their moments within ``MK_SCALE_TOL``; a leaf that starts at zero,
+   a sum of gradients, may instead meet 1e-5 plus 2e-4 |x|), and the last step's
+   worst gradient leaves printed.
+   Then ``bgl_sumsq`` at a full-width qwen2-moe-a2.7b rank's expert rows
+   of one layer (w_gate and w_up (1, 30, 2048, 704), w_down (1, 30, 704,
+   2048), 8 planes, wp and wn: 8.30 GB f32) against its plain version,
+   timed beside its bound, the plain version, ``_foreach_norm`` and
+   ``_foreach_mul``;
 7. a ``{"kernels": [...]}`` line (the bitserial, runtime-plane, paged
    and flash entries add phase 4k's launches, summed over its ranks, and
    their times at a rank's shapes; the bitserial, paged and flash entries
@@ -336,8 +359,9 @@ failure exits non-zero and none is caught:
    below 1 beats it; the bitserial, flash, paged and bgl_sumsq entries
    add the MoE and recurrent phases' launches and the kernels at their
    shapes; the
-   bgl_sumsq forward and backward entries carry the grouped times and
-   phase 6f's launches per rank and times at a rank's rows), the
+   bgl_sumsq forward and backward entries carry the grouped times,
+   phase 6f's launches per rank and times at a rank's rows, and phase
+   6g's launches and times at the expert rows), the
    card's name and power limit, and the final ``{"ok": true, ...}``
    line.
 
@@ -429,9 +453,10 @@ PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PAGED_REPEATS = 5  # time_ms runs whose median times a paged call
 # the continuous slice (phase 4b): 8 lanes, 64 blocks of 32 rows
 SLOTS, BLOCK, N_BLOCKS, MAX_LEN = 8, 32, 64, 512
-# phases 4, 4b, 5 and 4d's granite-3-2b: 20 of its 40 layers, cut to keep
-# the script well inside its time limit beside the mesh phases
-SLICE_LAYERS = 20
+# phases 4, 4b, 5 and 4d's granite-3-2b: 10 of its 40 layers, cut to keep
+# the script well inside its time limit beside the mesh phases (40 until
+# phase 4l, 20 until phase 6g)
+SLICE_LAYERS = 10
 # the policies' slice (phase 4d): 40 blocks overcommitted 1.5x; draft
 # steps at 3 of 6 planes, up to 4 a round; the runtime-plane kernel's M
 # values on that path (phase 2): 8 lanes, the verify chunk 8 x 4, and 40
@@ -475,7 +500,8 @@ RESNET_WIDTH, RESNET_BATCH, RESNET_STEPS, RESNET_FT_STEPS = 16, 64, 60, 30
 # this share of the layer's max |input| (f32 convs summed in other orders)
 RESNET_ACT_TOL = 1e-4
 # the training slice (phase 6)
-TRAIN_STEPS, TRAIN_INTERVAL = 8, 4  # steps; requant and checkpoint interval
+# steps; requant and checkpoint interval (8 and 4 before phase 6g took the time)
+TRAIN_STEPS, TRAIN_INTERVAL = 4, 2
 
 
 def checked_engine_cls():
@@ -1188,7 +1214,7 @@ def gemma3_slice(dev, card, engine_cls):
 
 
 def continuous_parity(cfg2, p_gpu, p_cpu, dev, card):
-    """Phase 3b: the 2-layer model through the continuous paged-kernel
+    """Phase 3b: the 1-layer model through the continuous paged-kernel
     engine on the card (4 requests on 2 lanes), the bucketed engine on
     the card and the continuous engine on the CPU: identical greedy
     tokens."""
@@ -1221,7 +1247,7 @@ def continuous_parity(cfg2, p_gpu, p_cpu, dev, card):
                   f"{name}: the pool did not drain")
     torch.cuda.synchronize()
     for name in runs:
-        print(f"[parity] 2-layer full-width f32 {name}: {toks[name]}")
+        print(f"[parity] {cfg2.n_layers}-layer full-width f32 {name}: {toks[name]}")
     check(toks["continuous-cuda"] == toks["bucketed-cuda"] == toks["continuous-cpu"],
           "continuous (cuda), bucketed (cuda) and continuous (cpu) greedy tokens differ")
     print("[parity] continuous paged-kernel (cuda, 3 requests on 2 lanes) == bucketed (cuda) "
@@ -2097,7 +2123,7 @@ def remat_memory(dev, card):
 
 def bsq_slice(dev, card):
     """Phase 6: BSQ-train full-width granite-3-2b (TRAIN_LAYERS layers) through the
-    launcher, restore the step-4 checkpoint, export, serve."""
+    launcher, restore the step-TRAIN_INTERVAL checkpoint, export, serve."""
     import numpy as np
     import torch
 
@@ -2126,8 +2152,9 @@ def bsq_slice(dev, card):
             "--full", "--steps", str(steps), "--requant-interval", str(TRAIN_INTERVAL),
             "--ckpt-interval", str(ckpt_interval), "--workdir", str(workdir)])
 
-    # run 1 saves the step-4 checkpoint; run 2 resumes from it to step 8 with
-    # its next checkpoint at step 12, so the card's disk takes one save
+    # run 1 saves the checkpoint of step TRAIN_INTERVAL; run 2 resumes from it to
+    # TRAIN_STEPS with its next checkpoint past its end, so the card's disk takes
+    # one save
     runs = [argv(TRAIN_INTERVAL, TRAIN_INTERVAL), argv(TRAIN_STEPS, TRAIN_STEPS + TRAIN_INTERVAL)]
     a = runs[1]
     print(f"[train] granite-3-2b at its published width (d_model={cfg.d_model}, d_ff="
@@ -2220,8 +2247,9 @@ def bsq_slice(dev, card):
     nq = ctx.total_quant_params
     print(f"[train] {TRAIN_STEPS} steps in {train_s:.1f} s (two inits, requants, one "
           f"checkpoint save, the resume and the final requants included); ms per step "
-          f"{step_ms:.1f} (median of steps 2-4 and 6-8; steps 1 and 5 "
-          f"{1e3 * dts[0]:.1f} and {1e3 * dts[TRAIN_INTERVAL]:.1f}); peak memory "
+          f"{step_ms:.1f} (median of the steps after each run's first; steps 1 and "
+          f"{TRAIN_INTERVAL + 1} {1e3 * dts[0]:.1f} and {1e3 * dts[TRAIN_INTERVAL]:.1f}); "
+          f"peak memory "
           f"{peak / 1e9:.2f} GB; {nq:,} quantised parameters; bgl_sumsq launches "
           f"{launches['bgl_sumsq']} + {launches['bgl_sumsq_backward']} backward == "
           f"{TRAIN_STEPS} + {TRAIN_STEPS}, each over {2 * n_rep} plane views [{card}]",
@@ -2403,8 +2431,8 @@ def dryrun_phase(dev, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # a BSQ train step of 2 layers at full width (phase 6f's depth; phase 6
-    # trains TRAIN_LAYERS), bf16 weights, batch 8 x 64
+    # a BSQ train step of 2 layers at full width (phase 6 trains
+    # TRAIN_LAYERS), bf16 weights, batch 8 x 64
     cfg2 = cfg.scaled(n_layers=2)
     bsq_cfg = BSQConfig(n_init=8, alpha=5e-3, mode="static", compute_dtype=torch.bfloat16)
     opt, lr_fn = SGDM(), step_decay(0.2, [100])
@@ -3110,7 +3138,7 @@ def layer_rows(report, M, proj):
 
 
 def granite_parity(dev, card, report):
-    """Phase 3: full-width granite-3-2b cut to 2 layers, f32, 6-bit packed:
+    """Phase 3: full-width granite-3-2b cut to 1 layer, f32, 6-bit packed:
     the card (kernels) against the CPU (plain path) on the same params.
     Returns both param trees for phase 3b."""
     import numpy as np
@@ -3122,7 +3150,7 @@ def granite_parity(dev, card, report):
     from repro_torch.models import transformer
     from repro_torch.serve import Request, ServeEngine
 
-    cfg2 = get_config("granite-3-2b").scaled(n_layers=2, dtype="float32",
+    cfg2 = get_config("granite-3-2b").scaled(n_layers=1, dtype="float32",
                                              kv_cache_dtype="float32")
     p_gpu = transformer.init_params(cfg2, torch.Generator(device=dev).manual_seed(1), dev,
                                     pack_bits=N_BITS)
@@ -3139,7 +3167,7 @@ def granite_parity(dev, card, report):
         toks[name] = eng.generate([Request(uid=0, tokens=prompt, max_new=2)])[0].tokens
     dlog = (first["cuda"].cpu() - first["cpu"]).abs().max().item()
     lmax = first["cpu"].abs().max().item()
-    print(f"[parity] 2-layer full-width f32: greedy cuda {toks['cuda'].tolist()} "
+    print(f"[parity] {cfg2.n_layers}-layer full-width f32: greedy cuda {toks['cuda'].tolist()} "
           f"cpu {toks['cpu'].tolist()}; first-step max|dlogit|={dlog:.3e} "
           f"(max|logit|={lmax:.3e})", flush=True)
     check(np.array_equal(toks["cuda"], toks["cpu"]), "greedy tokens differ cuda vs cpu")
@@ -3957,7 +3985,7 @@ def recurrent_prefill_bound_ms(cfg, mparams, B, S):
 
 def recurrent_parity(dev, card):
     """Phase 3g: the recurrent mixers card against CPU, f32: mamba2-130m at
-    full width and depth (24 layers, d_model 768, 24 heads of 64, state
+    full width cut to 12 of its 24 layers (d_model 768, 24 heads of 64, state
     128; nothing packable) and recurrentgemma-9b at full width cut to one
     superblock (rglru, rglru, local; 6-bit packed, the CPU holding the
     same weights unpacked to f32) with its full 256000-row tied head.
@@ -4882,9 +4910,9 @@ def frontend_slice(dev, card, engine_cls, arch):
 # card through gloo; the 2-layer f32 parity model's requests and decode
 # steps, and the deep bf16 runs' traffic
 MESH_SHAPE = (2, 2)
-# the deep runs' depth: 10 of granite-3-2b's 40 layers, cut to keep the
-# script well inside its time limit beside phase 4l
-MESH_LAYERS = 10
+# the deep runs' depth: 6 of granite-3-2b's 40 layers, cut to keep the
+# script well inside its time limit beside phases 4l and 6g
+MESH_LAYERS = 6
 MESH_PARITY_STEPS = 4
 MESH_MAX_LEN, MESH_SLOTS, MESH_BLOCKS, MESH_NEW = 512, 8, 64, 8
 MESH_BUCKET = (4, 128)  # requests x prompt tokens
@@ -5400,7 +5428,8 @@ def mesh_phase(dev, card, time_ms, median_ms):
 # the kinds' mesh phase (4l): every other layer kind and the MoE FFN on
 # the 2x2 mesh of phase 4k, each model at its published widths cut to the
 # smallest depth that holds each of its kinds
-MESH_KINDS = [("gemma3-12b", 6), ("recurrentgemma-9b", 3), ("mamba2-130m", 24),
+# (mamba2-130m 6 of its 24 layers since phase 6g took the time; 24 before)
+MESH_KINDS = [("gemma3-12b", 6), ("recurrentgemma-9b", 3), ("mamba2-130m", 6),
               (VISION, 5), ("qwen2-moe-a2.7b", 2)]
 KM_PARITY = (4, 32, 4)  # f32 parity: requests x prompt tokens, new tokens
 KM_BUCKET = (4, 256)  # bf16 bucketed: requests x prompt tokens
@@ -5941,7 +5970,7 @@ def kinds_mesh_phase(dev, card, time_ms):
 # layers, BSQ in f32 on a 2x2 mesh of 4 gloo ranks on the card, MT_STEPS
 # steps of MT_BATCH x MT_SEQ; then the reduced config's checkpoint on 2x2
 # resumed on 4x1 and a 4x1 compressed step
-MT_LAYERS, MT_STEPS, MT_BATCH, MT_SEQ = 2, 2, 4, 64
+MT_LAYERS, MT_STEPS, MT_BATCH, MT_SEQ = 1, 2, 4, 64  # 2 layers until phase 6g
 MT_SAMPLES = 1 << 16  # state elements sampled per leaf block
 MT_LOSS_TOL = 1e-5  # ce, reg, total: relative, f32 sums over ranks
 # grad_norm: relative.  The first step's norm (about 330) is clipped to 1,
@@ -6394,6 +6423,449 @@ def mesh_train_phase(dev, card, time_ms):
     return rep
 
 
+# the training kinds' mesh phase (6g): BSQ in f32 on a 2x2 mesh of 4 gloo
+# ranks on the card, MK_STEPS steps of MK_BATCH x MK_SEQ; mamba2-130m at
+# its published width and depth, the other kinds at their reduced configs
+MK_STEPS, MK_BATCH, MK_SEQ = 2, 4, 64
+MK_FULL = "mamba2-130m"
+MK_REDUCED = ["qwen2-moe-a2.7b", "recurrentgemma-9b", "gemma3-12b", VISION]
+# bgl_sumsq at a full-width qwen2-moe-a2.7b rank's expert rows of one layer
+# on the 2x2 mesh: 30 of its 60 experts, half of d_ff 1408; 8 planes, f32
+MK_EXPERT_BLOCKS = [(1, 30, 2048, 704), (1, 30, 2048, 704), (1, 30, 704, 2048)]
+MK_EXPERT_PLANES = 8
+MK_NEAR_TIE_ULPS = 100  # a top-k margin under this many f32 ulps of the largest gate
+# A rep's scale gradient sums its group's terms g_w * w / s (a layer's
+# 768 x 3352 for mamba2's in_proj), which largely cancel: f32 sums in
+# another order move it up to 7e-4 of its leaf's max on an H100 (this
+# phase prints the worst leaves), and the mesh and one f32 process both lie within about 2 unit
+# roundoffs of the terms' magnitudes of the float64 value
+# (tests/test_torch_mesh_train_kinds.py holds the mesh to 16).  So the
+# reps' scales and their SGD moments are held to MK_SCALE_TOL of each
+# block's max |x| (1.6e-3 measured), and the gradient norm after the first,
+# clipped, step to MK_GRAD_NORM_TOL (2.3e-4 measured); every other bar is
+# phase 6f's.  Planted faults (the router loss counted once per data rank;
+# the scales' gradients not summed over the axes that split their weights)
+# fail these bars (PERF.md §6).
+MK_SCALE_TOL = 5e-3
+MK_GRAD_NORM_TOL = 1e-3
+
+
+def _mk_cfg(arch):
+    """6g's config of ``arch``: mamba2-130m at its published width and
+    depth, the others reduced; f32 activations (BSQ in f32)."""
+    from repro_torch.configs import get_config, reduced_config
+
+    cfg = get_config(arch) if arch == MK_FULL else reduced_config(arch)
+    return cfg.scaled(dtype="float32", kv_cache_dtype="float32")
+
+
+def _mk_batches(cfg, dev, mesh=None):
+    """MK_STEPS batches of MarkovLM tokens (the seed-13 chain, the seed-0
+    stream), with random ``cross_embeds`` for the vision model; this rank's
+    rows of each on ``mesh``."""
+    import torch
+
+    from repro_torch.data import MarkovLM, sharded_lm_iterator
+    from repro_torch.dist import sharding
+
+    data = sharded_lm_iterator(MarkovLM(vocab=cfg.vocab_size, seed=13), MK_BATCH, MK_SEQ,
+                               device=dev, sharding=mesh)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = []
+    for _ in range(MK_STEPS):
+        b = next(data)
+        if cfg.frontend == "vision":
+            x = torch.randn((MK_BATCH, cfg.frontend_tokens, cfg.d_model), generator=gen,
+                            device=dev)
+            if mesh is not None:
+                x = sharding.local_block(x, sharding.data_batch_spec(mesh, MK_BATCH, 3),
+                                         mesh).contiguous()
+            b["cross_embeds"] = x
+        out.append(b)
+    return out
+
+
+def _mk_sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mk_near_ties():
+    """Wrap ``moe._route`` to count the routing near-ties: picks whose top-k
+    margin is under MK_NEAR_TIE_ULPS f32 ulps of the largest gate, where
+    another order of the stitched router sum could pick another expert."""
+    import torch
+
+    from repro_torch.models import moe
+
+    seen, orig = {"near": 0, "picks": 0}, moe._route
+
+    def route(gates, top_k):
+        srt = gates.detach().sort(-1, descending=True).values
+        margin = srt[..., top_k - 1] - srt[..., top_k]
+        ulp = torch.finfo(torch.float32).eps * srt.abs().amax()
+        seen["near"] += int((margin < MK_NEAR_TIE_ULPS * ulp).sum())
+        seen["picks"] += margin.numel()
+        return orig(gates, top_k)
+
+    return seen, mock.patch.object(moe, "_route", route)
+
+
+def _mk_last_grads(holder):
+    """Keep a copy of the gradients of the last loss evaluation in
+    ``holder["grads"]`` (the step clips its own in place)."""
+    from repro_torch.train import step as train_step
+    from repro_torch.tree import tree_map
+
+    orig = train_step.value_and_grad
+
+    def grad(fn, tree):
+        out = orig(fn, tree)
+        holder["grads"] = tree_map(lambda x: x.clone(), out[2])
+        return out
+
+    return mock.patch.object(train_step, "value_and_grad", grad)
+
+
+def _mk_grad_rows(got, want):
+    """Per leaf of the last step's gradients: (max |diff| over the leaf's max
+    |x|, name), worst first."""
+    import numpy as np
+
+    return sorted(((float(np.abs(got[n] - w).max()) / max(float(np.abs(w).max()), 1e-30), n)
+                   for n, w in want.items() if w.size), reverse=True)
+
+
+def mesh_kinds_train_rank(mesh):
+    """Phase 6g on one rank of the 2x2 mesh, model by model: MK_STEPS BSQ
+    steps on its blocks (launches, collectives, step times, peak), the
+    state's fingerprints, its bgl_sumsq launch against the plain version on
+    its own plane rows (the experts' (layer, expert) rows among them), the
+    routing near-ties."""
+    import torch
+
+    from repro_torch.kernels import bgl_sumsq as bgl
+    from repro_torch.kernels import ref
+    from repro_torch.optim import SGDM, step_decay
+    from repro_torch.train import init_bsq_state, make_bsq_train_step, state_reps
+    from repro_torch.tree import flatten_with_path
+
+    if mesh.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    regularizer = importlib.import_module("repro_torch.core.regularizer")
+    dev = mesh.device
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords)}
+    for arch in [MK_FULL] + MK_REDUCED:
+        cfg = _mk_cfg(arch)
+        r = {}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, ctx = init_bsq_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                                    _mt_bsq_cfg(), SGDM(), mesh=mesh)
+        _mk_sync(dev)
+        r["init_s"] = time.perf_counter() - t0
+        step = make_bsq_train_step(ctx, SGDM(), step_decay(0.2, [MK_STEPS]), mesh=mesh)
+        batches = _mk_batches(cfg, dev, mesh)
+        seen, routes = _mk_near_ties()
+        last = {}
+        _reset_launches()
+        before = mesh.collectives
+        r["metrics"], r["step_s"] = [], []
+        with routes, _mk_last_grads(last):
+            for b in batches:
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                _mk_sync(dev)
+                r["step_s"].append(time.perf_counter() - t0)
+                r["metrics"].append({k: float(v) for k, v in m.items()})
+        r["launches"] = _launch_counts()
+        r["collectives_per_step"] = (mesh.collectives - before) / MK_STEPS
+        r["route"] = seen
+        r["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        if arch != MK_FULL:  # the last step's gradients, gathered (a reduced model's)
+            from repro_torch.dist.elastic import gather_tree, train_state_specs
+
+            specs = train_state_specs(state, mesh, ctx.template)["trainable"]
+            r["last_grads"] = {n: x.cpu().numpy() for n, x in flatten_with_path(
+                gather_tree(last["grads"], mesh, specs))}
+        del last
+        reps = state_reps(state, ctx)
+        xs = [regularizer._rows(getattr(rp, k), rp.group_axes) for k in ("wp", "wn")
+              for rp in reps.values()]
+        if dev.type == "cuda":
+            got = bgl.bgl_sumsq_grouped_cuda(xs)
+            want = ref.bgl_sumsq_grouped_ref(xs)
+            g = torch.rand(got.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+            grads = bgl.bgl_sumsq_grouped_backward_cuda(xs, g)
+            gs = torch.split(g, [x.shape[0] for x in xs])
+            r["bgl"] = {"max_rel_err": float(((got - want).abs()
+                                              / want.clamp_min(1e-30)).max()),
+                        "max_abs_err": float((got - want).abs().max()),
+                        "backward_bitwise": all(torch.equal(a, ref.bgl_sumsq_grad_ref(x, gi))
+                                                for a, x, gi in zip(grads, xs, gs))}
+            del got, want, g, grads, gs
+        r["bgl_rows"] = sum(x.shape[0] for x in xs)
+        r["fingerprints"] = {n: _mt_fingerprint(x) for n, x in flatten_with_path(state)}
+        del xs, reps, state, step, batches
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[arch] = r
+    return out
+
+
+def _mk_one_process(arch, dev):
+    """One process's MK_STEPS steps of ``arch`` on the whole batches: its
+    state, metrics, step times, the last step's gradients and the names of
+    the state's leaves that start at zero (the SGD moments, zero-initialised
+    biases and norm scales: sums of gradients after the steps)."""
+    import torch
+
+    from repro_torch.optim import SGDM, step_decay
+    from repro_torch.train import init_bsq_state, make_bsq_train_step
+
+    cfg = _mk_cfg(arch)
+    state, ctx = init_bsq_state(torch.Generator(device=dev).manual_seed(0), cfg, _mt_bsq_cfg(),
+                                SGDM(), dev)
+    from repro_torch.tree import flatten_with_path
+
+    zero = {n for n, x in flatten_with_path(state) if not bool(x.any())}
+    step = make_bsq_train_step(ctx, SGDM(), step_decay(0.2, [MK_STEPS]))
+    metrics, dts, last = [], [], {}
+    with _mk_last_grads(last):
+        for b in _mk_batches(cfg, dev):
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            _mk_sync(dev)
+            dts.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+    grads = {n: x.cpu().numpy() for n, x in flatten_with_path(last["grads"])} \
+        if arch != MK_FULL else None
+    return state, metrics, dts, grads, zero
+
+
+def _mk_expert_rows(dev, time_ms):
+    """bgl_sumsq at a full-width qwen2-moe-a2.7b rank's expert rows of one
+    layer (MK_EXPERT_BLOCKS, MK_EXPERT_PLANES planes, wp and wn, f32: the
+    rows of its (layer, expert) groups), against its plain version, timed
+    beside its bound, the plain version and one ``_foreach_norm`` call
+    (forward) and ``_foreach_mul`` (backward)."""
+    import torch
+
+    from repro_torch.kernels import bgl_sumsq as bgl
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    xs = []
+    for _ in ("wp", "wn"):
+        for shape in MK_EXPERT_BLOCKS:
+            n_rows = MK_EXPERT_PLANES * shape[0] * shape[1]
+            xs.append(torch.rand((n_rows, shape[2] * shape[3]), generator=gen, device=dev) * 2.0)
+    got, want = ops.bgl_sumsq_grouped(xs), ref.bgl_sumsq_grouped_ref(xs)
+    err = {"max_rel_err": float(((got - want).abs() / want.clamp_min(1e-30)).max()),
+           "max_abs_err": float((got - want).abs().max())}
+    check(err["max_rel_err"] <= BGL_TOL,
+          f"[6g] bgl_sumsq at the expert rows vs plain: {err} (tolerance {BGL_TOL})")
+    g = torch.rand(got.shape, generator=gen, device=dev)
+    gs = torch.split(g, [x.shape[0] for x in xs])
+    back = bgl.bgl_sumsq_grouped_backward_cuda(xs, g)
+    err["backward_max_abs_err"] = max(float((a - ref.bgl_sumsq_grad_ref(x, gi)).abs().max())
+                                      for a, x, gi in zip(back, xs, gs))
+    check(err["backward_max_abs_err"] == 0.0,
+          "[6g] bgl_sumsq backward at the expert rows is not bitwise its plain version")
+    del got, want, back
+    g2 = [t[:, None] for t in torch.split(2 * g, [x.shape[0] for x in xs])]
+    row_views = [x[i] for x in xs for i in range(x.shape[0])]
+    spin = 4_000_000
+    fwd = {"ms": time_ms(lambda: ops.bgl_sumsq_grouped(xs), spin=spin),
+           "plain_ms": time_ms(lambda: ref.bgl_sumsq_grouped_ref(xs), iters=5, spin=spin),
+           "library_ms": time_ms(lambda: torch._foreach_norm(row_views), spin=spin)}
+    fwd["bound_ms"], fwd["bound_by"] = bgl_bound(xs)
+    bwd = {"ms": time_ms(lambda: bgl.bgl_sumsq_grouped_backward_cuda(xs, g), spin=spin),
+           "plain_ms": time_ms(lambda: [ref.bgl_sumsq_grad_ref(x, gi) for x, gi in zip(xs, gs)],
+                               iters=5, spin=spin),
+           "library_ms": time_ms(lambda: torch._foreach_mul(xs, g2), spin=spin)}
+    bwd["bound_ms"], bwd["bound_by"] = bgl_bound(xs, backward=True)
+    out = dict(err, forward=fwd, backward=bwd, views=len(xs), rows=sum(x.shape[0] for x in xs),
+               bytes=sum(x.numel() * x.element_size() for x in xs))
+    del xs, g, g2, gs, row_views
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_kinds_train_phase(dev, card, time_ms, flush=None):
+    """Phase 6g: BSQ training of every other layer kind on the 2x2 mesh, 4
+    gloo ranks on the card.  mamba2-130m at its published width and all 24
+    layers, and reduced qwen2-moe-a2.7b (experts over "model", their
+    (layer, expert) groups split), recurrentgemma-9b (rglru + local, one
+    K/V head), gemma3-12b (local) and llama-3.2-vision-11b (attn+cross,
+    cross embeds), f32, MK_STEPS steps of MK_BATCH x MK_SEQ each: per rank
+    and step one grouped bgl_sumsq launch and one backward and no serving
+    kernel, each rank's kernel against its plain version on its own rows;
+    then one process trains each model on the whole batches (after the
+    ranks exit): losses within MT_LOSS_TOL (the first gradient norm within
+    MT_GRAD_NORM_TOL, the next MK_GRAD_NORM_TOL),
+    sampled state within MT_STATE_TOL of each block's max |x|
+    (MK_SCALE_TOL for the reps' scales and their SGD moments); a leaf that
+    starts at zero (an SGD moment, a zero bias or norm scale: a sum of
+    gradients) passes too within 1e-5 plus 2e-4 of each element, the
+    gradient bar.
+    Last, bgl_sumsq at a full-width qwen2-moe rank's expert rows."""
+    import numpy as np
+    import torch
+
+    from types import SimpleNamespace
+
+    from repro_torch.dist import sharding
+    from repro_torch.dist.elastic import train_state_specs
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.tree import flatten_with_path
+
+    archs = [MK_FULL] + MK_REDUCED
+    print(f"[6g] BSQ training on a 2x2 (data, model) mesh, 4 gloo ranks on {dev}: {MK_FULL} at "
+          f"its published width and depth, {', '.join(MK_REDUCED)} reduced; f32, {MK_STEPS} "
+          f"steps of {MK_BATCH} x {MK_SEQ} [{card}]", flush=True)
+    rep = {"mesh": [2, 2], "steps": MK_STEPS, "batch": [MK_BATCH, MK_SEQ],
+           "configs": {a: {k: getattr(_mk_cfg(a), k) for k in
+                           ("n_layers", "d_model", "d_ff", "n_experts", "vocab_size")}
+                       for a in archs}}
+    if dev.type == "cuda":
+        rep["parent_reserved_bytes"] = torch.cuda.memory_reserved(dev)
+        print(f"[6g] this process holds {rep['parent_reserved_bytes'] / 1e9:.2f} GB of the card "
+              "as the ranks start", flush=True)
+    t0 = time.perf_counter()
+    ranks = run_on_mesh(mesh_kinds_train_rank, 2, 2, backend="gloo", device=dev)
+    rep["ranks_wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    view = lambda coords: SimpleNamespace(shape={"data": 2, "model": 2}, coords=coords)  # noqa
+    rep["models"] = {}
+    fails = []  # every model runs and prints before the phase fails
+
+    def soft(ok, what):
+        if not ok:
+            print(f"chip_smoke: {what}", flush=True)
+            fails.append(what)
+
+    for arch in archs:
+        tag = f"[6g] {arch}"
+        for r in ranks:
+            la = r[arch]["launches"]
+            check(la["bgl_sumsq"] == MK_STEPS and la["bgl_sumsq_backward"] == MK_STEPS
+                  and la["bitserial_matmul"] == la["flash_attention"]
+                  == la["paged_attention"] == 0 or dev.type != "cuda",
+                  f"{tag} rank {r['rank']}: launches {la}, expected {MK_STEPS} + {MK_STEPS} "
+                  "bgl_sumsq and no other")
+            if dev.type == "cuda":
+                b = r[arch]["bgl"]
+                check(b["max_rel_err"] <= BGL_TOL and b["backward_bitwise"],
+                      f"{tag} rank {r['rank']}: bgl_sumsq on its rows vs plain {b}")
+        t0 = time.perf_counter()
+        state, want, t_one, grads, zero = _mk_one_process(arch, dev)
+        one_s = time.perf_counter() - t0
+        grad_rows = _mk_grad_rows(ranks[0][arch]["last_grads"], grads) if grads else []
+        print(f"{tag}: the last step's gradients, rank 0 gathered against one process, worst "
+              f"leaves (max |diff| of the leaf's max |x|): {grad_rows[:4]}", flush=True)
+        worst = 0.0
+        for r in ranks:
+            for i, (m, w) in enumerate(zip(r[arch]["metrics"], want)):
+                for k in ("ce", "aux", "reg", "total", "grad_norm"):
+                    e = abs(m[k] - w[k]) / max(abs(w[k]), 1e-30)
+                    worst = max(worst, e)
+                    tol = MT_LOSS_TOL if k != "grad_norm" else \
+                        MT_GRAD_NORM_TOL if i == 0 else MK_GRAD_NORM_TOL
+                    soft(e <= tol or m[k] == w[k],
+                          f"{tag} rank {r['rank']} step {i} {k}: {m[k]} vs one process {w[k]}")
+        specs = dict(sharding.flatten_specs(train_state_specs(state, view({}))))
+        leaves = dict(flatten_with_path(state))
+        # each sampled leaf block: its largest difference over the block's max
+        # |x| against its tolerance (MK_SCALE_TOL for a rep's scale and its
+        # moment, else MT_STATE_TOL); a leaf that starts at zero (an SGD
+        # moment, a zero bias or norm scale: a sum of gradients) may instead
+        # meet the gradient bar, 1e-5 + 2e-4 |x|, element by element: the
+        # nearer of its two; 1 at the bar
+        rows = []
+        for r in ranks:
+            v = view(r["coords"])
+            for name, (tot, amax, sample) in r[arch]["fingerprints"].items():
+                block = sharding.local_block(leaves[name], specs[name], v)
+                _, w_amax, w_sample = _mt_fingerprint(block)
+                check(sample.shape == w_sample.shape, f"{tag} rank {r['rank']} {name}: "
+                                                      f"block shapes differ")
+                if not sample.size:
+                    continue
+                diff = np.abs(sample - w_sample)
+                tol = MK_SCALE_TOL if "/reps/" in f"/{name}" and name.endswith("/scale") \
+                    else MT_STATE_TOL
+                of_max = float(diff.max()) / max(w_amax, 1e-30)
+                of_bar = float((diff / (1e-5 + 2e-4 * np.abs(w_sample))).max())
+                near = min(of_max / tol, of_bar) if name in zero else of_max / tol
+                rows.append((near, name, r["rank"], of_max, of_bar, w_amax))
+        rows.sort(reverse=True)
+        worst_state = max((x[3] for x in rows if not x[1].startswith("opt/")), default=0.0)
+        worst_moment = max((x[3] for x in rows if x[1].startswith("opt/")), default=0.0)
+        bad = [x for x in rows if x[0] > 1.0]
+        soft(not bad, f"{tag}: sampled state beyond its bars (nearer bar, leaf, rank, of the "
+                       f"block's max, of 1e-5 + 2e-4 |x|, block max): {bad[:5]}")
+        del state, leaves
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        r0 = ranks[0][arch]
+        near = sum(r[arch]["route"]["near"] for r in ranks)
+        picks = sum(r[arch]["route"]["picks"] for r in ranks)
+        m = {"loss_max_rel_err": worst, "state_max_err_of_max": worst_state,
+             "moment_max_err_of_max": worst_moment, "state_worst_leaves": rows[:3],
+             "last_grad_worst_leaves": grad_rows[:4],
+             "step_s": [r[arch]["step_s"] for r in ranks], "one_process_step_s": t_one,
+             "one_process_s": one_s, "init_s": [r[arch]["init_s"] for r in ranks],
+             "peak_bytes": [r[arch]["peak_bytes"] for r in ranks],
+             "collectives_per_step": r0["collectives_per_step"],
+             "launches_per_rank": {r["rank"]: r[arch]["launches"] for r in ranks},
+             "bgl_rows_per_rank": r0["bgl_rows"], "near_ties": near, "routed_picks": picks,
+             "metrics": r0["metrics"], "one_process_metrics": want}
+        if dev.type == "cuda":
+            m["bgl_max_rel_err"] = max(r[arch]["bgl"]["max_rel_err"] for r in ranks)
+            m["bgl_max_abs_err"] = max(r[arch]["bgl"]["max_abs_err"] for r in ranks)
+        rep["models"][arch] = m
+        print(f"{tag} ({_mk_cfg(arch).n_layers} layers, d_model {_mk_cfg(arch).d_model}): "
+              f"step s per rank {[round(x, 3) for x in r0['step_s']]}, one process "
+              f"{[round(x, 3) for x in t_one]}; collectives per step "
+              f"{r0['collectives_per_step']:.0f}; peak per rank "
+              f"{max(m['peak_bytes']) / 1e9:.2f} GB; losses within {worst:.2e} of one process "
+              f"(ce {want[-1]['ce']:.5f}, aux {want[-1]['aux']:.5f}); sampled state within "
+              f"{worst_state:.2e} and moments {worst_moment:.2e} of each block's max (nearest "
+              f"their bars: {rows[:2]}); bgl_sumsq {MK_STEPS} + {MK_STEPS} launches per rank on its "
+              f"{r0['bgl_rows']} rows; routing near-ties {near} of {picks} picks [{card}]",
+              flush=True)
+    check(not fails, f"[6g] {len(fails)} checks failed: {fails[:6]}")
+    rep["launches"] = {k: sum(r[a]["launches"][k] for r in ranks for a in archs)
+                       for k in ("bgl_sumsq", "bgl_sumsq_backward")}
+    if dev.type == "cuda":
+        flush.append(torch.empty(256 * 2**20, dtype=torch.uint8, device=dev))  # time_ms's
+        rep["expert_rows"] = e = _mk_expert_rows(dev, time_ms)
+        flush.clear()
+        f, b = e["forward"], e["backward"]
+        print(f"[6g] bgl_sumsq at a full-width qwen2-moe-a2.7b rank's expert rows of one layer "
+              f"(w_gate, w_up {MK_EXPERT_BLOCKS[0]}, w_down {MK_EXPERT_BLOCKS[2]}, "
+              f"{MK_EXPERT_PLANES} planes, wp and wn: {e['rows']} rows, {e['bytes'] / 1e9:.2f} "
+              f"GB f32): within {e['max_rel_err']:.2e} of plain, backward bitwise; forward "
+              f"{f['ms']:.4f} ms (bound {f['bound_ms']:.4f} {f['bound_by']}, plain "
+              f"{f['plain_ms']:.4f}, _foreach_norm {f['library_ms']:.4f}); backward "
+              f"{b['ms']:.4f} ms (bound {b['bound_ms']:.4f}, plain {b['plain_ms']:.4f}, "
+              f"_foreach_mul {b['library_ms']:.4f}) [{card}]", flush=True)
+    print(f"[6g] bgl_sumsq launches on the ranks: {rep['launches']['bgl_sumsq']} + "
+          f"{rep['launches']['bgl_sumsq_backward']} ({MK_STEPS} + {MK_STEPS} per rank per "
+          f"model); ranks' wall {rep['ranks_wall_s']:.1f} s [{card}]", flush=True)
+    return rep
+
+
 def kernel_entries(report, max_err):
     """The {"kernels": [...]} entries: each kernel's time at its main
     path's shapes (phases 2-2d) beside its bound, its plain version and
@@ -6551,8 +7023,25 @@ def kernel_entries(report, max_err):
                                 f"granite-3-2b's planes, "
                                 f"f32, {mt['bgl_rank']['bytes'] / 1e9:.2f} GB), one launch per "
                                 "regulariser call on each rank")
-    # one gemma3-12b prefill call's attention: 40 windowed and 8 causal
-    # launches at B = 2, S = 4096 (bf16), the bucketed run's main path
+    # the other kinds' training mesh (6g): each rank's launches over its own
+    # rows (the experts' (layer, expert) groups split over "model"), summed
+    # over the 4 ranks and 5 models, and the kernel at a full-width
+    # qwen2-moe rank's expert rows of one layer
+    mk = report["mesh_kinds_train"]
+    er = mk["expert_rows"]
+    for e, key, way in ((b_entry, "bgl_sumsq", "forward"),
+                        (bb_entry, "bgl_sumsq_backward", "backward")):
+        e["launches_mesh_kinds_train"] = mk["launches"][key]
+        for k in ("ms", "bound_ms", "library_ms", "plain_ms"):
+            e[f"{k}_expert_rows"] = er[way][k]
+        e["max_abs_err_expert_rows"] = er["max_abs_err" if way == "forward"
+                                          else "backward_max_abs_err"]
+        e["work_expert_rows"] = (f"a full-width qwen2-moe-a2.7b rank's expert rows of one "
+                                 f"layer on the 2x2 mesh ({MK_EXPERT_BLOCKS}, 30 of 60 "
+                                 f"experts, {MK_EXPERT_PLANES} planes, wp and wn: "
+                                 f"{er['rows']} rows, f32, {er['bytes'] / 1e9:.2f} GB)")
+    # one gemma3-12b prefill call's attention (phase 4c's layers: 5 windowed
+    # launches to 1 causal) at B = 2, S = 4096 (bf16), the bucketed run's main path
     f_rows = {(r["case"], r["dtype"]): r for r in report["flash"]}
     glob, loc = f_rows[("gemma3-global", "bfloat16")], f_rows[("gemma3-local", "bfloat16")]
     gcfg = report["gemma3"]["bucketed"]
@@ -6784,6 +7273,10 @@ def main() -> int:
         at = time.perf_counter() - t_start
         report.setdefault("phase_done_s", {})[name] = at
         print(f"[time] phase {name} done at {at:.1f} s", flush=True)
+        # as it goes: the end of a long run's output may not reach the caller
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_times.json").write_text(
+            json.dumps(report["phase_done_s"], indent=1))
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
@@ -6959,6 +7452,12 @@ def main() -> int:
         report["mesh_train"] = mesh_train_phase(dev, card, time_ms)
         flush.clear()
         phase_done("6f")
+    if want("6g"):
+        # the ranks need most of the card: nothing of the earlier phases stays
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["mesh_kinds_train"] = mesh_kinds_train_phase(dev, card, time_ms, flush)
+        phase_done("6g")
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

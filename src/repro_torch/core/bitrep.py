@@ -173,6 +173,33 @@ def effective_bits(rep: BitRep) -> torch.Tensor:
     return torch.where(any_active, msb - lsb + 1, 0).to(torch.int32)
 
 
+def group_shape(rep: BitRep) -> Tuple[int, ...]:
+    """The whole tensor's groups, in group-axis order, read off the mask
+    (whole on every mesh rank, where the planes may be a block)."""
+    return tuple(rep.mask.shape[1 + i] for i in sorted(rep.group_axes))
+
+
+def splits_groups(rep: BitRep, spec) -> bool:
+    """Whether the weight spec ``spec`` splits a group axis of ``rep``."""
+    return any(i < len(spec) and spec[i] is not None for i in rep.group_axes)
+
+
+def local_groups(rep: BitRep, spec, mesh, scale: Optional[torch.Tensor] = None) -> BitRep:
+    """``rep`` (this rank's planes under its weight's ``spec``; scale and
+    mask whole) with the scale (``scale`` in its place where given) and
+    the mask cut to the groups its planes hold: the rep of the block.
+    ``rep`` itself where ``spec`` splits no group axis."""
+    scale = rep.scale if scale is None else scale
+    if not splits_groups(rep, spec):
+        return dataclasses.replace(rep, scale=scale)
+    from ..dist.sharding import group_spec, local_block
+
+    nd = len(rep.w_shape)
+    return dataclasses.replace(
+        rep, scale=local_block(scale, group_spec(spec, rep.group_axes, nd), mesh),
+        mask=local_block(rep.mask, group_spec(spec, rep.group_axes, nd, lead=1), mesh))
+
+
 def numel_per_group(rep: BitRep) -> int:
     """Weight elements represented by each group."""
     return math.prod(d for i, d in enumerate(rep.w_shape) if i not in rep.group_axes)

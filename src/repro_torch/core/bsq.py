@@ -27,7 +27,8 @@ import torch
 
 from .. import tree as tree_util
 from . import packing
-from .bitrep import BitRep, decompose, extract_scale, planes_to_int, total_numel
+from .bitrep import (BitRep, _group_broadcast_shape, decompose, extract_scale, local_groups,
+                     planes_to_int, splits_groups, total_numel)
 from .regularizer import memory_reweighed_bgl
 from .requant import mesh_nonzero, requantize_dynamic, requantize_static
 from .scheme import QuantScheme, scheme_from_reps
@@ -104,19 +105,26 @@ def init_bitreps(
 ) -> Dict[str, BitRep]:
     """Each weight's bit representation.  On ``mesh`` each rep is this
     rank's block of the whole weight's (its rule's ``local_block``): the
-    scale is the whole weight's, the planes are decomposed on the block
-    only, so no rank holds a whole tensor's planes."""
+    scale and the mask are the whole weight's, the planes are decomposed
+    on the block only (by the scales of its groups), so no rank holds a
+    whole tensor's planes."""
     reps = {}
     for name, w in qparams.items():
         ga = group_axes_fn(name, w)
         n_max = cfg.planes if cfg.mode == "static" else cfg.n_init
-        scale = None
-        if mesh is not None:
-            from ..dist.sharding import local_block, param_spec
+        if mesh is None:
+            reps[name] = decompose(w, cfg.n_init, group_axes=ga, n_max=n_max)
+            continue
+        from ..dist.sharding import group_spec, local_block, param_spec
 
-            scale = extract_scale(w.to(torch.float32), ga)
-            w = local_block(w, param_spec(name, tuple(w.shape), mesh), mesh)
-        reps[name] = decompose(w, cfg.n_init, group_axes=ga, n_max=n_max, scale=scale)
+        spec = param_spec(name, tuple(w.shape), mesh)
+        scale = extract_scale(w.to(torch.float32), ga)
+        r = decompose(local_block(w, spec, mesh), cfg.n_init, group_axes=ga, n_max=n_max,
+                      scale=local_block(scale, group_spec(spec, ga, w.ndim), mesh))
+        mask = torch.ones((n_max,) + _group_broadcast_shape(tuple(w.shape), ga),
+                          dtype=r.mask.dtype, device=r.mask.device)
+        mask[cfg.n_init:] = 0.0  # the headroom planes start masked, as decompose's
+        reps[name] = dataclasses.replace(r, scale=scale, mask=mask)
     return reps
 
 
@@ -124,15 +132,20 @@ def reconstruct(reps: Dict[str, BitRep], cfg: BSQConfig, mesh=None,
                 specs: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """STE forward for every rep -> float weights dict (paper Eq. 3).  On
     ``mesh`` each rep is this rank's block under its weight's spec in
-    ``specs``: the scale, whole on every rank, scales the block and enters
-    with its gradient summed over the axes that split the weight."""
+    ``specs``: the scale, whole on every rank, enters with its gradient
+    summed over the axes that split the weight, and its groups that the
+    block holds scale the block (``bitrep.local_groups``: the rank's
+    experts' scales and masks, where "model" splits the expert axis), so
+    its gradient comes back whole on every rank."""
     from ..dist.sharding import spec_axes
 
     out = {}
     for name, r in reps.items():
         scale = r.scale if cfg.trainable_scale else r.scale.detach()
         if mesh is not None:
-            scale = mesh.enter(scale, spec_axes(specs.get(name, ())))
+            spec = specs.get(name, ())
+            r = local_groups(r, spec, mesh, mesh.enter(scale, spec_axes(spec)))
+            scale = r.scale
         w = bitrep_forward(r.wp, r.wn, scale, r.mask, r.n_denom)
         out[name] = w.to(cfg.compute_dtype)
     return out
@@ -149,12 +162,14 @@ def regularizer(reps: Dict[str, BitRep], cfg: BSQConfig, total_params: Optional[
 
 def requantize_tree(reps: Dict[str, BitRep], mode: str = "static", mesh=None
                     ) -> Dict[str, BitRep]:
-    """Re-quantise every rep.  On ``mesh`` each rep is this rank's block;
-    the tests over the whole tensors are or-ed over the mesh, so the masks
-    come out the same bits on every rank."""
+    """Re-quantise every rep.  ``mesh`` (dynamic mode): each rep is this
+    rank's block and the whole-tensor test is or-ed over the mesh.  The
+    static mode on a mesh is ``train.step.make_requant_step``'s, which
+    writes each rank's blocks in place."""
     if mode == "static":
-        nz = mesh_nonzero(reps, mesh) if mesh is not None else {}
-        return {k: requantize_static(r, nz.get(k)) for k, r in reps.items()}
+        if mesh is not None:
+            raise NotImplementedError("static requant on a mesh: train.step.make_requant_step")
+        return {k: requantize_static(r) for k, r in reps.items()}
     return {k: requantize_dynamic(r, mesh) for k, r in reps.items()}
 
 
@@ -293,19 +308,27 @@ def export_packed_blocks(reps: Dict[str, BitRep], mesh, w_shapes: Dict[str, Tupl
     tensor's (or-ed over the mesh), packing is elementwise along
     byte-aligned K rows, so each rank's bytes are the block of
     :func:`export_packed`'s on the gathered reps.  A weight whose block is
-    not whole bytes of K, or whose sign rule splits otherwise than its
-    weight's, raises."""
+    not whole bytes of K, whose sign rule splits otherwise than its
+    weight's, or whose rule splits a group axis (the MoE experts, which
+    serving holds float), raises."""
     from ..dist.elastic import local_scale
     from ..dist.sharding import param_spec
 
-    nz = mesh_nonzero(reps, mesh)
+    w_specs = {}
+    for name, r in reps.items():
+        shape = tuple(w_shapes[name])
+        w_specs[name] = (tuple(param_spec(name, shape, mesh)) + (None,) * len(shape))[:len(shape)]
+        if splits_groups(r, w_specs[name]):
+            raise NotImplementedError(f"{name}: its rule {w_specs[name]} splits a group axis; "
+                                      "export the gathered reps")
+    nz = mesh_nonzero(reps, mesh, w_specs)
     out = {}
     for name, r in reps.items():
         q_shift, n_bits, scale = _export_codes(r, nz[name], mesh)
         shape = tuple(w_shapes[name])
         lead, (K, N) = shape[:-2], shape[-2:]
         pad = (None,) * len(shape)
-        w_spec = (tuple(param_spec(name, shape, mesh)) + pad)[:len(shape)]
+        w_spec = w_specs[name]
         s_spec = (tuple(param_spec(f"{name}/sign", lead + (-(-K // 8), N), mesh))
                   + pad)[:len(shape)]
         if w_spec != s_spec or q_shift.shape[-2] % 8:

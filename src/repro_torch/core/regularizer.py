@@ -13,15 +13,19 @@ version on the CPU (the JAX package's regulariser computes the same sums
 in jnp, ``sum wp^2 + sum wn^2``).
 
 On a ("data", "model") mesh each rank holds its block of every plane
-tensor.  Its one grouped call runs on the rows of its own blocks, and one
-``all_reduce`` over the mesh (a ``HostMesh.all_reduce`` with ``keep``,
-whose backward is the identity) sums the flat partial sums before any square root: a tensor's
-rows count on every rank that holds a distinct block of it and on one
-rank of each axis it is whole along (``dist.sharding.counted_once``).
-The backward is the kernel's on the local rows, the upstream gradient
-the same on every rank.  The dense rules never split a group axis (the
-leading layer axis), so the per-group epilogue is the same on every rank;
-its weights take the whole tensor's elements per group.
+tensor.  Its one grouped call runs on the rows of its own blocks; where a
+rule splits a group axis (the stacked experts' E over "model") a
+tensor's rows are placed at their groups' offsets in the whole tensor's
+(bit, group) rows, zeros at the other ranks' groups
+(``dist.sharding.place_block``).  One ``all_reduce`` over the mesh (a
+``HostMesh.all_reduce`` with ``keep``, whose backward is the identity)
+sums the flat partial sums before any square root: a tensor's rows count
+on every rank that holds a distinct block of it and on one rank of each
+axis it is whole along (``dist.sharding.counted_once``).  Every rank then
+holds the whole tensors' per-group sums, so the per-group epilogue is the
+same on every rank and equals one process's; its weights take the whole
+tensor's elements per group.  The backward is the kernel's on the local
+rows, fed this rank's slice of the upstream gradient.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..kernels import ops
-from .bitrep import BitRep, effective_bits, numel_per_group, total_numel
+from .bitrep import (BitRep, effective_bits, group_shape, numel_per_group, splits_groups,
+                     total_numel)
 
 _EPS = 1e-12
 
@@ -47,26 +52,46 @@ def _rows(planes: torch.Tensor, group_axes) -> torch.Tensor:
     return planes.reshape(planes.shape[0] * n_groups, -1)
 
 
-def _sumsq(reps: List[BitRep], mesh=None, keep: Optional[List[float]] = None
-           ) -> Tuple[torch.Tensor, ...]:
+def _sumsq(reps: List[BitRep], mesh=None, keep: Optional[List[float]] = None,
+           specs: Optional[List] = None) -> Tuple[torch.Tensor, ...]:
     """Per tensor, ``sum wp^2 + sum wn^2`` per (bit, group), flat in (bit,
     group) order: one grouped call over ``[wp_1 .. wp_n, wn_1 .. wn_n]``,
     its two halves added in one op, split per tensor.  With ``keep`` the
-    rows are this rank's blocks', summed over ``mesh`` in one collective
-    with tensor i's rows counted where ``keep[i]`` is 1."""
+    rows are this rank's blocks' (under the weight specs ``specs``), each
+    placed in its tensor's whole (bit, group) rows and summed over
+    ``mesh`` in one collective with tensor i's rows counted where
+    ``keep[i]`` is 1."""
     wp = [_rows(r.wp, r.group_axes) for r in reps]
     wn = [_rows(r.wn, r.group_axes) for r in reps]
     flat = ops.bgl_sumsq_grouped(wp + wn)
-    if keep is not None:
-        k = torch.cat([torch.full((x.shape[0],), float(c), device=flat.device)
-                       for x, c in zip(wp, keep)])
-        flat = mesh.all_reduce(flat, tuple(mesh.shape), keep=torch.cat([k, k]))
     half = flat.shape[0] // 2
-    return torch.split(flat[:half] + flat[half:], [x.shape[0] for x in wp])
+    sqs = torch.split(flat[:half] + flat[half:], [x.shape[0] for x in wp])
+    if keep is None:
+        return sqs
+    sqs = [_placed(sq, r, spec, mesh) for sq, r, spec in zip(sqs, reps, specs)]
+    k = torch.cat([torch.full((sq.shape[0],), float(c), device=flat.device)
+                   for sq, c in zip(sqs, keep)])
+    whole = mesh.all_reduce(torch.cat(sqs), tuple(mesh.shape), keep=k)
+    return torch.split(whole, [sq.shape[0] for sq in sqs])
+
+
+def _placed(sq: torch.Tensor, rep: BitRep, spec, mesh) -> torch.Tensor:
+    """A block's flat (bit, group) sums in its tensor's whole rows, zeros
+    at the groups other ranks hold; ``sq`` itself where ``spec`` splits
+    no group axis."""
+    if not splits_groups(rep, spec):
+        return sq
+    from ..dist.sharding import P, place_block
+
+    ga = sorted(rep.group_axes)
+    local = tuple(rep.w_shape[i] for i in ga)
+    block_spec = P(None, *(spec[i] if i < len(spec) else None for i in ga))
+    return place_block(sq.reshape((rep.n_bits,) + local), block_spec,
+                       (rep.n_bits,) + group_shape(rep), mesh).reshape(-1)
 
 
 def _norms(rep: BitRep, sq: torch.Tensor) -> torch.Tensor:
-    gshape = tuple(rep.w_shape[i] for i in sorted(rep.group_axes))
+    gshape = group_shape(rep)
     sq = sq.reshape((rep.n_bits,) + gshape)
     mask = rep.mask.reshape((rep.n_bits,) + gshape)
     return torch.sqrt(sq + _EPS) * mask.to(sq.dtype)
@@ -107,16 +132,13 @@ def memory_reweighed_bgl(
         total_params = sum(total_numel(r) for r in reps.values())
     if not reps:
         return torch.zeros((), dtype=torch.float32)
-    keep = None
+    keep = wspecs = None
     if mesh is not None and mesh.size() > 1:
         from ..dist.sharding import counted_once
 
-        if any(i < len(specs[k]) and specs[k][i] is not None
-               for k, r in reps.items() for i in r.group_axes):
-            raise NotImplementedError("a mesh rule splits a group axis (experts on 'model'): "
-                                      "the per-group sums on a mesh come with ROADMAP item 9c")
-        keep = [counted_once(specs[k], mesh) for k in reps]
-    sqs = _sumsq(list(reps.values()), mesh, keep)
+        wspecs = [tuple(specs[k]) for k in reps]
+        keep = [counted_once(s, mesh) for s in wspecs]
+    sqs = _sumsq(list(reps.values()), mesh, keep, wspecs)
     total = torch.zeros((), dtype=torch.float32, device=sqs[0].device)
     for (name, r), sq in zip(reps.items(), sqs):
         g = torch.sum(_norms(r, sq), dim=0).to(torch.float32)  # (group_shape)

@@ -16,10 +16,13 @@ work runs on the rep's device, one plane at a time.
 
 On a mesh a rep holds this rank's block: everything is elementwise but
 the per-(bit, group) any-nonzero, a maximum over axes the mesh splits.
-:func:`static_nonzero` gives a block's part, the caller ors the parts
-over the mesh (``HostMesh.any``) and hands the result to
+:func:`static_nonzero` gives a block's part, :func:`mesh_nonzero` ors the
+parts over the mesh (one ``HostMesh.any``) and hands the result to
 :func:`requantize_static`, so the masks are the same bits on every rank;
-:func:`requantize_dynamic` takes the mesh for its whole-tensor test.
+where a rule splits a group axis (the experts' E over "model") each
+rank's flags sit at its groups' offsets in the whole group shape, False
+elsewhere, before the or.  :func:`requantize_dynamic` takes the mesh for
+its whole-tensor test.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .bitrep import BitRep, _group_broadcast_shape, accumulate_planes
+from .bitrep import (BitRep, _group_broadcast_shape, accumulate_planes, local_groups,
+                     splits_groups)
 
 
 def _requantized_int(rep: BitRep, clamp: bool = True) -> torch.Tensor:
@@ -75,17 +79,31 @@ def _static_nonzero(rep: BitRep, q: torch.Tensor) -> torch.Tensor:
 
 def static_nonzero(rep: BitRep) -> torch.Tensor:
     """``(n_bits, *gbcast)`` bool: which bits occur in each group of the
-    re-quantised codes of ``rep`` (on a mesh: of this rank's block)."""
+    re-quantised codes of ``rep`` (on a mesh: of this rank's block, the
+    rep's mask cut to its groups, ``bitrep.local_groups``)."""
     return _static_nonzero(rep, _requantized_int(rep))
 
 
-def mesh_nonzero(reps, mesh) -> dict:
+def mesh_nonzero(reps, mesh, specs: Optional[dict] = None) -> dict:
     """:func:`static_nonzero` of every rep's block, or-ed over ``mesh`` in
     one collective: the whole tensors' per-(bit, group) any-nonzero, the
-    same bits on every rank.  Or-ing a flag a tensor's copies share
-    changes nothing, so one reduction over the whole mesh serves tensors
-    split over any of its axes."""
-    nzs = {k: static_nonzero(r) for k, r in reps.items()}
+    same bits on every rank, in the shape of each whole mask.  ``reps``
+    hold whole masks; ``specs`` maps a name to its weight's spec (None:
+    no rule splits a group axis).  Each rank's flags are placed at its
+    groups' offsets (False at other ranks' groups), and or-ing a flag that
+    copies of a block share changes nothing, so one reduction over the
+    whole mesh serves tensors split over any of its axes."""
+    from ..dist.sharding import group_spec, place_block
+
+    specs = specs or {}
+    nzs = {}
+    for k, r in reps.items():
+        spec = tuple(specs.get(k, ()))
+        nz = static_nonzero(local_groups(r, spec, mesh)).to(torch.uint8)
+        if splits_groups(r, spec):
+            nz = place_block(nz, group_spec(spec, r.group_axes, len(r.w_shape), lead=1),
+                             tuple(r.mask.shape), mesh)
+        nzs[k] = nz
     if not nzs:
         return nzs
     flat = mesh.any(torch.cat([nz.reshape(-1) for nz in nzs.values()]))
@@ -98,7 +116,8 @@ def mesh_nonzero(reps, mesh) -> dict:
 
 def requantize_static(rep: BitRep, nz: Optional[torch.Tensor] = None) -> BitRep:
     """Mask-mode re-quantisation + precision adjustment.  ``nz``: the
-    whole tensor's :func:`static_nonzero` where ``rep`` is a block."""
+    whole tensor's :func:`static_nonzero` where ``rep`` is a block (its
+    mask the block's groups'); the new mask is ``nz``'s shape."""
     q = _requantized_int(rep)
     wp, wn = _split_sign(q, rep.n_bits, rep.wp.dtype)
     if nz is None:

@@ -16,7 +16,7 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 
-from .bitrep import BitRep, effective_bits, numel_per_group
+from .bitrep import BitRep, effective_bits, group_shape, numel_per_group
 
 
 @dataclasses.dataclass
@@ -80,8 +80,8 @@ def scheme_from_reps(reps: Mapping[str, BitRep], float_params: int = 0,
     elements per group where the reps are blocks of them (on a mesh)."""
     bits = {}
     for k, r in reps.items():
-        gshape = tuple(r.w_shape[i] for i in r.group_axes)  # drop broadcast 1s
-        bits[k] = effective_bits(r).cpu().numpy().astype(np.int32).reshape(gshape)
+        # the mask's groups (whole where the planes are a mesh block)
+        bits[k] = effective_bits(r).cpu().numpy().astype(np.int32).reshape(group_shape(r))
     numel = {k: numel_per_group(r) if group_numel is None else int(group_numel[k])
              for k, r in reps.items()}
     return QuantScheme(bits=bits, group_numel=numel, float_params=float_params)

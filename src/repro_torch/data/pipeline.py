@@ -87,8 +87,9 @@ def sharded_lm_iterator(
     sharding=None,
     prefetch: int = 2,
 ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Infinite iterator of LM batches as int64 tensors on ``device`` (the
-    card unless ``device="cpu"``).
+    """Infinite iterator of LM batches on ``device`` (the card unless
+    ``device="cpu"``): integer arrays (tokens, labels) as int64 tensors,
+    float ones (a frontend's ``embeds`` or ``cross_embeds``) as float32.
 
     ``task`` is any object with ``.batch(rng, batch, seq) -> dict`` of
     numpy arrays (e.g. ``data.synthetic.MarkovLM``).  Batch ``step`` is
@@ -115,7 +116,8 @@ def sharded_lm_iterator(
     device = resolve_device(device)
 
     def place(v):
-        t = torch.from_numpy(np.asarray(v, np.int64))
+        v = np.asarray(v)
+        t = torch.from_numpy(v.astype(np.float32 if v.dtype.kind == "f" else np.int64))
         if mesh is not None:
             t = local_block(t, data_batch_spec(mesh, global_batch, t.ndim), mesh)
         return t.to(device)

@@ -24,7 +24,7 @@ import torch
 from ..core.packing import (PACKABLE_SUFFIXES, RECURRENT_MATRICES, FloatBlock, PackedWeight,
                             RowsBlock)
 from ..tree import flatten_with_path, unflatten_like
-from .sharding import (P, _canonical, _map_with_path, block_range, dp_axes, local_block,
+from .sharding import (P, _canonical, _map_with_path, axis_index, dp_axes, local_block,
                        tree_param_specs)
 
 PyTree = Any
@@ -91,13 +91,18 @@ def _whole_shapes(state: PyTree, template: PyTree, mesh) -> PyTree:
 def train_state_specs(state: PyTree, mesh, template: Optional[PyTree] = None) -> PyTree:
     """The spec of every leaf of a train state on ``mesh``: of a whole state
     (``template`` None), or of this rank's blocks of one, whose whole shapes
-    ``template`` gives (:func:`_whole_shapes`).  A compressed data-parallel
-    state: every leaf whole, ``residual`` over "data" on its shard axis."""
+    ``template`` gives (:func:`_whole_shapes`).  The masks are whole on
+    every rank (the experts' too, whose planes split E over "model").  A
+    compressed data-parallel state: every leaf whole, ``residual`` over
+    "data" on its shard axis."""
     if "residual" in state:
         return {k: _map_with_path(lambda _n, _l, k=k: P("data") if k == "residual" else P(), v)
                 for k, v in state.items()}
     like = state if template is None else _whole_shapes(state, template, mesh)
-    return tree_param_specs(like, mesh)
+    specs = tree_param_specs(like, mesh)
+    if "masks" in like:  # whole on every rank, whatever the weight's rule says
+        specs["masks"] = _map_with_path(lambda _n, _l: P(), like["masks"])
+    return specs
 
 
 def specs_for_shapes(tree_like: PyTree, shapes: Dict[str, Tuple[int, ...]], mesh) -> dict:
@@ -139,23 +144,39 @@ def _stitched(path: str) -> bool:
     return segs[-1] in _STITCHED and not expert
 
 
+def placed_leaf(path: str, block, spec, mesh):
+    """The form in which the model reads this rank's block of a float leaf
+    (its model-param ``path``) under ``spec``: the one rule of serving
+    (:func:`reshard_tree`) and of the training forward
+    (``train.step._forward_leaf``, on the training view).  A matmul
+    ``dense_apply`` stitches (a packable projection, a recurrent mixer's
+    matrix, the MoE router) whose rule shards it becomes a
+    :class:`~repro_torch.core.packing.FloatBlock`; a stacked vector whose
+    rule splits it (RG-LRU's ``b_rgate``/``b_igate``) a
+    :class:`~repro_torch.core.packing.RowsBlock` from its first layer on
+    ``mesh``; anything else (the embedding, the MoE experts: the model
+    reads their rules by name) stays the plain block."""
+    if not (isinstance(block, torch.Tensor) and block.ndim >= 2 and _sharded(spec)):
+        return block
+    spec = tuple(spec) + (None,) * (block.ndim - len(spec))
+    if _stitched(path):
+        return FloatBlock(block, (spec[-2], spec[-1]))
+    if block.ndim == 2 and path.startswith("blocks/"):
+        return RowsBlock(block, axis_index(mesh, spec[0]) * block.shape[0], spec)
+    return block
+
+
 def reshard_tree(tree: PyTree, mesh, spec_tree: Optional[PyTree] = None) -> PyTree:
     """Keep this rank's block of every leaf of ``tree`` under the dist
     rules (``spec_tree`` overrides the derived specs; it mirrors ``tree``).
 
     A PackedWeight keeps its ``kn_spec`` (annotate it first,
     ``sharding.annotate_packed_specs``) and the whole weight's ``k``, its
-    scale cut by :func:`local_scale`; a
-    float matmul (a packable leaf name, a recurrent mixer's matrix, the
-    MoE router) whose rule shards its trailing (K, N) axes becomes a
-    :class:`~repro_torch.core.packing.FloatBlock`, the form
-    ``models.common.dense_apply`` stitches; a stacked vector whose rule
-    splits its layer axis becomes a
-    :class:`~repro_torch.core.packing.RowsBlock`.  Other leaves are plain
-    blocks (the embedding and the MoE experts: the model reads their rules
-    by name), and
-    so is every leaf of a train state (:func:`is_train_state`), whose specs
-    default to :func:`train_state_specs`."""
+    scale cut by :func:`local_scale`; a float leaf takes the form
+    :func:`placed_leaf` gives it; every leaf of a train state
+    (:func:`is_train_state`), whose specs default to
+    :func:`train_state_specs`, is a plain block (the train step places
+    them itself)."""
     train = is_train_state(tree)
     if spec_tree is None:
         spec_tree = train_state_specs(tree, mesh) if train else tree_param_specs(tree, mesh)
@@ -172,13 +193,7 @@ def reshard_tree(tree: PyTree, mesh, spec_tree: Optional[PyTree] = None) -> PyTr
                 t, planes=_block(t.planes, s.planes, mesh), sign=_block(t.sign, s.sign, mesh),
                 scale=local_scale(t.scale, s.scale, n_ax, t.sign.shape[-1], mesh))
         block = _block(t, s, mesh)
-        if not train and isinstance(t, torch.Tensor) and t.ndim >= 2 and _sharded(s):
-            spec = tuple(s) + (None,) * (t.ndim - len(s))
-            if _stitched(path):
-                return FloatBlock(block, (spec[-2], spec[-1]))
-            if t.ndim == 2 and path.startswith("blocks/"):
-                return RowsBlock(block, block_range(mesh, spec[0], t.shape[0])[0], spec)
-        return block
+        return block if train else placed_leaf(path, block, s, mesh)
 
     return walk(tree, spec_tree)
 

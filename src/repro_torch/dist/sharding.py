@@ -152,6 +152,29 @@ def local_block(tensor, spec, mesh):
     return tensor
 
 
+def place_block(block, spec, shape, mesh):
+    """A tensor of the whole ``shape`` holding ``block`` (this rank's block
+    under ``spec``) at its offsets, zeros elsewhere: the adjoint of
+    :func:`local_block`, differentiable (its backward cuts the block)."""
+    import torch.nn.functional as F
+
+    pad = []
+    for dim in reversed(range(block.ndim)):
+        lo, hi = block_range(mesh, spec[dim] if dim < len(spec) else None, shape[dim])
+        pad += [lo, shape[dim] - hi]
+    return F.pad(block, pad)
+
+
+def group_spec(spec, group_axes, ndim: int, lead: int = 0) -> PartitionSpec:
+    """The spec of a group-shaped tensor of a weight whose spec is ``spec``
+    (``ndim`` dims, groups over ``group_axes``): the weight's entries on
+    its group axes, None elsewhere, behind ``lead`` whole axes (a rep's
+    scale: 0; its mask or its any-nonzero flags: 1, the plane axis)."""
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    return P(*((None,) * lead + tuple(spec[i] if i in group_axes else None
+                                      for i in range(ndim))))
+
+
 def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
     """The shape of :func:`local_block` of a tensor of ``shape``."""
     shape = list(shape)

@@ -43,7 +43,8 @@ tensor that every rank holds whole enters a rank-local product) and
 backward is ``reduce_scatter``: each data rank's batch adds its part).
 :meth:`HostMesh.training_view` hides the data axis (size 1 there): the
 training forward runs on the "model" axis alone, its batch already this
-data rank's.
+data rank's; :meth:`HostMesh.batch_sum` sums a statistic of the whole
+batch over the hidden axis, its gradient summed back.
 """
 from __future__ import annotations
 
@@ -127,6 +128,19 @@ class HostMesh(AbstractMesh):
         v.shape = {ax: (n if ax == "model" else 1) for ax, n in self.shape.items()}
         v.coords = {ax: (i if ax == "model" else 0) for ax, i in self.coords.items()}
         return v
+
+    def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the live axes this training view hides (the data
+        axis: each rank's batch is its own), with its gradient summed back
+        over them: a statistic of the whole batch (the MoE router loss's
+        token and probability sums) that every rank then uses alike, each
+        counting its part of what it feeds.  ``t`` itself on a mesh that
+        hides nothing (serving, one process)."""
+        root = self._root
+        axes = tuple(ax for ax in root.live(tuple(root.shape)) if self.shape[ax] == 1)
+        if not axes:
+            return t
+        return root.enter(root.all_reduce(t, axes), axes)
 
     def _groups(self, axes) -> list:
         """The process groups of ``axes``'s live axes: one group (the

@@ -74,10 +74,8 @@ def run(cfg, args, log_interval: int = 10):
     if not (args.data_parallel and args.model_parallel):
         return _run(cfg, args, log_interval, device, None)
     from ..dist.elastic import validate_batch_divisibility
-    from ..models.transformer import check_mesh_kinds
     from .mesh import AbstractMesh, run_on_mesh
 
-    check_mesh_kinds(cfg)  # before the ranks spawn: the kinds that train on a mesh
     shape = {"data": args.data_parallel, "model": args.model_parallel}
     if not validate_batch_divisibility(args.batch, AbstractMesh(shape)):
         raise SystemExit(f"--batch {args.batch} does not divide over the mesh's data axes "

@@ -28,8 +28,13 @@ block of the stacked experts under the rules (experts over "model", the
 hidden width f over "data"): it fills the dispatch rows of its own
 experts only, runs them on its f columns, and weighs their outputs into
 its partial y; one ``all_reduce`` over the whole mesh sums the partials
-(over f and over the experts) into y.  The shared experts are a dense
-MLP under the Megatron rule.
+(over f and over the experts) into y.  Training differentiates through
+it: x and the routing weights enter the rank's experts by
+``HostMesh.enter`` (their gradients summed over the mesh, the sum's
+conjugate).  The shared experts are a dense MLP under the Megatron rule.
+In training each data rank's batch is its own: the router loss's token
+and probability sums are summed over "data" (``HostMesh.batch_sum``)
+before the product, so every rank's loss is the whole batch's, JAX's.
 """
 from __future__ import annotations
 
@@ -178,6 +183,25 @@ def _expert_block(mesh, n_experts: int, d: int, d_ff: int):
     return block_range(mesh, spec[0], n_experts), counted_once(spec[:3], mesh)
 
 
+def _router_loss(gates: torch.Tensor, top_e: torch.Tensor, n_experts: int, top_k: int,
+                 mesh) -> torch.Tensor:
+    """The Switch load-balance loss ``E * sum_e f_e P_e / k``: f the share of
+    picks and P the mean router probability of each expert over the
+    batch's tokens.  On a training view, whose batch is this data rank's,
+    the per-expert sums and the token count are summed over "data" first
+    (one ``HostMesh.batch_sum``)."""
+    probs_full = torch.softmax(gates, dim=-1)  # (G, T, E)
+    onehot = F.one_hot(top_e, n_experts).to(torch.float32)  # (G, T, k, E)
+    n = torch.full((1,), gates.shape[0] * gates.shape[1], dtype=torch.float32,
+                   device=gates.device)
+    sums = torch.cat([torch.sum(onehot, dim=(0, 1, 2)), torch.sum(probs_full, dim=(0, 1)), n])
+    if mesh is not None:
+        sums = mesh.batch_sum(sums)
+    frac_tokens = sums[:n_experts] / sums[-1]  # (E,)
+    frac_probs = sums[n_experts:2 * n_experts] / sums[-1]
+    return n_experts * torch.sum(frac_tokens * frac_probs) / top_k
+
+
 def moe_apply(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
               capacity_factor: float, mlp_kind: str,
               n_shared: int = 0, d_ff: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -198,21 +222,19 @@ def moe_apply(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
     experts, counted = ((0, n_experts), 1.0) if mesh is None else \
         _expert_block(mesh, n_experts, d, d_ff)
     e0, e1 = experts
-    buf, slot, keep = _dispatch(xg, top_e, n_experts, C, experts)
+    xe, pe = xg, probs
+    if mesh is not None:  # the rank's experts: their gradients summed over the mesh
+        xe, pe = mesh.enter(xg, tuple(mesh.shape)), mesh.enter(probs, tuple(mesh.shape))
+    buf, slot, keep = _dispatch(xe, top_e, n_experts, C, experts)
     out = _experts(p, buf.reshape(G, e1 - e0, C, d), mlp_kind)
-    y = _combine(out.reshape(G, (e1 - e0) * C, d), top_e, probs, slot, keep, experts, C)
+    y = _combine(out.reshape(G, (e1 - e0) * C, d), top_e, pe, slot, keep, experts, C)
     if mesh is not None:
         if not counted:  # another rank adds this block's partial y
             y = torch.zeros_like(y)
         # the one reduction of the layer: over f's blocks and over the experts
         y = mesh.all_reduce(y, tuple(mesh.shape))
     y = y.reshape(B, S, d)
-
-    probs_full = torch.softmax(gates, dim=-1)  # (G, T, E)
-    onehot = F.one_hot(top_e, n_experts).to(torch.float32)  # (G, T, k, E)
-    frac_tokens = torch.mean(torch.sum(onehot, dim=2), dim=(0, 1))  # (E,)
-    frac_probs = torch.mean(probs_full, dim=(0, 1))
-    aux = n_experts * torch.sum(frac_tokens * frac_probs) / top_k
+    aux = _router_loss(gates, top_e, n_experts, top_k, mesh)
 
     if n_shared:
         y = y + mlp_apply(p["shared"], x, mlp_kind)

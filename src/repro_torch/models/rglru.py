@@ -24,7 +24,9 @@ biases' layer axis: ``core.packing.RowsBlock``); the conv, whose
 weights replicate, the gates' elementwise part and the scan run on this
 rank's lanes with whole channels and their state; the conv's output is
 gathered for the gate products and the lanes' outputs for the
-row-parallel ``w_out``.
+row-parallel ``w_out``.  This lane split is serving's (no gradient flows
+through it): the training forward passes no ``lane_ax`` and runs every
+lane on each rank, its products stitched under the training view.
 """
 from __future__ import annotations
 

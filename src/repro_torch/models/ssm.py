@@ -20,6 +20,9 @@ stitched whole before the z | x | B | C | dt split (its N block would cut
 across the pieces); the conv, the SSD scan, the skip and the gated norm
 (over all of d_inner) run on this rank's lanes and their state; the
 lanes' outputs are gathered before the row-parallel ``out_proj``.
+This lane split is serving's (no gradient flows through it): the
+training forward passes no ``lane_ax`` and runs every lane on each
+rank, its products stitched under the training view.
 """
 from __future__ import annotations
 

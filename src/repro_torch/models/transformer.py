@@ -274,20 +274,6 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     return x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
 
 
-def check_mesh_kinds(cfg: ModelConfig) -> None:
-    """Refuse BSQ training on a mesh of a model with layers other than
-    "attn" (or with experts).  Every kind serves on a mesh; training them
-    there (the regulariser's sums over a group axis split over "model")
-    comes with the next mesh slice."""
-    bad = sorted({k for k in cfg.layer_pattern if k != "attn"})
-    if bad or cfg.n_experts:
-        what = bad + (["moe experts"] if cfg.n_experts else [])
-        raise NotImplementedError(
-            f"{cfg.name}: BSQ training on a mesh of {what} comes with the next mesh slice "
-            "(ROADMAP queue 1: the regulariser's sums over groups split over 'model'); "
-            "these kinds serve on a mesh, and train on one process")
-
-
 def _inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """``(x, cross_src)`` of a full-sequence batch: ``embeds`` (the audio
     frontend's, cast to the compute dtype, no scale) or embedded

@@ -36,13 +36,18 @@ that placement, written out:
   is a reduce-scatter of the data ranks' gradients); a leaf whole along
   "data" enters by ``HostMesh.enter`` (its gradient summed over "data");
 * the model axis keeps the serving path's Megatron pairs: the forward
-  runs under a training view of the mesh ("data" hidden), whose
+  runs under a training view of the mesh ("data" hidden), each leaf in
+  the form serving gives it (``dist.elastic.placed_leaf``), whose
   collectives carry their conjugates (``models.common.dense_apply``);
-* a rep's scale, whole on every rank, scales this rank's block: it
-  enters by ``HostMesh.enter`` over the axes that split its weight;
+* a rep's scale and mask, whole on every rank, scale this rank's block:
+  the scale enters by ``HostMesh.enter`` over the axes that split its
+  weight, and both are cut to the groups the block holds where a rule
+  splits a group axis (the MoE experts' E over "model");
 * the task loss is each data rank's token NLL sum over the token count
   of the whole batch, so the data ranks' losses add up to JAX's mean;
-  the regulariser is the same on every rank (``core.regularizer``);
+  the MoE router loss is the whole batch's on every rank, each data
+  rank's share carrying its part; the regulariser is the same on every
+  rank (``core.regularizer``);
 * the gradient norm sums each leaf once over the mesh
   (``optim.global_norm``); the update and the projection are elementwise.
 
@@ -66,7 +71,6 @@ from ..configs.base import ModelConfig
 from ..core import bsq as bsq_mod
 from ..core.bitrep import BitRep
 from ..core.bsq import BSQConfig
-from ..core.packing import PACKABLE_SUFFIXES, FloatBlock
 from ..device import resolve_device
 from ..launch.mesh import LocalMesh
 from ..models import transformer
@@ -162,44 +166,45 @@ def _forward_leaf(name: str, x: torch.Tensor, spec, mesh):
     """This rank's block of a param as the training forward reads it: gathered
     over "data" where the rule splits it there (FSDP, the gradient
     reduce-scattered back), else entering with its gradient summed over
-    "data"; a packable matmul still split over live axes becomes a
-    FloatBlock, which ``models.common.dense_apply`` stitches under the
-    training view (where "data" has size 1).  Off a mesh (``spec`` None)
-    ``x`` itself."""
-    from ..dist.sharding import spec_axes
+    "data"; then in the form serving gives the same block
+    (``dist.elastic.placed_leaf`` on the training view, where "data" has
+    size 1): a FloatBlock that ``models.common.dense_apply`` stitches, a
+    RowsBlock of a stacked gate bias, or the plain block (the embedding,
+    the MoE experts).  Off a mesh (``spec`` None) ``x`` itself."""
+    from ..dist.elastic import placed_leaf
 
     if spec is None:
         return x
     spec = tuple(spec) + (None,) * (x.ndim - len(spec))
     if any(isinstance(ax, tuple) for ax in spec):
         raise NotImplementedError(f"{name}: a dim split over several axes ({spec}) in "
-                                  "training comes with the 3-axis pod mesh (ROADMAP item 9b)")
+                                  "training comes with the 3-axis pod mesh (ROADMAP item 9b-ii)")
     if "data" in spec:
         for dim, ax in enumerate(spec):
             if ax == "data":
                 x = mesh.shard_gather(x, "data", dim)
     else:
         x = mesh.enter(x, "data")
-    if (x.ndim >= 2 and name.rsplit("/", 1)[-1] in PACKABLE_SUFFIXES
-            and mesh.live(spec_axes(spec[-2:]))):
-        return FloatBlock(x, (spec[-2], spec[-1]))
-    return x
+    return placed_leaf(name, x, spec, mesh.training_view())
 
 
 def _task_loss(params, batch, cfg: ModelConfig, mesh):
     """(this data rank's share of the task loss, {"ce", "aux"} of the whole
     batch): each data rank's NLL sum over the whole batch's token count,
     so the shares add up to ``transformer.loss_fn``'s mean; on a mesh the
-    forward runs under the training view, its heads local."""
+    forward runs under the training view, its heads local.  The MoE
+    router loss is the whole batch's on every rank (``models.moe`` sums
+    its statistics over "data"), so each data rank's share carries its
+    part of it and the shares count it once."""
     sharded = mesh.size() > 1
-    if sharded:
-        transformer.check_mesh_kinds(cfg)
-    with packed_shard_mesh(mesh.training_view() if sharded else None, local_heads=True):
+    view = mesh.training_view() if sharded else None
+    with packed_shard_mesh(view, local_heads=True):
         logits, aux = transformer.forward(params, batch, cfg)
     total, count = cross_entropy_sums(logits, batch["labels"])
     share = total / torch.clamp(mesh.all_reduce(count, "data"), min=1.0)
     ce = mesh.all_reduce(share.detach(), "data")
-    return share + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
+    n_data = mesh.size() // view.size() if sharded else 1
+    return share + cfg.router_aux_weight * aux / n_data, {"ce": ce, "aux": aux}
 
 
 def _weight_specs(specs, reps) -> Dict[str, tuple]:
@@ -399,15 +404,22 @@ def make_requant_step(ctx: BSQTrainContext, mesh=None):
     new planes and masks are written into the state's tensors, one tensor
     at a time, so a full-width state never holds two sets of planes.  On
     ``mesh`` the whole tensors' per-(bit, group) tests are or-ed over the
-    mesh first (one collective), so every rank writes the same masks."""
+    mesh first (one collective), so every rank writes the same whole
+    masks; each block re-quantises by its own groups' mask."""
+    from ..core.bitrep import local_groups
     from ..core.requant import mesh_nonzero, requantize_static
+
+    specs, tree_specs = _specs_cache(mesh if mesh is not None else LocalMesh(),
+                                     lambda: ctx.template)
 
     @torch.no_grad()
     def requant(state):
         reps = _reps_from_state(state["trainable"], state["masks"], ctx.meta)
-        nz = mesh_nonzero(reps, mesh) if mesh is not None else {}
+        tree_specs(state)
+        wspecs = _weight_specs(specs, reps)
+        nz = mesh_nonzero(reps, mesh, wspecs) if mesh is not None else {}
         for k, r in reps.items():
-            new = requantize_static(r, nz.get(k))
+            new = requantize_static(local_groups(r, wspecs.get(k, ()), mesh), nz.get(k))
             r.wp.copy_(new.wp)
             r.wn.copy_(new.wn)
             r.mask.copy_(new.mask)

@@ -1,6 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
 entry points refuse to fall back to the CPU quietly, and chip_smoke.py
 refuses to run without a card."""
+import contextlib
+import io
 import pkgutil
 import subprocess
 import sys
@@ -99,9 +101,10 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, monkeypatch)
 def test_unported_paths_say_so():
     """The serve launcher's mesh flags run (4 gloo ranks on the CPU, tokens
     equal to the same command without a mesh), on an "attn" arch and on
-    recurrentgemma-9b's rglru and local layers; the training launcher's
-    mesh refuses BSQ training of that pattern (naming the next mesh
-    slice) and a batch its data axis does not divide, as JAX's does;
+    recurrentgemma-9b's rglru and local layers; the training launcher
+    trains that pattern on the 2x2 mesh (one BSQ step, its losses those of
+    the same command without a mesh) and refuses a batch its data axis
+    does not divide, as JAX's does;
     the dry run's meshes still say "mesh slice" (the next mesh slice
     brings them); every layer kind and frontend is ported, so
     ``init_params`` builds all ten reduced configs on the CPU."""
@@ -117,8 +120,8 @@ def test_unported_paths_say_so():
     for a, b in zip(sorted(mesh, key=lambda r: r.uid), sorted(single, key=lambda r: r.uid)):
         np.testing.assert_array_equal(a.tokens, b.tokens)
     # a pattern of rglru and local layers serves on the mesh too, with the
-    # tokens of the same command without one; BSQ training of it on a mesh
-    # waits for the next mesh slice
+    # tokens of the same command without one, and BSQ-trains there with
+    # the losses of the same command without one
     argv = ["--device", "cpu", "--arch", "recurrentgemma-9b", "--packed-bits", "6",
             "--requests", "4", "--prompt-len", "20", "--max-new", "6"]
     mesh = launcher.main(argv + ["--data-parallel", "2", "--model-parallel", "2"])
@@ -126,9 +129,15 @@ def test_unported_paths_say_so():
     assert len(mesh) == len(single) == 4
     for a, b in zip(sorted(mesh, key=lambda r: r.uid), sorted(single, key=lambda r: r.uid)):
         np.testing.assert_array_equal(a.tokens, b.tokens)
-    with pytest.raises(NotImplementedError, match="next mesh slice"):
-        train_launcher.main(["--device", "cpu", "--arch", "recurrentgemma-9b",
-                             "--data-parallel", "2", "--model-parallel", "2", "--batch", "4"])
+    argv = ["--device", "cpu", "--arch", "recurrentgemma-9b", "--steps", "1", "--batch", "4",
+            "--seq", "16"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        trained = train_launcher.main(argv + ["--data-parallel", "2", "--model-parallel", "2"])
+        one = train_launcher.main(argv)
+    got, want = trained["history"][-1], one["history"][-1]
+    assert got["step"] == want["step"] == 1
+    for k in ("ce", "reg", "total"):
+        assert abs(got[k] - want[k]) <= 1e-5 * abs(want[k]), (k, got[k], want[k])
     for flags in (["--data-parallel", "2"], ["--model-parallel", "2"]):
         with pytest.raises(SystemExit, match="must be given together"):
             launcher.main(flags + ["--device", "cpu"])
