@@ -219,7 +219,8 @@ failure exits non-zero and none is caught:
    cut to 6 of its 40 layers (``MESH_LAYERS``, 10 until phase 6g): f32
    prefill logits against this process (printed); bf16 bucketed (4 x 128
    tokens), continuous with the paged kernel (4 requests on 8 lanes, one
-   128-token chunk per prompt) and spec decode, each rank's packed bytes
+   128-token chunk per prompt) and spec decode (5 of 6 planes drafting,
+   under which drafts are accepted: at least one must be), each rank's packed bytes
    (a quarter), kernel launches (bitserial static and runtime, paged and
    flash, each non-zero on every rank), decode ms per step, TTFT and
    collectives.  Then bitserial against its plain version at every
@@ -257,16 +258,14 @@ failure exits non-zero and none is caught:
    paged decode on 4 of 8 K/V heads and the cross K/V at M 6400;
 6. the BSQ training slice: full-width granite-3-2b cut to 1 layer (2
    until phase 6f took their time),
-   trained through ``repro_torch.launch.train.run``: 2 steps with a
-   requant and a checkpoint at step 2, then a second run that resumes
-   from that checkpoint to step 4 (requant at 4; its next checkpoint
-   would be at 6: the card's machine takes at most 45 GiB of disk
-   writes, and a checkpoint is 16 GB; 4 and 8 steps before phase 6g took
-   the time).  The bgl_sumsq launches are
+   trained through ``repro_torch.launch.train.run``: 4 steps with a
+   requant at steps 2 and 4 and no checkpoint (until phase 6h took their
+   time, a checkpoint at step 2, 16 GB, and a second run resumed from it,
+   its restore held bit for bit; 6f's reduced checkpoints and the CPU
+   tests hold checkpoint I/O now).  The bgl_sumsq launches are
    checked exactly (one grouped forward and one backward launch per
    step, and no serving kernel launches), every step's loss
-   finite, the resume's restore held bit for bit against a host copy of
-   the state saved at step 2 (the config's remat, "nothing", as JAX
+   finite (the config's remat, "nothing", as JAX
    trains); then the final scheme, ``export_packed``, a profile of two
    train steps and 4 requests served from the exported packed weights
    through the bitserial and flash kernels; last, where activations set
@@ -306,15 +305,23 @@ failure exits non-zero and none is caught:
    bound and of the limit no implementation passes (the weights and
    cache read once; the state read and written once), the term that
    bounds it and the top 5 ops by bytes printed; the counter's FLOPs and bytes of each phase-2
-   bitserial call exactly ``bitserial_work``'s; and ``python -m
+   bitserial call exactly ``bitserial_work``'s.  The dry-run CLI runs as
+   processes on the host beside phases 3-3h, waited for before phase 4,
+   so that no timed phase runs beside them (``DRYRUNS``): ``python -m
    repro_torch.launch.dryrun --arch granite-3-2b --shape decode_32k``
-   printing ``[ok]``;
+   printing ``[ok]``, and the production meshes,
+   granite-3-2b x train_4k and x decode_32k on 16x16 and 2x16x16 as rank
+   0 sees them, and hillclimb's A3 (16x16) and A6 (2x16x16): each record
+   ``ok``, JAX's microbatches (16 and 8), collective bytes non-zero; each
+   one's memory, terms and collective bytes by kind printed (computed,
+   the collective term at one NVLink direction), A6 read against A3;
 6f. BSQ training on a ("data", "model") mesh: 4 gloo ranks on the card
    (``launch.mesh.run_on_mesh``).  On 2x2, full-width granite-3-2b cut to
    1 layer (2 until phase 6g), f32 (activations too), 2 steps of 4 x 64 tokens through
-   ``train.step.make_bsq_train_step(mesh=)``: each rank holds its block
+   ``train.step.make_bsq_train_step(mesh=)`` and a third at microbatches
+   2, hoisted (each rank's rows its block of each microbatch): each rank holds its block
    of every plane, moment and batch (FSDP over "data", Megatron pairs
-   over "model"); its launches (exactly 2 + 2 bgl_sumsq, nothing else),
+   over "model"); its launches (exactly 3 + 3 bgl_sumsq, nothing else),
    its kernel against the plain version on its own plane rows (backward
    bitwise), its state's sampled fingerprints and its export of the
    trained blocks (``core.bsq.export_packed_blocks``) served through one
@@ -349,6 +356,21 @@ failure exits non-zero and none is caught:
    2048), 8 planes, wp and wn: 8.30 GB f32) against its plain version,
    timed beside its bound, the plain version, ``_foreach_norm`` and
    ``_foreach_mul``;
+6h. BSQ training on a 2x2x2 ("pod", "data", "model") mesh: 8 gloo ranks
+   sharing the card, f32, 2 steps of 8 x 64 tokens, then one at
+   microbatches 2 hoisted and one not: mamba2-130m at its published
+   width cut to the depth ``ph_depth`` reckons (printed: each pod holds a
+   second copy of the BSQ state), reduced granite-3-2b and qwen2-moe-a2.7b
+   (its router loss summed over both data axes); per rank and model
+   exactly 5 + 5 bgl_sumsq launches (1 a plain or hoisted step, 2 the
+   other) and nothing else, its kernel on its own rows against its plain
+   version; after the ranks exit one process runs the same steps on the
+   whole batches, held by 6g's bars; granite's export served through one
+   bucketed decode on the 8 ranks gives one process's tokens, and
+   bitserial and flash hold to their plain versions at every shape the
+   ranks gave them; each rank's collective bytes of one step of the dry
+   run's train config equal the dry run's meta count on 2x2x2 exactly;
+   collectives and seconds per step printed beside one process's;
 7. a ``{"kernels": [...]}`` line (the bitserial, runtime-plane, paged
    and flash entries add phase 4k's launches, summed over its ranks, and
    their times at a rank's shapes; the bitserial, paged and flash entries
@@ -360,8 +382,10 @@ failure exits non-zero and none is caught:
    add the MoE and recurrent phases' launches and the kernels at their
    shapes; the
    bgl_sumsq forward and backward entries carry the grouped times,
-   phase 6f's launches per rank and times at a rank's rows, and phase
-   6g's launches and times at the expert rows), the
+   phase 6f's launches per rank and times at a rank's rows, phase
+   6g's launches and times at the expert rows, and phase 6h's launches;
+   the bitserial and flash entries 6h's served launches and the shapes
+   its ranks gave them), the
    card's name and power limit, and the final ``{"ok": true, ...}``
    line.
 
@@ -1995,14 +2019,6 @@ def remat_parity(dev, card):
     return rows
 
 
-def _host_snapshot(tree):
-    """name -> a host copy of every leaf (a CPU leaf is cloned)."""
-    from repro_torch.tree import flatten_with_path
-
-    return {name: x.detach().cpu() if x.is_cuda else x.detach().clone()
-            for name, x in flatten_with_path(tree)}
-
-
 def profile_train(state, ctx, dev, card, steps=2):
     """torch.profiler over two more BSQ train steps of the slice: device
     busy and idle share, the top device ops, bgl_sumsq's share."""
@@ -2123,11 +2139,10 @@ def remat_memory(dev, card):
 
 def bsq_slice(dev, card):
     """Phase 6: BSQ-train full-width granite-3-2b (TRAIN_LAYERS layers) through the
-    launcher, restore the step-TRAIN_INTERVAL checkpoint, export, serve."""
+    launcher (requant every TRAIN_INTERVAL steps, no checkpoint), export, serve."""
     import numpy as np
     import torch
 
-    from repro_torch.ckpt import checkpoint as ckpt_mod
     from repro_torch.configs import get_config
     from repro_torch.core import export_packed, merge_params
     from repro_torch.core.bitrep import total_numel
@@ -2140,92 +2155,38 @@ def bsq_slice(dev, card):
     from repro_torch.launch import train as launcher
     from repro_torch.serve import Request
     from repro_torch.train import state_reps
-    from repro_torch.tree import flatten_with_path, tree_map
 
     full = get_config("granite-3-2b")
     cfg = full.scaled(n_layers=TRAIN_LAYERS)
     workdir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(workdir, ignore_errors=True)
-
-    def argv(steps, ckpt_interval):
-        return launcher.build_parser().parse_args([
-            "--full", "--steps", str(steps), "--requant-interval", str(TRAIN_INTERVAL),
-            "--ckpt-interval", str(ckpt_interval), "--workdir", str(workdir)])
-
-    # run 1 saves the checkpoint of step TRAIN_INTERVAL; run 2 resumes from it to
-    # TRAIN_STEPS with its next checkpoint past its end, so the card's disk takes
-    # one save
-    runs = [argv(TRAIN_INTERVAL, TRAIN_INTERVAL), argv(TRAIN_STEPS, TRAIN_STEPS + TRAIN_INTERVAL)]
-    a = runs[1]
+    # the first checkpoint would fall past the run's end: phase 6 writes none
+    # (6f's reduced 2x2 -> 4x1 resume holds the card's checkpoint I/O; the
+    # 2x2 <-> 2x2x2 resume is tested on the CPU, tests/test_torch_pod_mesh.py)
+    a = launcher.build_parser().parse_args([
+        "--full", "--steps", str(TRAIN_STEPS), "--requant-interval", str(TRAIN_INTERVAL),
+        "--ckpt-interval", str(TRAIN_STEPS + 1), "--workdir", str(workdir)])
     print(f"[train] granite-3-2b at its published width (d_model={cfg.d_model}, d_ff="
           f"{cfg.d_ff}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
           f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}->{cfg.padded_vocab}); reduced: "
           f"n_layers {full.n_layers} -> {cfg.n_layers} so the BSQ state fits one card; "
           f"BSQ n_init=8 (9 planes), alpha={a.alpha}, static, bf16 weights; SGDM, "
-          f"step_decay({a.lr}) over each run's --steps, batch {a.batch} x seq {a.seq}, grad "
-          f"clip 1.0; {TRAIN_INTERVAL} steps with requant and a checkpoint at step "
-          f"{TRAIN_INTERVAL}, then a resumed run to step {TRAIN_STEPS} (requant at "
-          f"{TRAIN_STEPS}, next checkpoint at {TRAIN_STEPS + TRAIN_INTERVAL})", flush=True)
-
-    # a host copy of the state the trainer checkpoints at step 4, and the
-    # resume's restore held against it before the resumed run's first step
-    saved, resumed = {}, {}
-    orig_save, orig_restore_latest = ckpt_mod.save, ckpt_mod.restore_latest
-
-    def save_and_snapshot(tree, directory, step, **kw):
-        if step == TRAIN_INTERVAL:
-            saved.update(_host_snapshot(tree))
-        return orig_save(tree, directory, step, **kw)
-
-    def restore_and_compare(tree_like, directory, mesh=None):
-        t0 = time.perf_counter()
-        tree, step = orig_restore_latest(tree_like, directory, mesh=mesh)
-        if tree is None:  # the first run starts from an empty workdir
-            return tree, step
-        torch.cuda.synchronize()
-        resumed["restore_s"] = time.perf_counter() - t0
-        check(step == TRAIN_INTERVAL, f"resumed from step {step}")
-        got = dict(flatten_with_path(tree))
-        check(len(saved) > 0 and sorted(got) == sorted(saved),
-              f"restored leaves {sorted(got)} != saved {sorted(saved)}")
-        nbytes = 0
-        for name, x in got.items():
-            want = saved.pop(name)
-            check(x.dtype == want.dtype and x.shape == want.shape
-                  and x.device.type == ("cpu" if name == "step" else dev.type)
-                  and torch.equal(x.cpu(), want),
-                  f"restored leaf {name} differs from the state saved at step {TRAIN_INTERVAL}")
-            nbytes += x.numel() * x.element_size()
-        resumed.update(leaves=len(got), nbytes=nbytes)
-        return tree, step
+          f"step_decay({a.lr}) over --steps, batch {a.batch} x seq {a.seq}, grad "
+          f"clip 1.0; {TRAIN_STEPS} steps, requant at steps {TRAIN_INTERVAL} and "
+          f"{TRAIN_STEPS}, no checkpoint", flush=True)
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for m in (bgl, bsm, pa, fa):
         m.reset_launches()
-    ckpt_mod.save, ckpt_mod.restore_latest = save_and_snapshot, restore_and_compare
     t0 = time.perf_counter()
-    try:
-        first = launcher.run(cfg, runs[0], log_interval=1)
-        check(ckpt_mod.available_steps(str(workdir)) == [TRAIN_INTERVAL],
-              f"checkpoints after the first run: {ckpt_mod.available_steps(str(workdir))}")
-        hist = first["history"]
-        del first
-        gc.collect()
-        torch.cuda.empty_cache()
-        out = launcher.run(cfg, runs[1], log_interval=1)
-    finally:
-        ckpt_mod.save, ckpt_mod.restore_latest = orig_save, orig_restore_latest
+    out = launcher.run(cfg, a, log_interval=1)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    state, ctx, scheme = out["state"], out["ctx"], out["scheme"]
-    hist = hist + out["history"]
-    check("nbytes" in resumed, "the second run did not resume from the checkpoint")
-    check(ckpt_mod.available_steps(str(workdir)) == [TRAIN_INTERVAL],
-          f"checkpoints after the resumed run: {ckpt_mod.available_steps(str(workdir))}")
+    state, ctx, scheme, hist = out["state"], out["ctx"], out["scheme"], out["history"]
     n_rep = len(ctx.meta)
     check(n_rep == 8, f"{n_rep} quantised tensors, expected 8")
     # one grouped launch over the 16 plane views per step, one backward
@@ -2241,15 +2202,12 @@ def bsq_slice(dev, card):
         check(all(np.isfinite(h[k]) for k in ("ce", "reg", "total", "grad_norm")),
               f"non-finite metrics at step {h['step']}: {h}")
     dts = [h["dt"] for h in hist]
-    # the first step of each run pays for first-call allocations
-    warm = [dt for i, dt in enumerate(dts) if i not in (0, TRAIN_INTERVAL)]
-    step_ms = 1e3 * float(np.median(warm))
+    # the first step pays for first-call allocations
+    step_ms = 1e3 * float(np.median(dts[1:]))
     nq = ctx.total_quant_params
-    print(f"[train] {TRAIN_STEPS} steps in {train_s:.1f} s (two inits, requants, one "
-          f"checkpoint save, the resume and the final requants included); ms per step "
-          f"{step_ms:.1f} (median of the steps after each run's first; steps 1 and "
-          f"{TRAIN_INTERVAL + 1} {1e3 * dts[0]:.1f} and {1e3 * dts[TRAIN_INTERVAL]:.1f}); "
-          f"peak memory "
+    print(f"[train] {TRAIN_STEPS} steps in {train_s:.1f} s (the init, the requants and the "
+          f"final one included); ms per step {step_ms:.1f} (median of the steps after the "
+          f"first; step 1 {1e3 * dts[0]:.1f}); peak memory "
           f"{peak / 1e9:.2f} GB; {nq:,} quantised parameters; bgl_sumsq launches "
           f"{launches['bgl_sumsq']} + {launches['bgl_sumsq_backward']} backward == "
           f"{TRAIN_STEPS} + {TRAIN_STEPS}, each over {2 * n_rep} plane views [{card}]",
@@ -2258,10 +2216,6 @@ def bsq_slice(dev, card):
         print(f"[train]   step {h['step']}: ce {h['ce']:.4f} reg {h['reg']:.2f} total "
               f"{h['total']:.4f} grad_norm {h['grad_norm']:.4f} lr {h['lr']:.4g} dt "
               f"{1e3 * h['dt']:.1f} ms")
-    print(f"[ckpt] the resumed run restored the step-{TRAIN_INTERVAL} checkpoint onto the card "
-          f"in {resumed['restore_s']:.1f} s (the files' sha256 check included): "
-          f"{resumed['leaves']} leaves, {resumed['nbytes'] / 1e9:.2f} GB, each bitwise equal "
-          f"to the state the trainer saved at step {TRAIN_INTERVAL} [{card}]", flush=True)
     print(f"[train] final scheme: {scheme.bits_per_param:.3f} bits/param, compression "
           f"{scheme.compression:.3f}x vs f32", flush=True)
     shutil.rmtree(workdir, ignore_errors=True)
@@ -2321,7 +2275,6 @@ def bsq_slice(dev, card):
             "launches": launches, "history": hist, "quantised_params": nq,
             "bits_per_param": scheme.bits_per_param, "compression": scheme.compression,
             "export_s": export_s, "packed_bytes": packed_bytes, "bf16_bytes": bf16_bytes,
-            "restore_s": resumed["restore_s"], "ckpt_bytes": resumed["nbytes"],
             "profile": prof,
             "serve_s": serve_s, "tokens": toks.tolist(), "serve_bitserial_launches": expected}
 
@@ -2351,7 +2304,7 @@ def _held_to_bound(what, card_ms, terms, card, floor_bytes, floor_what):
             "launches": terms.launches, "top": terms.op_byte_profile(5)}
 
 
-def dryrun_phase(dev, card):
+def dryrun_phase(dev, card, dry_recs):
     """Phase 6e: the dry run's counter (``roofline.analysis`` on meta
     tensors) held against the card: the data-sheet constants beside the
     card's own figures; phase 4's granite-3-2b decode step and phase 6's
@@ -2491,19 +2444,122 @@ def dryrun_phase(dev, card):
           f"bitserial calls, one launch each", flush=True)
     rep["bitserial_shapes"] = n
 
-    # the dry-run CLI
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                           "granite-3-2b", "--shape", "decode_32k"], capture_output=True,
-                          text=True, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-                          timeout=300)
-    ok = [line for line in proc.stdout.splitlines() if line.startswith("[ok]")]
-    check(proc.returncode == 0 and ok, f"dryrun CLI: rc {proc.returncode}, "
-          f"{proc.stdout[-500:]} {proc.stderr[-1500:]}")
+    # the dry-run CLI on one card (run beside phases 3-3h with the pod cells)
+    recs = dict(dry_recs)
+    _, log = recs.pop("one_card")
+    ok = [line for line in log.splitlines() if line.startswith("[ok]")]
+    check(len(ok) == 1, f"dryrun CLI: {log[-1500:]}")
     print(f"[dryrun] python -m repro_torch.launch.dryrun --arch granite-3-2b --shape "
-          f"decode_32k in {time.perf_counter() - t0:.1f} s: {ok[0]}", flush=True)
+          f"decode_32k: {ok[0]}", flush=True)
     rep["cli"] = ok[0]
+    rep["pod"] = pod_dryrun_cells(recs, card)
     return rep
+
+
+# phase 6e's dry-run CLI runs, on meta tensors on the host: granite-3-2b x
+# decode_32k on one card, then the production meshes, full-width
+# granite-3-2b as rank 0 of each mesh sees it (minutes of host time for a
+# train cell), and hillclimb's A3 (on 16x16) and A6 (on 2x16x16); started as
+# processes of their own as phase 3 starts, waited for before phase 4
+# (phases 3-3h time nothing that the script reports: their outputs are
+# parity checks) and read in phase 6e
+DRYRUNS = {
+    "one_card": ["repro_torch.launch.dryrun", "--arch", "granite-3-2b", "--shape",
+                 "decode_32k"],
+    "decode": ["repro_torch.launch.dryrun", "--arch", "granite-3-2b", "--shape", "decode_32k",
+               "--single-pod", "--multi-pod"],
+    "train_16x16": ["repro_torch.launch.dryrun", "--arch", "granite-3-2b", "--shape",
+                    "train_4k", "--single-pod"],
+    "train_2x16x16": ["repro_torch.launch.dryrun", "--arch", "granite-3-2b", "--shape",
+                      "train_4k", "--multi-pod"],
+    "hillclimb_a3": ["repro_torch.launch.hillclimb", "--cell", "A", "--only", "dots+bf16"],
+    "hillclimb_a6": ["repro_torch.launch.hillclimb", "--cell", "A", "--only",
+                     "dots_bf16_multipod"],
+}
+POD_DRYRUN_WAIT_S = 600  # the most the script waits for them after phase 3h
+BACKGROUND = []  # the processes this script started; main stops any still running
+
+
+def start_pod_dryruns():
+    """Start DRYRUNS, one process each, their records and logs under
+    chiprun_out/pod_dryrun; returns name -> (process, record path, log path)."""
+    out = ROOT / "chiprun_out" / "pod_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    jobs = {}
+    for name, args in DRYRUNS.items():
+        path, log = out / f"{name}.json", out / f"{name}.log"
+        # at the lowest priority: phase 3's CPU references keep the cores
+        with open(log, "w") as f:
+            proc = subprocess.Popen([sys.executable, "-m", *args, "--out", str(path)], cwd=ROOT,
+                                    env=env, stdout=f, stderr=subprocess.STDOUT,
+                                    preexec_fn=lambda: os.nice(19))
+        BACKGROUND.append(proc)
+        jobs[name] = (proc, path, log)
+    return jobs
+
+
+def wait_pod_dryruns(jobs):
+    """Wait for each of start_pod_dryruns's processes (so that no timed
+    phase runs beside them); name -> (its records, its log)."""
+    recs = {}
+    t0 = time.perf_counter()
+    for name, (proc, path, log) in jobs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, POD_DRYRUN_WAIT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = "killed after waiting"
+        check(rc == 0 and path.exists(), f"[6e] pod dry run {name}: rc {rc}; "
+                                         f"{log.read_text()[-1500:]}")
+        recs[name] = json.loads(path.read_text()), log.read_text()
+    print(f"[6e] the dry runs (on the host, beside phases 3-3h) done; waited "
+          f"{time.perf_counter() - t0:.1f} s for them after phase 3h", flush=True)
+    return recs
+
+
+def pod_dryrun_cells(runs, card):
+    """Phase 6e's pod-mesh cells from wait_pod_dryruns's records: check
+    every record ``ok`` with JAX's microbatches (16 on 16x16, 8 on 2x16x16
+    for train_4k) and non-zero collective bytes, print each record's
+    memory, roofline terms and collective bytes by kind (computed: the
+    collective term divides by one NVLink direction, 450 GB/s, a floor
+    where a 16-wide axis crosses the network), and read A6 against A3."""
+    recs = {name: rs for name, (rs, _) in runs.items()}
+    rows = {}
+    for name, rs in recs.items():
+        for r in rs:
+            key = r.get("label", f"{r['shape']} {r['mesh']}")
+            check(r["status"] == "ok", f"[6e] {name} {key}: {r.get('error')}")
+            coll = r["roofline"]["collectives"]
+            check(coll["all-gather"] > 0 and coll["all-reduce"] > 0,
+                  f"[6e] {name} {key}: collective bytes {coll}")
+            if r["kind"] == "train":
+                want = {"16x16": 16, "2x16x16": 8}[r["mesh"]]
+                check(r["microbatches"] == want, f"[6e] {name} {key}: microbatches "
+                                                 f"{r['microbatches']}, JAX's default {want}")
+            m, t = r["memory"], r["roofline"]
+            print(f"[6e] {r['arch']} x {r['shape']} x {r['mesh']}"
+                  + (f" ({r['label']})" if "label" in r else "")
+                  + f", microbatches {r['microbatches']}: args {m['argument_bytes'] / 1e9:.3f} + "
+                  f"temp {m['temp_bytes'] / 1e9:.3f} GB; compute {t['compute_s'] * 1e3:.2f} ms, "
+                  f"memory {t['memory_s'] * 1e3:.2f} ms, collective {t['collective_s'] * 1e3:.2f} "
+                  f"ms -> {t['bottleneck']}; collective bytes per device by kind: "
+                  + ", ".join(f"{k} {v / 1e9:.4f} GB" for k, v in coll.items() if v)
+                  + f"; meta run {r['compile_s']} s (computed: H100 data-sheet figures, the "
+                  f"collective term at one NVLink direction, a floor) [{card}]", flush=True)
+            rows[f"{name}/{key}"] = r
+    a3, a6 = recs["hillclimb_a3"][-1], recs["hillclimb_a6"][-1]
+    check(a3["mesh"] == "16x16" and a6["mesh"] == "2x16x16",
+          f"[6e] A3 on {a3['mesh']}, A6 on {a6['mesh']}")
+    ratio = a6["memory"]["temp_bytes"] / a3["memory"]["temp_bytes"]
+    print(f"[6e] hillclimb A6 (2x16x16) against A3 (16x16): temp {ratio:.3f}x, argument bytes "
+          f"{a6['memory']['argument_bytes'] / a3['memory']['argument_bytes']:.3f}x, collective "
+          f"bytes {a6['roofline']['collective_bytes_per_device'] / a3['roofline']['collective_bytes_per_device']:.3f}x "
+          f"(JAX's microbatches give each device one row a microbatch on both meshes) [{card}]",
+          flush=True)
+    return {"records": rows, "a6_over_a3_temp": ratio}
 
 
 def _launch_counts():
@@ -4916,6 +4972,10 @@ MESH_LAYERS = 6
 MESH_PARITY_STEPS = 4
 MESH_MAX_LEN, MESH_SLOTS, MESH_BLOCKS, MESH_NEW = 512, 8, 64, 8
 MESH_BUCKET = (4, 128)  # requests x prompt tokens
+# the mesh's spec run drafts with 5 of the 6 planes, whose greedy tokens on
+# random weights mostly agree with the full weights', so drafts are accepted
+# and the accept path runs on the card (with 3 planes the mesh accepted 0 of 3)
+MESH_DRAFT_PLANES, MESH_SPEC_NEW = N_BITS - 1, 8
 MESH_CHUNK = 128  # the continuous runs' prefill chunk: a dispatch is M = lanes x 128
 
 
@@ -5132,7 +5192,7 @@ def mesh_rank(mesh):
                             policy=policy)
     spec = engine_cls(params, cfg, max_len=MESH_MAX_LEN, mesh=mesh, continuous=True,
                       policy=dataclasses.replace(policy, spec_decode=True,
-                                                 draft_planes=DRAFT_PLANES, gamma=GAMMA))
+                                                 draft_planes=MESH_DRAFT_PLANES, gamma=GAMMA))
     del params
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
@@ -5163,7 +5223,7 @@ def mesh_rank(mesh):
     lens = [int(n) for n in rng.integers(32, 128, size=MESH_SLOTS)]
     arrivals = [int(a) for a in np.floor(np.cumsum(rng.exponential(1.0, MESH_SLOTS)))]
     for name, eng, n, new in (("continuous", continuous, 4, MESH_NEW),
-                              ("spec", spec, 1, 3)):
+                              ("spec", spec, 1, MESH_SPEC_NEW)):
         before = _mesh_launches()
         t0 = time.perf_counter()
         res = eng.generate(_mesh_requests(cfg, n, lens[:n], new, 20),
@@ -5337,6 +5397,9 @@ def mesh_phase(dev, card, time_ms, median_ms):
     r0 = ranks[0]
     print(f"[4k] gloo on CUDA tensors: {r0['gloo_cuda']} [{card}]", flush=True)
     b, c, s = r0["bucketed"], r0["continuous"], r0["spec"]
+    check(s["accepted"] > 0, f"[4k] spec decode on the mesh accepted {s['accepted']} of "
+                             f"{s['drafted']} drafts ({MESH_DRAFT_PLANES} draft planes): the "
+                             "accept path did not run on the card")
     print(f"[4k] decode ms per step at {MESH_LAYERS} layers, rank 0: bucketed "
           f"{b['decode_ms_per_step']:.2f}, continuous {c['decode_ms_per_step']:.2f} [{card}]",
           flush=True)
@@ -5345,7 +5408,8 @@ def mesh_phase(dev, card, time_ms, median_ms):
           f"{b['decode_ms_per_step']:.2f} ms per step; continuous (paged kernel, {MESH_SLOTS} "
           f"lanes): decode {c['decode_ms_per_step']:.2f} ms per step over {c['decode_steps']} "
           f"steps, TTFT p50 {np.percentile(c['ttft_ms'], 50):.1f} ms p90 "
-          f"{np.percentile(c['ttft_ms'], 90):.1f} ms; spec: {s['rounds']} rounds, "
+          f"{np.percentile(c['ttft_ms'], 90):.1f} ms; spec ({MESH_DRAFT_PLANES} draft planes, "
+          f"gamma {GAMMA}): {s['rounds']} rounds, "
           f"{s['accepted']}/{s['drafted']} drafts accepted; ranks' wall "
           f"{rep['ranks_wall_s']:.1f} s (bucketed {b['wall_s']:.1f}, continuous "
           f"{c['wall_s']:.1f}, spec {s['wall_s']:.1f}) [{card}]", flush=True)
@@ -6090,7 +6154,8 @@ def _mt_reduced_train(mesh, workdir, total, skip, dev=None):
 
 def mesh_train_rank(mesh, workdir):
     """Phase 6f on one rank of the 2x2 mesh: MT_STEPS BSQ steps of
-    full-width granite-3-2b (MT_LAYERS layers, f32) on its blocks, their
+    full-width granite-3-2b (MT_LAYERS layers, f32) on its blocks and one
+    at microbatches 2, hoisted, their
     launches, its bgl_sumsq launch against the plain version on its own
     plane rows, its state's fingerprints, its export of the trained
     blocks and one bucketed decode served from them; then the reduced
@@ -6132,8 +6197,20 @@ def mesh_train_rank(mesh, workdir):
         torch.cuda.synchronize(dev)
         dts.append(time.perf_counter() - t0)
         metrics.append({k: float(v) for k, v in m.items()})
-    out["launches"] = _launch_counts()
     out["collectives_per_step"] = (mesh.collectives - before) / MT_STEPS
+    # one more step at microbatches 2, hoisted: this rank's rows are its block
+    # of each of the batch's two microbatches (the iterator lays them out so)
+    mb_data = sharded_lm_iterator(MarkovLM(vocab=cfg.vocab_size, seed=13), MT_BATCH, MT_SEQ,
+                                  sharding=mesh, microbatches=2)
+    mb_batch = [next(mb_data) for _ in range(MT_STEPS + 1)][-1]
+    mb_step = make_bsq_train_step(ctx, SGDM(), step_decay(0.2, [MT_STEPS]), mesh=mesh,
+                                  microbatches=2)
+    t0 = time.perf_counter()
+    state, m = mb_step(state, mb_batch)
+    torch.cuda.synchronize(dev)
+    dts.append(time.perf_counter() - t0)
+    metrics.append({k: float(v) for k, v in m.items()})
+    out["launches"] = _launch_counts()
     out["metrics"], out["step_s"] = metrics, dts
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     # the kernel on this rank's own plane rows, against its plain version
@@ -6220,7 +6297,8 @@ def mesh_train_4x1_rank(mesh, workdir):
 def mesh_train_phase(dev, card, time_ms):
     """Phase 6f: BSQ training on a ("data", "model") mesh, 4 gloo ranks on
     the card.  On 2x2: full-width granite-3-2b cut to MT_LAYERS layers,
-    f32, MT_STEPS steps (each rank its blocks of the state and of the
+    f32, MT_STEPS steps and one at microbatches 2, hoisted (each rank its
+    blocks of the state and of the
     batch), one grouped bgl_sumsq launch and one backward per rank per
     step, each rank's kernel against its plain version on its own plane
     rows, its export of the trained blocks served through one bucketed
@@ -6263,10 +6341,10 @@ def mesh_train_phase(dev, card, time_ms):
     rep["ranks_wall_s"] = time.perf_counter() - t0
     for r in ranks:
         tag = f"[6f] rank {r['rank']} {r['coords']}"
-        la = r["launches"]
-        check(la["bgl_sumsq"] == MT_STEPS and la["bgl_sumsq_backward"] == MT_STEPS
+        la, n = r["launches"], MT_STEPS + 1  # the microbatched step's hoisted 1 + 1 among them
+        check(la["bgl_sumsq"] == n and la["bgl_sumsq_backward"] == n
               and la["bitserial_matmul"] == la["flash_attention"] == la["paged_attention"] == 0,
-              f"{tag}: launches {la}, expected {MT_STEPS} + {MT_STEPS} bgl_sumsq and no other")
+              f"{tag}: launches {la}, expected {n} + {n} bgl_sumsq and no other")
         check(r["bgl"]["max_rel_err"] <= BGL_TOL and r["bgl"]["backward_bitwise"],
               f"{tag}: bgl_sumsq on its rows vs plain {r['bgl']}")
         check(r["bad"] == 0 and r["serve_launches"]["bitserial_matmul"] > 0,
@@ -6282,7 +6360,10 @@ def mesh_train_phase(dev, card, time_ms):
     data = sharded_lm_iterator(MarkovLM(vocab=cfg.vocab_size, seed=13), MT_BATCH, MT_SEQ,
                                device=dev)
     want, t_one = [], []
-    for _ in range(MT_STEPS):
+    for i in range(MT_STEPS + 1):
+        if i == MT_STEPS:  # the microbatched step, on the whole batch
+            step = make_bsq_train_step(ctx, SGDM(), step_decay(0.2, [MT_STEPS]),
+                                       microbatches=2)
         t0 = time.perf_counter()
         state, m = step(state, next(data))
         torch.cuda.synchronize()
@@ -6407,9 +6488,9 @@ def mesh_train_phase(dev, card, time_ms):
           f"{rep['collectives_per_step'][0]}; losses within {worst:.2e} relative of one "
           f"process (ce {want[-1]['ce']:.6f}, reg {want[-1]['reg']:.3f}); sampled state within "
           f"{worst_state:.2e} of each block's max; export planes and sign bytes equal on every rank, scales within {rep['export_scale_max_rel_err']:.2e}; tokens "
-          f"{ranks[0]['tokens'][0]} equal; bgl_sumsq {MT_STEPS} + {MT_STEPS} launches per "
-          f"rank, on its rows within {rep['bgl_rank']['max_rel_err']:.2e}, backward bitwise "
-          f"[{card}]", flush=True)
+          f"{ranks[0]['tokens'][0]} equal; bgl_sumsq {MT_STEPS + 1} + {MT_STEPS + 1} launches "
+          f"per rank (the last step at microbatches 2, hoisted: 1 + 1), on its rows within "
+          f"{rep['bgl_rank']['max_rel_err']:.2e}, backward bitwise [{card}]", flush=True)
     print(f"[6f] bgl_sumsq at a rank's {len(shapes)} views ({rep['bgl_rank']['bytes'] / 1e9:.2f}"
           f" GB f32): forward {fwd['ms']:.4f} ms (bound {fwd['bound_ms']:.4f}, plain "
           f"{fwd['plain_ms']:.4f}, _foreach_norm {fwd['library_ms']:.4f}); backward "
@@ -6698,6 +6779,67 @@ def _mk_expert_rows(dev, time_ms):
     return out
 
 
+def _mk_held(tag, ranks, arch, want, state, zero, shape, soft):
+    """Each rank's metrics and sampled state of ``arch`` against one
+    process's (``want``, ``state``; ``zero`` the leaves that start at zero)
+    on a mesh of ``shape``, by 6g's bars; a failure goes to ``soft``.
+    Returns (the worst relative loss error, the sampled leaves nearest
+    their bars, the worst state and moment errors of each block's max)."""
+    import numpy as np
+
+    from types import SimpleNamespace
+
+    from repro_torch.dist import sharding
+    from repro_torch.dist.elastic import train_state_specs
+    from repro_torch.tree import flatten_with_path
+
+    def view(coords):
+        return SimpleNamespace(shape=shape, coords=coords)
+
+    worst = 0.0
+    for r in ranks:
+        for i, (m, w) in enumerate(zip(r[arch]["metrics"], want)):
+            for k in ("ce", "aux", "reg", "total", "grad_norm"):
+                e = abs(m[k] - w[k]) / max(abs(w[k]), 1e-30)
+                worst = max(worst, e)
+                tol = MT_LOSS_TOL if k != "grad_norm" else \
+                    MT_GRAD_NORM_TOL if i == 0 else MK_GRAD_NORM_TOL
+                soft(e <= tol or m[k] == w[k],
+                     f"{tag} rank {r['rank']} step {i} {k}: {m[k]} vs one process {w[k]}")
+    specs = dict(sharding.flatten_specs(train_state_specs(state, view({}))))
+    leaves = dict(flatten_with_path(state))
+    # each sampled leaf block: its largest difference over the block's max
+    # |x| against its tolerance (MK_SCALE_TOL for a rep's scale and its
+    # moment, else MT_STATE_TOL); a leaf that starts at zero (an SGD
+    # moment, a zero bias or norm scale: a sum of gradients) may instead
+    # meet the gradient bar, 1e-5 + 2e-4 |x|, element by element: the
+    # nearer of its two; 1 at the bar
+    rows = []
+    for r in ranks:
+        v = view(r["coords"])
+        for name, (tot, amax, sample) in r[arch]["fingerprints"].items():
+            block = sharding.local_block(leaves[name], specs[name], v)
+            _, w_amax, w_sample = _mt_fingerprint(block)
+            check(sample.shape == w_sample.shape, f"{tag} rank {r['rank']} {name}: "
+                                                  f"block shapes differ")
+            if not sample.size:
+                continue
+            diff = np.abs(sample - w_sample)
+            tol = MK_SCALE_TOL if "/reps/" in f"/{name}" and name.endswith("/scale") \
+                else MT_STATE_TOL
+            of_max = float(diff.max()) / max(w_amax, 1e-30)
+            of_bar = float((diff / (1e-5 + 2e-4 * np.abs(w_sample))).max())
+            near = min(of_max / tol, of_bar) if name in zero else of_max / tol
+            rows.append((near, name, r["rank"], of_max, of_bar, w_amax))
+    rows.sort(reverse=True)
+    worst_state = max((x[3] for x in rows if not x[1].startswith("opt/")), default=0.0)
+    worst_moment = max((x[3] for x in rows if x[1].startswith("opt/")), default=0.0)
+    bad = [x for x in rows if x[0] > 1.0]
+    soft(not bad, f"{tag}: sampled state beyond its bars (nearer bar, leaf, rank, of the "
+                   f"block's max, of 1e-5 + 2e-4 |x|, block max): {bad[:5]}")
+    return worst, rows, worst_state, worst_moment
+
+
 def mesh_kinds_train_phase(dev, card, time_ms, flush=None):
     """Phase 6g: BSQ training of every other layer kind on the 2x2 mesh, 4
     gloo ranks on the card.  mamba2-130m at its published width and all 24
@@ -6716,15 +6858,9 @@ def mesh_kinds_train_phase(dev, card, time_ms, flush=None):
     gradients) passes too within 1e-5 plus 2e-4 of each element, the
     gradient bar.
     Last, bgl_sumsq at a full-width qwen2-moe rank's expert rows."""
-    import numpy as np
     import torch
 
-    from types import SimpleNamespace
-
-    from repro_torch.dist import sharding
-    from repro_torch.dist.elastic import train_state_specs
     from repro_torch.launch.mesh import run_on_mesh
-    from repro_torch.tree import flatten_with_path
 
     archs = [MK_FULL] + MK_REDUCED
     print(f"[6g] BSQ training on a 2x2 (data, model) mesh, 4 gloo ranks on {dev}: {MK_FULL} at "
@@ -6744,7 +6880,6 @@ def mesh_kinds_train_phase(dev, card, time_ms, flush=None):
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    view = lambda coords: SimpleNamespace(shape={"data": 2, "model": 2}, coords=coords)  # noqa
     rep["models"] = {}
     fails = []  # every model runs and prints before the phase fails
 
@@ -6772,48 +6907,9 @@ def mesh_kinds_train_phase(dev, card, time_ms, flush=None):
         grad_rows = _mk_grad_rows(ranks[0][arch]["last_grads"], grads) if grads else []
         print(f"{tag}: the last step's gradients, rank 0 gathered against one process, worst "
               f"leaves (max |diff| of the leaf's max |x|): {grad_rows[:4]}", flush=True)
-        worst = 0.0
-        for r in ranks:
-            for i, (m, w) in enumerate(zip(r[arch]["metrics"], want)):
-                for k in ("ce", "aux", "reg", "total", "grad_norm"):
-                    e = abs(m[k] - w[k]) / max(abs(w[k]), 1e-30)
-                    worst = max(worst, e)
-                    tol = MT_LOSS_TOL if k != "grad_norm" else \
-                        MT_GRAD_NORM_TOL if i == 0 else MK_GRAD_NORM_TOL
-                    soft(e <= tol or m[k] == w[k],
-                          f"{tag} rank {r['rank']} step {i} {k}: {m[k]} vs one process {w[k]}")
-        specs = dict(sharding.flatten_specs(train_state_specs(state, view({}))))
-        leaves = dict(flatten_with_path(state))
-        # each sampled leaf block: its largest difference over the block's max
-        # |x| against its tolerance (MK_SCALE_TOL for a rep's scale and its
-        # moment, else MT_STATE_TOL); a leaf that starts at zero (an SGD
-        # moment, a zero bias or norm scale: a sum of gradients) may instead
-        # meet the gradient bar, 1e-5 + 2e-4 |x|, element by element: the
-        # nearer of its two; 1 at the bar
-        rows = []
-        for r in ranks:
-            v = view(r["coords"])
-            for name, (tot, amax, sample) in r[arch]["fingerprints"].items():
-                block = sharding.local_block(leaves[name], specs[name], v)
-                _, w_amax, w_sample = _mt_fingerprint(block)
-                check(sample.shape == w_sample.shape, f"{tag} rank {r['rank']} {name}: "
-                                                      f"block shapes differ")
-                if not sample.size:
-                    continue
-                diff = np.abs(sample - w_sample)
-                tol = MK_SCALE_TOL if "/reps/" in f"/{name}" and name.endswith("/scale") \
-                    else MT_STATE_TOL
-                of_max = float(diff.max()) / max(w_amax, 1e-30)
-                of_bar = float((diff / (1e-5 + 2e-4 * np.abs(w_sample))).max())
-                near = min(of_max / tol, of_bar) if name in zero else of_max / tol
-                rows.append((near, name, r["rank"], of_max, of_bar, w_amax))
-        rows.sort(reverse=True)
-        worst_state = max((x[3] for x in rows if not x[1].startswith("opt/")), default=0.0)
-        worst_moment = max((x[3] for x in rows if x[1].startswith("opt/")), default=0.0)
-        bad = [x for x in rows if x[0] > 1.0]
-        soft(not bad, f"{tag}: sampled state beyond its bars (nearer bar, leaf, rank, of the "
-                       f"block's max, of 1e-5 + 2e-4 |x|, block max): {bad[:5]}")
-        del state, leaves
+        worst, rows, worst_state, worst_moment = _mk_held(tag, ranks, arch, want, state, zero,
+                                                          {"data": 2, "model": 2}, soft)
+        del state
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -6863,6 +6959,394 @@ def mesh_kinds_train_phase(dev, card, time_ms, flush=None):
     print(f"[6g] bgl_sumsq launches on the ranks: {rep['launches']['bgl_sumsq']} + "
           f"{rep['launches']['bgl_sumsq_backward']} ({MK_STEPS} + {MK_STEPS} per rank per "
           f"model); ranks' wall {rep['ranks_wall_s']:.1f} s [{card}]", flush=True)
+    return rep
+
+# the pod mesh phase (6h): BSQ training in f32 on a 2x2x2 ("pod", "data",
+# "model") mesh of 8 gloo ranks sharing the card: PH_STEPS steps, then one
+# step at PH_MB microbatches hoisted and one not, of PH_BATCH x PH_SEQ;
+# mamba2-130m at its published width cut to the depth ph_depth reckons,
+# reduced granite-3-2b and qwen2-moe-a2.7b (whose router loss spans pods)
+PH_SHAPE = {"pod": 2, "data": 2, "model": 2}
+PH_STEPS, PH_MB, PH_BATCH, PH_SEQ = 2, 2, 8, 64
+PH_FULL, PH_REDUCED = "mamba2-130m", ["granite-3-2b", "qwen2-moe-a2.7b"]
+# the reckoning of mamba2's depth: a rank's blocks of the BSQ state at 216
+# bytes per quantised parameter (9 planes of wp and wn in f32, their SGD
+# moments and their gradients; a pod holds a copy of every block), times the
+# peak the caching allocator reserved over that state on 6h's own ranks
+# (9.852 GB a rank against 5.335 GB of state at 16 layers on an H100 80GB
+# HBM3, whose 8 ranks and this process then used 82.26 GB of the card),
+# plus a CUDA context a rank; the 8 ranks within PH_CARD_SHARE of the
+# card's free bytes as 6h starts, the rest (4 GB) kept for the spread of
+# the allocator's reserve from run to run
+PH_BYTES_PER_PARAM = 216
+PH_PEAK_OVER_STATE = 9_852_420_096 / 5_334_958_080
+PH_CONTEXT_BYTES = 0.6e9
+PH_CARD_SHARE = 0.95
+
+
+def ph_depth(free_bytes):
+    """The reckoning of mamba2-130m's depth on the pod mesh: (layers, a
+    dict of its terms).  The greatest depth whose 8 ranks' predicted peak
+    fits PH_CARD_SHARE of ``free_bytes``."""
+    import math
+
+    import torch
+
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import bsq as bsq_mod
+    from repro_torch.dist import sharding
+    from repro_torch.models import transformer
+
+    cfg = get_config(PH_FULL)
+    view = SimpleNamespace(shape=PH_SHAPE, coords={ax: 0 for ax in PH_SHAPE})
+
+    def rank_params(n_layers):  # quantised params of a rank's blocks, and of the whole
+        params = transformer.init_params(cfg.scaled(n_layers=n_layers), torch.Generator(),
+                                         "meta")
+        qp, _ = bsq_mod.partition_params(params, bsq_mod.default_quant_predicate)
+        local = sum(math.prod(sharding.local_shape(x.shape, sharding.param_spec(
+            k, tuple(x.shape), view), view)) for k, x in qp.items())
+        return local, sum(x.numel() for x in qp.values())
+
+    (one, one_whole), (two, _) = rank_params(1), rank_params(2)
+    per_layer, fixed = two - one, one - (two - one)
+
+    def ranks_bytes(n_layers):
+        state = PH_BYTES_PER_PARAM * (fixed + n_layers * per_layer)
+        return 8 * (PH_PEAK_OVER_STATE * state + PH_CONTEXT_BYTES), state
+
+    budget = PH_CARD_SHARE * free_bytes
+    layers = max([n for n in range(1, cfg.n_layers + 1) if ranks_bytes(n)[0] <= budget],
+                 default=1)
+    full_total, full_state = ranks_bytes(cfg.n_layers)
+    return layers, {
+        "quantised_params_per_rank_fixed": fixed, "per_layer": per_layer,
+        "state_per_rank_bytes": ranks_bytes(layers)[1], "predicted_total_bytes":
+        ranks_bytes(layers)[0], "budget_bytes": budget,
+        "full_depth_state_per_rank_bytes": full_state, "full_depth_total_bytes": full_total,
+        "full_depth_state_all_ranks_bytes": 8 * full_state, "layers": layers,
+        "published_layers": cfg.n_layers}
+
+
+def _ph_cfg(arch, depth):
+    from repro_torch.configs import get_config, reduced_config
+
+    cfg = get_config(arch).scaled(n_layers=depth) if arch == PH_FULL else reduced_config(arch)
+    return cfg.scaled(dtype="float32", kv_cache_dtype="float32")
+
+
+def _ph_batches(cfg, dev, mesh=None):
+    """PH_STEPS batches, then the two microbatched ones: MarkovLM tokens of
+    the seed-13 chain, this rank's rows on ``mesh`` (in microbatch order for
+    the last two)."""
+    from repro_torch.data import MarkovLM, sharded_lm_iterator
+
+    def rows(microbatches):
+        return sharded_lm_iterator(MarkovLM(vocab=cfg.vocab_size, seed=13), PH_BATCH, PH_SEQ,
+                                   device=dev, sharding=mesh, microbatches=microbatches)
+
+    one, split = rows(1), rows(PH_MB)
+    out = [next(one) for _ in range(PH_STEPS)]
+    return out + [next(split) for _ in range(PH_STEPS + 2)][PH_STEPS:]
+
+
+def _ph_steps(state, ctx, batches, mesh=None, on_step=None):
+    """PH_STEPS steps, then one at PH_MB microbatches hoisted and one not;
+    (state, metrics, step seconds); ``on_step(i)`` after step i."""
+    import torch
+
+    from repro_torch.optim import SGDM, step_decay
+    from repro_torch.train import make_bsq_train_step
+
+    lr = step_decay(0.2, [PH_STEPS])
+    steps = [make_bsq_train_step(ctx, SGDM(), lr, mesh=mesh)] * PH_STEPS + [
+        make_bsq_train_step(ctx, SGDM(), lr, mesh=mesh, microbatches=PH_MB,
+                            hoist_reconstruct=hoist) for hoist in (True, False)]
+    metrics, dts = [], []
+    for i, (step, b) in enumerate(zip(steps, batches)):
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if on_step is not None:
+            on_step(i)
+    return state, metrics, dts
+
+
+def _ph_dry_config_collectives(mesh):
+    """One step of the dry run's train config (launch.dryrun.build_train_cell)
+    of reduced granite-3-2b at PH_BATCH x PH_SEQ on this rank's blocks,
+    under the counter: its collective bytes by kind."""
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core import BSQConfig
+    from repro_torch.data import MarkovLM, sharded_lm_iterator
+    from repro_torch.optim import SGDM, step_decay
+    from repro_torch.roofline import analysis
+    from repro_torch.train import init_bsq_state, make_bsq_train_step
+
+    cfg = reduced_config("granite-3-2b")
+    state, ctx = init_bsq_state(torch.Generator(device=mesh.device).manual_seed(0), cfg,
+                                BSQConfig(n_init=8, alpha=5e-3, mode="static"), SGDM(),
+                                mesh=mesh)
+    step = make_bsq_train_step(ctx, SGDM(), step_decay(0.1, [10_000, 20_000]), mesh=mesh)
+    b = next(sharded_lm_iterator(MarkovLM(vocab=cfg.vocab_size, seed=13), PH_BATCH, PH_SEQ,
+                                 sharding=mesh))
+    with analysis.Counter() as counter:
+        step(state, b)
+    torch.cuda.synchronize(mesh.device)
+    return dict(counter.collectives)
+
+
+def pod_train_rank(mesh, depth):
+    """Phase 6h on one rank of the 2x2x2 mesh, model by model: the steps on
+    its blocks (launches, collectives and seconds per step, peak), its
+    bgl_sumsq launch against the plain version on its own rows, the state's
+    fingerprints; for granite its export served through one bucketed
+    decode (the kernels' shapes recorded); last the dry-run config's
+    collective bytes of one step."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.bsq import export_packed_blocks
+    from repro_torch.kernels import bgl_sumsq as bgl
+    from repro_torch.kernels import ref
+    from repro_torch.optim import SGDM
+    from repro_torch.train import init_bsq_state, state_reps
+    from repro_torch.tree import flatten_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    regularizer = importlib.import_module("repro_torch.core.regularizer")
+    dev = mesh.device
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords)}
+    for arch in [PH_FULL] + PH_REDUCED:
+        cfg = _ph_cfg(arch, depth)
+        r = {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, ctx = init_bsq_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                                    _mt_bsq_cfg(), SGDM(), mesh=mesh)
+        torch.cuda.synchronize(dev)
+        r["init_s"] = time.perf_counter() - t0
+        batches = _ph_batches(cfg, dev, mesh)
+        _reset_launches()
+        mesh.collectives = 0
+        counts = []
+        state, r["metrics"], r["step_s"] = _ph_steps(
+            state, ctx, batches, mesh, lambda i: counts.append(mesh.collectives))
+        r["launches"] = _launch_counts()
+        r["collectives_per_step"] = [b - a for a, b in zip([0] + counts, counts)]
+        r["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        r["peak_reserved_bytes"] = torch.cuda.max_memory_reserved(dev)
+        free, total = torch.cuda.mem_get_info(dev)  # the whole card: every rank, the parent
+        r["card_used_bytes"] = total - free
+        reps = state_reps(state, ctx)
+        xs = [regularizer._rows(getattr(rp, k), rp.group_axes) for k in ("wp", "wn")
+              for rp in reps.values()]
+        got, want = bgl.bgl_sumsq_grouped_cuda(xs), ref.bgl_sumsq_grouped_ref(xs)
+        g = torch.rand(got.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev)
+        grads = bgl.bgl_sumsq_grouped_backward_cuda(xs, g)
+        gs = torch.split(g, [x.shape[0] for x in xs])
+        r["bgl"] = {"rows": sum(x.shape[0] for x in xs),
+                    "max_rel_err": float(((got - want).abs() / want.clamp_min(1e-30)).max()),
+                    "max_abs_err": float((got - want).abs().max()),
+                    "backward_bitwise": all(torch.equal(a, ref.bgl_sumsq_grad_ref(x, gi))
+                                            for a, x, gi in zip(grads, xs, gs))}
+        del xs, got, want, g, grads, gs
+        r["fingerprints"] = {n: _mt_fingerprint(x) for n, x in flatten_with_path(state)}
+        if arch == "granite-3-2b":  # its export, served on the 8 ranks
+            shapes = {k: tuple(x.shape) for k, x in flatten_with_path(ctx.template)}
+            packed = export_packed_blocks(reps, mesh, shapes)
+            served = _mt_served(packed, reps, state, ctx)
+            kernel_shapes, unrecord = _record_kernel_shapes()
+            _reset_launches()
+            try:
+                engine = checked_engine_cls()(served, cfg, max_len=64, mesh=mesh, placed=True)
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res = engine.generate(_mt_requests(cfg))
+            finally:
+                unrecord()
+            r["serve_launches"] = _launch_counts()
+            r["tokens"] = np.stack([x.tokens for x in sorted(res, key=lambda x: x.uid)]).tolist()
+            r["bad"] = int(engine.bad.item())
+            r["kernel_shapes"] = {k: sorted(v, key=str) for k, v in kernel_shapes.items()}
+            del engine, served, packed
+        del reps, state, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = r
+    out["dry_config_collectives"] = _ph_dry_config_collectives(mesh)
+    return out
+
+
+def pod_train_phase(dev, card, time_ms):
+    """Phase 6h: BSQ training on a 2x2x2 ("pod", "data", "model") mesh, 8
+    gloo ranks sharing the card, f32: mamba2-130m at its published width
+    cut to ph_depth's reckoning (printed), reduced granite-3-2b and
+    qwen2-moe-a2.7b; PH_STEPS steps, then one at PH_MB microbatches
+    hoisted and one not.  Per rank and model exactly PH_STEPS + 1 + PH_MB
+    bgl_sumsq launches and as many backward (the hoisted step's regulariser
+    once, the other's once a microbatch) and no serving kernel, the kernel
+    on its own rows against its plain version; after the ranks exit one
+    process runs the same steps on the whole batches: losses and sampled
+    state by 6g's bars (_mk_held).  granite's export served on the 8 ranks
+    gives one process's tokens; bitserial and flash against their plain
+    versions at every shape the ranks gave them.  Each rank's collective
+    bytes of one step of the dry run's train config equal the dry run's
+    meta count of rank 0 on 2x2x2 exactly."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, reduced_config
+    from repro_torch.core import export_packed
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.optim import SGDM
+    from repro_torch.train import init_bsq_state, state_reps
+    from repro_torch.tree import flatten_with_path
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    depth, reck = ph_depth(torch.cuda.mem_get_info(dev)[0])
+    print(f"[6h] the reckoning of {PH_FULL}'s depth on 2x2x2: {reck['per_layer']:,} quantised "
+          f"params a layer and {reck['quantised_params_per_rank_fixed']:,} beside the layers "
+          f"on a rank, x {PH_BYTES_PER_PARAM} B (planes, moments, gradients); at its "
+          f"{reck['published_layers']} layers "
+          f"{reck['full_depth_state_per_rank_bytes'] / 1e9:.2f} GB of state a rank, "
+          f"{reck['full_depth_state_all_ranks_bytes'] / 1e9:.1f} GB on the 8 ranks (the pod axis "
+          f"holds a second copy), {reck['full_depth_total_bytes'] / 1e9:.1f} GB with the "
+          f"allocator's reserved peak over state ({PH_PEAK_OVER_STATE:.3f}) and "
+          f"{PH_CONTEXT_BYTES / 1e9:.1f} GB of CUDA context a rank; the greatest depth within "
+          f"{PH_CARD_SHARE:.0%} of the card's free bytes ({reck['budget_bytes'] / 1e9:.1f} GB): "
+          f"{depth} layers, predicted "
+          f"{reck['predicted_total_bytes'] / 1e9:.1f} GB [{card}]", flush=True)
+    archs = [PH_FULL] + PH_REDUCED
+    rep = {"mesh": [2, 2, 2], "steps": PH_STEPS, "microbatches": PH_MB,
+           "batch": [PH_BATCH, PH_SEQ], "depth": depth, "reckoning": reck,
+           "parent_reserved_bytes": torch.cuda.memory_reserved(dev)}
+    t0 = time.perf_counter()
+    ranks = run_on_mesh(pod_train_rank, 2, 2, pod=2, backend="gloo", device=dev,
+                        args=(depth,))
+    rep["ranks_wall_s"] = time.perf_counter() - t0
+    check([tuple(r["coords"].values()) for r in ranks]
+          == [(p, d, m) for p in range(2) for d in range(2) for m in range(2)],
+          f"[6h] rank coordinates {[r['coords'] for r in ranks]}")
+    n = PH_STEPS + 1 + PH_MB
+    fails = []
+
+    def soft(ok, what):
+        if not ok:
+            print(f"chip_smoke: {what}", flush=True)
+            fails.append(what)
+
+    rep["models"] = {}
+    for arch in archs:
+        tag = f"[6h] {arch}"
+        for r in ranks:
+            la, b = r[arch]["launches"], r[arch]["bgl"]
+            check(la["bgl_sumsq"] == la["bgl_sumsq_backward"] == n
+                  and la["bitserial_matmul"] == la["flash_attention"] == la["paged_attention"] == 0,
+                  f"{tag} rank {r['rank']}: launches {la}, expected {n} + {n} bgl_sumsq "
+                  f"({PH_STEPS} steps, the hoisted step's 1, the other's {PH_MB}) and no other")
+            check(b["max_rel_err"] <= BGL_TOL and b["backward_bitwise"],
+                  f"{tag} rank {r['rank']}: bgl_sumsq on its rows vs plain {b}")
+        cfg = _ph_cfg(arch, depth)
+        state, ctx = init_bsq_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                                    _mt_bsq_cfg(), SGDM(), dev)
+        zero = {name for name, x in flatten_with_path(state) if not bool(x.any())}
+        state, want, t_one = _ph_steps(state, ctx, _ph_batches(cfg, dev))
+        worst, rows, worst_state, worst_moment = _mk_held(tag, ranks, arch, want, state, zero,
+                                                          PH_SHAPE, soft)
+        r0 = ranks[0][arch]
+        m = {"loss_max_rel_err": worst, "state_max_err_of_max": worst_state,
+             "moment_max_err_of_max": worst_moment, "state_worst_leaves": rows[:3],
+             "step_s": [r[arch]["step_s"] for r in ranks], "one_process_step_s": t_one,
+             "collectives_per_step": r0["collectives_per_step"],
+             "peak_bytes": [r[arch]["peak_bytes"] for r in ranks],
+             "peak_reserved_bytes": [r[arch]["peak_reserved_bytes"] for r in ranks],
+             "card_used_bytes": max(r[arch]["card_used_bytes"] for r in ranks),
+             "init_s": [r[arch]["init_s"] for r in ranks],
+             "launches_per_rank": {r["rank"]: r[arch]["launches"] for r in ranks},
+             "bgl_rows_per_rank": r0["bgl"]["rows"],
+             "bgl_max_rel_err": max(r[arch]["bgl"]["max_rel_err"] for r in ranks),
+             "bgl_max_abs_err": max(r[arch]["bgl"]["max_abs_err"] for r in ranks),
+             "metrics": r0["metrics"], "one_process_metrics": want}
+        if arch == "granite-3-2b":  # the export served: tokens against one process's
+            served = _mt_served(export_packed(state_reps(state, ctx)), state_reps(state, ctx),
+                                state, ctx)
+            res = checked_engine_cls()(served, cfg, max_len=64, device=dev).generate(
+                _mt_requests(cfg))
+            one_tokens = np.stack([x.tokens for x in sorted(res, key=lambda x: x.uid)]).tolist()
+            for r in ranks:
+                g = r[arch]
+                check(g["bad"] == 0 and g["tokens"] == one_tokens
+                      and g["serve_launches"]["bitserial_matmul"] > 0
+                      and g["serve_launches"]["flash_attention"] > 0,
+                      f"{tag} rank {r['rank']}: served tokens {g['tokens']} vs one process "
+                      f"{one_tokens}, bad {g['bad']}, launches {g['serve_launches']}")
+            m["tokens"], m["serve_launches"] = one_tokens, r0["serve_launches"]
+            del served, res
+        del state, ctx
+        gc.collect()
+        torch.cuda.empty_cache()
+        rep["models"][arch] = m
+        print(f"{tag} ({cfg.n_layers} layers, d_model {cfg.d_model}): s per step per rank "
+              f"(rank 0; {PH_STEPS} steps, then microbatches {PH_MB} hoisted and not) "
+              f"{[round(x, 3) for x in r0['step_s']]}, one process "
+              f"{[round(x, 3) for x in t_one]}; collectives per step "
+              f"{r0['collectives_per_step']}; peak per rank {max(m['peak_bytes']) / 1e9:.2f} "
+              f"GB allocated, {max(m['peak_reserved_bytes']) / 1e9:.2f} GB reserved, the card "
+              f"{m['card_used_bytes'] / 1e9:.1f} GB used after the steps; losses within {worst:.2e} of one process (ce {want[-1]['ce']:.5f}, aux "
+              f"{want[-1]['aux']:.5f}); sampled state within {worst_state:.2e} and moments "
+              f"{worst_moment:.2e} of each block's max; bgl_sumsq {n} + {n} launches per rank "
+              f"on its {r0['bgl']['rows']} rows, within {m['bgl_max_rel_err']:.2e} of plain, "
+              f"backward bitwise [{card}]", flush=True)
+    check(not fails, f"[6h] {len(fails)} checks failed: {fails[:6]}")
+    g0 = rep["models"]["granite-3-2b"]
+    print(f"[6h] granite-3-2b's export served on the 8 ranks: tokens {g0['tokens'][0]} equal "
+          f"one process's on every rank; launches per rank {g0['serve_launches']} [{card}]",
+          flush=True)
+    # bitserial and flash at every shape the ranks gave them
+    seen = {k: {tuple(x) for r in ranks for x in r["granite-3-2b"]["kernel_shapes"][k]}
+            for k in ("bitserial", "flash")}
+    check(seen["bitserial"] and seen["flash"], f"[6h] kernel shapes seen: {seen}")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    held = {"bitserial": [bitserial_case(dev, gen, card, time_ms, M, K, N, g, getattr(torch, dt),
+                                         timed=False)
+                          for M, K, N, dt, g in sorted(seen["bitserial"], key=str)],
+            "flash": [_kinds_flash_case(dev, *sh) for sh in sorted(seen["flash"], key=str)]}
+    for k, rs in held.items():
+        worst = max(x["max_abs_err"] / max(x["max_abs_plain"], 1e-30) for x in rs)
+        print(f"[6h] {k} against its plain version at the {len(rs)} shapes the 2x2x2 ranks gave "
+              f"it ({sorted(seen[k], key=str)[:4]}...): every one within tolerance; the worst "
+              f"relative error {worst:.3e} [{card}]", flush=True)
+    rep["kernels_at_rank_shapes"] = held
+    # the live collective bytes against the dry run's meta count
+    meta = dict(dryrun.run_meta(reduced_config("granite-3-2b"),
+                                ShapeConfig("pod_smoke", PH_SEQ, PH_BATCH, "train"), "bsq", 1,
+                                mesh_shape=PH_SHAPE)[0].collectives)
+    for r in ranks:
+        check(r["dry_config_collectives"] == meta,
+              f"[6h] rank {r['rank']}: live collective bytes {r['dry_config_collectives']} != "
+              f"the dry run's meta count {meta}")
+    rep["collective_bytes_one_step"] = meta
+    print(f"[6h] one step of the dry run's train config (reduced granite-3-2b, {PH_BATCH} x "
+          f"{PH_SEQ}) on each of the 8 ranks: collective bytes by kind "
+          f"{ {k: v for k, v in meta.items() if v} } == the dry run's meta count of rank 0 on "
+          f"2x2x2, exactly; ranks' wall {rep['ranks_wall_s']:.1f} s [{card}]", flush=True)
+    rep["launches"] = {k: sum(r[a]["launches"][k] for r in ranks for a in archs)
+                       for k in ("bgl_sumsq", "bgl_sumsq_backward")}
+    rep["serve_launches"] = {k: sum(r["granite-3-2b"]["serve_launches"][k] for r in ranks)
+                             for k in ("bitserial_matmul", "flash_attention")}
     return rep
 
 
@@ -7224,10 +7708,33 @@ def kernel_entries(report, max_err):
         e["mesh_kinds_max_rel_err"] = max(r["max_abs_err"] / max(r["max_abs_plain"], 1e-30)
                                           for r in held)
     f_entry["launches_mesh_kinds_windowed"] = mk["launches"]["flash_windowed"]
+    # the pod mesh phase (6h): the grouped launches summed over its 8 ranks and
+    # 3 models; the served export's bitserial and flash launches, and the
+    # shapes the ranks gave them, each held to its plain version
+    ph = report["pod_train"]
+    b_entry["launches_pod_train"] = ph["launches"]["bgl_sumsq"]
+    bb_entry["launches_pod_train"] = ph["launches"]["bgl_sumsq_backward"]
+    for e, key, rows in ((entry, "bitserial_matmul", "bitserial"),
+                         (f_entry, "flash_attention", "flash")):
+        held = ph["kernels_at_rank_shapes"][rows]
+        e["launches_pod_serve"] = ph["serve_launches"][key]
+        e["pod_shapes_held_to_plain"] = len(held)
+        e["pod_max_rel_err"] = max(r["max_abs_err"] / max(r["max_abs_plain"], 1e-30)
+                                   for r in held)
     return [entry, d_entry, pre_entry, p_entry, b_entry, bb_entry, f_entry]
 
 
 def main() -> int:
+    try:
+        return _main()
+    finally:  # stop every process the script started
+        for proc in BACKGROUND:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -7298,7 +7805,6 @@ def main() -> int:
               f"{name}.cu: ptxas reports spills (or nothing): {spills}")
     print("[build] bitserial_matmul, flash_attention, paged_attention: no spills in any kernel",
           flush=True)
-
     # ---------------------------------------------------- 2, 2b, 2c, 2d
     # > the 50 MB L2; freed after phase 2d, allocated again for 4k's kernel rows
     flush = [torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)]
@@ -7347,6 +7853,8 @@ def main() -> int:
     flush.clear()
 
     # ---------------------------------------------------------- 3, 3b-3h
+    # phase 6e's dry runs run on the host beside these parity phases
+    dry_jobs = start_pod_dryruns() if want("6e") else None
     if want("3"):
         cfg2, p_gpu, p_cpu = granite_parity(dev, card, report)
         report["parity"]["continuous_tokens"] = continuous_parity(cfg2, p_gpu, p_cpu, dev, card)
@@ -7377,6 +7885,10 @@ def main() -> int:
     if want("3h"):
         report["parity_frontend"] = frontend_parity(dev, card)
         phase_done("3h")
+    dry_recs = None
+    if dry_jobs:  # nothing timed runs beside them
+        dry_recs = wait_pod_dryruns(dry_jobs)
+        phase_done("the dry runs")
 
     # ---------------------------- 4, 4b, 5, 4d, 4c, 4e, 4f, 4g, 4h, 4i, 4j
     CheckedEngine = checked_engine_cls()
@@ -7445,7 +7957,7 @@ def main() -> int:
         report["lm_examples"] = lm_examples(dev, card)
         phase_done("6d")
     if want("6e"):
-        report["dryrun"] = dryrun_phase(dev, card)
+        report["dryrun"] = dryrun_phase(dev, card, dry_recs)
         phase_done("6e")
     if want("6f"):
         flush.append(torch.empty(256 * 2**20, dtype=torch.uint8, device=dev))
@@ -7458,6 +7970,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         report["mesh_kinds_train"] = mesh_kinds_train_phase(dev, card, time_ms, flush)
         phase_done("6g")
+    if want("6h"):
+        report["pod_train"] = pod_train_phase(dev, card, time_ms)
+        phase_done("6h")
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -13,8 +13,10 @@ version on the CPU (the JAX package's regulariser computes the same sums
 in jnp, ``sum wp^2 + sum wn^2``).
 
 On a ("data", "model") mesh each rank holds its block of every plane
-tensor.  Its one grouped call runs on the rows of its own blocks; where a
-rule splits a group axis (the stacked experts' E over "model") a
+tensor (on a ("pod", "data", "model") mesh each pod holds a copy of
+them: every sum below runs over the mesh's ``weight_axes``, the axes a
+weight may split, never over "pod").  Its one grouped call runs on the
+rows of its own blocks; where a rule splits a group axis (the stacked experts' E over "model") a
 tensor's rows are placed at their groups' offsets in the whole tensor's
 (bit, group) rows, zeros at the other ranks' groups
 (``dist.sharding.place_block``).  One ``all_reduce`` over the mesh (a
@@ -71,7 +73,7 @@ def _sumsq(reps: List[BitRep], mesh=None, keep: Optional[List[float]] = None,
     sqs = [_placed(sq, r, spec, mesh) for sq, r, spec in zip(sqs, reps, specs)]
     k = torch.cat([torch.full((sq.shape[0],), float(c), device=flat.device)
                    for sq, c in zip(sqs, keep)])
-    whole = mesh.all_reduce(torch.cat(sqs), tuple(mesh.shape), keep=k)
+    whole = mesh.all_reduce(torch.cat(sqs), mesh.weight_axes, keep=k)
     return torch.split(whole, [sq.shape[0] for sq in sqs])
 
 

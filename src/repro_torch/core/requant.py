@@ -92,7 +92,8 @@ def mesh_nonzero(reps, mesh, specs: Optional[dict] = None) -> dict:
     no rule splits a group axis).  Each rank's flags are placed at its
     groups' offsets (False at other ranks' groups), and or-ing a flag that
     copies of a block share changes nothing, so one reduction over the
-    whole mesh serves tensors split over any of its axes."""
+    whole mesh serves tensors split over any of its axes (a pod's flags
+    are a copy of every other pod's)."""
     from ..dist.sharding import group_spec, place_block
 
     specs = specs or {}

@@ -86,6 +86,7 @@ def sharded_lm_iterator(
     device=None,
     sharding=None,
     prefetch: int = 2,
+    microbatches: int = 1,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Infinite iterator of LM batches on ``device`` (the card unless
     ``device="cpu"``): integer arrays (tokens, labels) as int64 tensors,
@@ -99,17 +100,20 @@ def sharded_lm_iterator(
     ``sharding``: a :class:`~repro_torch.launch.mesh.HostMesh`.  Each rank
     draws the whole global batch of process 0 (JAX's on one host) and
     keeps its rows under ``dist.sharding.data_batch_spec``, on the mesh's
-    device; a batch the data axes do not divide raises.
+    device; a batch the data axes do not divide raises.  With
+    ``microbatches`` the rows are the rank's block of each of JAX's
+    microbatches in turn (``dist.sharding.batch_block``), the layout the
+    train step's gradient accumulation reads.
     """
     pi, pc = 0, 1
     sl = host_slice(global_batch, pi, pc)
     local = sl.stop - sl.start
     mesh = sharding
     if mesh is not None:
-        from ..dist.sharding import data_batch_spec, dp_axes, local_block
+        from ..dist.sharding import batch_block, dp_axes
 
         n_dp = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
-        if n_dp > 1 and dp_axes(mesh, global_batch) is None:
+        if n_dp > 1 and dp_axes(mesh, global_batch // microbatches) is None:
             raise ValueError(f"global batch {global_batch} does not divide over the mesh's "
                              f"data axes ({mesh.shape})")
         device = mesh.device
@@ -119,7 +123,7 @@ def sharded_lm_iterator(
         v = np.asarray(v)
         t = torch.from_numpy(v.astype(np.float32 if v.dtype.kind == "f" else np.int64))
         if mesh is not None:
-            t = local_block(t, data_batch_spec(mesh, global_batch, t.ndim), mesh)
+            t = batch_block(t, mesh, microbatches)
         return t.to(device)
 
     def gen():

@@ -196,12 +196,12 @@ def spec_axes(spec) -> Tuple[str, ...]:
 
 def counted_once(spec, mesh) -> float:
     """1.0 on the ranks whose block of a tensor under ``spec`` counts in a
-    sum over the whole mesh, else 0.0: every rank counts its distinct
-    block, and of the ranks along an axis the tensor is whole on, only
-    index 0 counts."""
+    sum over the mesh's weight axes (every axis but "pod", whose ranks
+    hold copies), else 0.0: every rank counts its distinct block, and of
+    the ranks along an axis the tensor is whole on, only index 0 counts."""
     split = spec_axes(spec)
-    return float(all(mesh.coords[ax] == 0 for ax, n in mesh.shape.items()
-                     if n > 1 and ax not in split))
+    return float(all(mesh.coords[ax] == 0 for ax in mesh.weight_axes
+                     if mesh.shape[ax] > 1 and ax not in split))
 
 
 def flatten_specs(spec_tree, prefix: str = ""):
@@ -579,3 +579,21 @@ def data_batch_spec(mesh, batch_dim: int, ndim: int) -> PartitionSpec:
     if ndim >= 1:
         spec[0] = dp_axes(mesh, batch_dim)
     return P(*spec)
+
+
+def batch_block(tensor, mesh, microbatches: int = 1):
+    """This rank's rows of a global batch (leading dim B) for a step of
+    ``microbatches``: JAX's microbatch i is global rows ``i*B/mb ..
+    (i+1)*B/mb``, and the rank keeps its block of each under
+    :func:`data_batch_spec`, in microbatch order, so that the step's i-th
+    block of its rows is its part of microbatch i.  With one microbatch it
+    is :func:`local_block` under :func:`data_batch_spec`."""
+    B = tensor.shape[0]
+    if microbatches == 1:
+        return local_block(tensor, data_batch_spec(mesh, B, tensor.ndim), mesh)
+    if B % microbatches:
+        raise ValueError(f"batch {B} does not split into {microbatches} microbatches")
+    split = tensor.reshape((microbatches, B // microbatches) + tuple(tensor.shape[1:]))
+    spec = P(None, *data_batch_spec(mesh, B // microbatches, tensor.ndim))
+    block = local_block(split, spec, mesh)
+    return block.reshape((-1,) + tuple(tensor.shape[1:]))

@@ -1,8 +1,9 @@
 """Hillclimb: run named variants of three dry-run cells and log
-hypothesis -> change -> before -> after, on the one-card dry run
-(``launch.dryrun``; meta tensors, terms computed from H100 data-sheet
-figures, nothing measured).  PyTorch port of ``repro.launch.hillclimb``:
-the same cells, labels and overrides.
+hypothesis -> change -> before -> after, on the dry run's 16x16 mesh as
+JAX's cells run (``launch.dryrun``; rank 0 on meta tensors, terms
+computed from H100 data-sheet figures, nothing measured), A6 on the
+2x16x16 mesh it names.  PyTorch port of ``repro.launch.hillclimb``: the
+same cells, labels and overrides.
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --cell A --out results/hillclimb.json
 """
@@ -12,7 +13,7 @@ import json
 import os
 
 from ..configs import get_config
-from .dryrun import run_cell
+from .dryrun import MESHES, run_cell
 
 # (cell, label, hypothesis, run_cell overrides, cfg overrides)
 VARIANTS = {
@@ -51,17 +52,18 @@ VARIANTS = {
          "H-A8: compose A7's reading with A3; an alias of 'dots+bf16' (ALIASES)",
          {}, {"remat_policy": "dots", "attn_scores_dtype": "bfloat16"}),
         ("dots_bf16_multipod",
-         "H-A6: a larger mesh halves each device's batch rows, so A3's saved "
-         "set halves -> needs the multi-pod mesh, which comes with the next mesh "
-         "slice (ROADMAP item 9b-ii): recorded as a failed cell until then",
+         "H-A6: the 2x16x16 mesh halves each device's batch rows, so A3's saved "
+         "set halves -> predict about half A3's temp peak on 16x16, the parameter "
+         "bytes unchanged (no rule splits a weight over 'pod')",
          {"multi_pod": True}, {"remat_policy": "dots", "attn_scores_dtype": "bfloat16"}),
     ],
     # B: qwen2-moe x train_4k — the MoE train step.
     "B": [
         ("baseline_fixed_sharding",
-         "H-B0: the baseline MoE train step on one card: the (E, C) dispatch "
-         "runs every one of the 60 experts' products -> predict the expert "
-         "products lead the FLOPs and the dispatch buffers the bytes",
+         "H-B0: the baseline MoE train step on 16x16: 60 experts do not divide "
+         "the 16-way model axis, so the rule keeps E whole and every rank's (E, C) "
+         "dispatch runs all 60 experts' products on its 'data' slice of each -> "
+         "predict the expert products lead the FLOPs and the dispatch buffers the bytes",
          {}, {}),
         ("remat_dots_bf16",
          "H-B1: carry A's winners onto the MoE cell",
@@ -143,7 +145,7 @@ def main(argv=None):
                 cfg = get_config(arch)
                 if ckw:
                     cfg = dataclasses.replace(cfg, **ckw)
-                rec = run_cell(arch, shape, cfg_override=cfg, **rkw)
+                rec = run_cell(arch, shape, cfg_override=cfg, mesh_shape=MESHES["16x16"], **rkw)
             rec.update(cell=cell, label=label, hypothesis=hypothesis)
             results.append(rec)
             os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

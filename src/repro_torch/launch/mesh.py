@@ -1,15 +1,27 @@
 """Mesh construction and the mesh's collectives (PyTorch port of
 ``repro.launch.mesh``).
 
-A mesh position is a process: rank ``data_index * model + model_index``,
+A mesh position is a process: rank ``(pod_index * data + data_index) *
+model + model_index`` (``pod`` 1 gives the ("data", "model") mesh),
 row-major as ``jax.make_mesh`` lays devices out.  :func:`make_host_mesh`
 builds the live mesh on an initialised ``torch.distributed`` process
-group (a ``DeviceMesh`` gives the per-axis groups);
+group (a ``DeviceMesh`` gives the per-axis groups; a pod mesh adds one
+group over ("pod", "data"), the batch's axes, and one over ("data",
+"model"), a weight's, so a sum over either is one collective);
 :func:`make_production_mesh` returns the shape-only 16x16 or 2x16x16 mesh
-that the partition rules read, since one card cannot hold 256 ranks.
+that the partition rules read, and :func:`meta_mesh` rank 0's live view
+of such a mesh in this one process, on torch's fake backend (every
+collective a no-op on ``meta`` tensors), which the dry run counts.
 Nothing here touches device or process-group state at import.
 
-:func:`run_on_mesh` starts the ``data * model`` ranks itself, the role
+The partition rules never name "pod" for a parameter: a pod holds a whole
+copy of every weight block and of the training state, and only the batch
+(and the serving cache's lanes) splits over it.  So a sum over the batch
+runs over a mesh's ``data_axes`` and a sum over a weight's blocks over
+its ``weight_axes``, never over "pod", which would count each block once
+per pod.
+
+:func:`run_on_mesh` starts the ``pod * data * model`` ranks itself, the role
 ``XLA_FLAGS=--xla_force_host_platform_device_count`` plays for JAX: one
 ``spawn``-ed process per rank (CUDA forbids fork) meeting at a
 ``file://`` rendezvous in a temporary directory, so parallel test
@@ -44,10 +56,13 @@ backward is ``reduce_scatter``: each data rank's batch adds its part).
 :meth:`HostMesh.training_view` hides the data axis (size 1 there): the
 training forward runs on the "model" axis alone, its batch already this
 data rank's; :meth:`HostMesh.batch_sum` sums a statistic of the whole
-batch over the hidden axis, its gradient summed back.
+batch over the hidden axis, its gradient summed back.  A pod mesh's
+training view hides "pod" as it hides "data".
 """
 from __future__ import annotations
 
+import contextlib
+import math
 import os
 import pickle
 import tempfile
@@ -56,6 +71,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
 
 
 class AbstractMesh:
@@ -64,6 +80,17 @@ class AbstractMesh:
 
     def __init__(self, shape: Dict[str, int]):
         self.shape = dict(shape)
+
+    @property
+    def data_axes(self) -> tuple:
+        """The axes a batch splits over: ("pod", "data") on a pod mesh."""
+        return tuple(ax for ax in ("pod", "data") if ax in self.shape)
+
+    @property
+    def weight_axes(self) -> tuple:
+        """The axes the partition rules may split a weight over: every axis
+        but "pod", over which each weight block is a copy."""
+        return tuple(ax for ax in self.shape if ax != "pod")
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.shape})"
@@ -78,21 +105,35 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
 
 
 class HostMesh(AbstractMesh):
-    """This process's place on a live ("data", "model") mesh: ``coords``
-    (axis -> index), ``device`` (where its tensors live), the per-axis
-    process groups, and the collectives the port runs over them."""
+    """This process's place on a live ("data", "model") or ("pod", "data",
+    "model") mesh: ``coords`` (axis -> index), ``device`` (where its
+    tensors live), the per-axis process groups, and the collectives the
+    port runs over them."""
 
-    def __init__(self, data: int, model: int, device, backend: str):
+    # frozenset of two axes -> the process group over both (a pod mesh's
+    # ("pod", "data") and ("data", "model")); none on a 2-axis mesh
+    _pairs: Dict[frozenset, object] = {}
+
+    def __init__(self, data: int, model: int, device, backend: str, pod: int = 1):
         import torch.distributed as dist
         from torch.distributed.device_mesh import init_device_mesh
 
-        super().__init__({"data": data, "model": model})
+        axes = POD_AXES if pod > 1 else AXES
+        dims = (pod, data, model) if pod > 1 else (data, model)
+        super().__init__(dict(zip(axes, dims)))
         self.rank = dist.get_rank()
         self.device = torch.device(device)
         self.backend = backend
-        self.coords = {"data": self.rank // model, "model": self.rank % model}
+        idx, r = [], self.rank
+        for n in reversed(dims):  # row-major: the last axis fastest
+            idx.append(r % n)
+            r //= n
+        self.coords = dict(zip(axes, reversed(idx)))
         dev_type = "cuda" if backend == "nccl" else "cpu"
-        self.device_mesh = init_device_mesh(dev_type, (data, model), mesh_dim_names=AXES)
+        self.device_mesh = init_device_mesh(dev_type, dims, mesh_dim_names=axes)
+        if pod > 1:  # one group over each pair of axes a sum runs over together
+            self._pairs = {frozenset(pair): _pair_group(self.shape, pair, self.rank)
+                           for pair in (("pod", "data"), ("data", "model"))}
         self._root = self  # a view counts its collectives on the mesh it views
         self._count = 0
 
@@ -117,11 +158,11 @@ class HostMesh(AbstractMesh):
         return tuple(ax for ax in _axes(axes) if self.shape[ax] > 1)
 
     def training_view(self) -> "HostMesh":
-        """This rank's place as the training forward sees it: the data axis
-        has size 1 and index 0 (each rank's batch is its own, and its weight
-        blocks are gathered over "data" before the forward), so the
-        partition rules and the collectives run on the "model" axis alone.
-        The groups are this mesh's."""
+        """This rank's place as the training forward sees it: the data axes
+        ("pod" too) have size 1 and index 0 (each rank's batch is its own,
+        and its weight blocks are gathered over "data" before the forward),
+        so the partition rules and the collectives run on the "model" axis
+        alone.  The groups are this mesh's."""
         import copy
 
         v = copy.copy(self)
@@ -152,6 +193,8 @@ class HostMesh(AbstractMesh):
         if len(live) > 1 and set(live) == set(self.live(tuple(self.shape))) \
                 and dist.get_world_size() == self.size():
             return [None]
+        if frozenset(live) in self._root._pairs:
+            return [self._root._pairs[frozenset(live)]]
         return [self.group(ax) for ax in live]
 
     def size(self) -> int:
@@ -206,24 +249,27 @@ class HostMesh(AbstractMesh):
             return t
         return _Enter.apply(t, self, axes)
 
-    def reduce_scatter(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
-        """``t`` summed over the ranks along ``axes``, this rank's block of
-        the sum on ``dim`` kept: an ``all_reduce`` and a slice, since gloo
-        has no reduce-scatter (the same bits as one)."""
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int, also=()) -> torch.Tensor:
+        """``t`` summed over the ranks along ``axes`` (and along the axes
+        ``also``, whose ranks hold the same block), this rank's block of
+        the sum over ``axes`` on ``dim`` kept: an ``all_reduce`` and a
+        slice, since gloo has no reduce-scatter (the same bits as one)."""
         if not self.live(axes):
-            return t
-        return _block(self, self._all_reduce(t, axes), axes, dim % t.ndim).contiguous()
+            return self._all_reduce(t, also) if self.live(also) else t
+        summed = self._all_reduce(t, _axes(also) + _axes(axes))
+        return _block(self, summed, axes, dim % t.ndim).contiguous()
 
-    def shard_gather(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    def shard_gather(self, t: torch.Tensor, axes, dim: int, also=()) -> torch.Tensor:
         """:meth:`all_gather` whose backward is :meth:`reduce_scatter`: a
         weight block gathered whole for the ranks of ``axes`` whose batches
         differ (the data axis's FSDP), each adding its part of the
-        gradient."""
-        if not self.live(axes):
+        gradient, and the ranks of ``also`` (the pods, each a copy of the
+        block) theirs."""
+        if not (self.live(axes) or self.live(also)):
             return t
         if not _differentiable(t):
             return self._all_gather(t, axes, dim)
-        return _ShardGather.apply(t, self, axes, dim)
+        return _ShardGather.apply(t, self, axes, dim, also)
 
     def all_gather(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """The blocks of ``t`` along ``axes`` concatenated on ``dim`` in
@@ -338,13 +384,13 @@ class _ShardGather(torch.autograd.Function):
     """All-gather forward, reduce-scatter of the gradient backward."""
 
     @staticmethod
-    def forward(ctx, t, mesh, axes, dim):
-        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim % t.ndim
+    def forward(ctx, t, mesh, axes, dim, also):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.also = mesh, axes, dim % t.ndim, also
         return mesh._all_gather(t, axes, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.reduce_scatter(g, ctx.axes, ctx.dim), None, None, None
+        return ctx.mesh.reduce_scatter(g, ctx.axes, ctx.dim, ctx.also), None, None, None, None
 
 
 def _axes(axes) -> tuple:
@@ -353,19 +399,73 @@ def _axes(axes) -> tuple:
     return axes if isinstance(axes, tuple) else (axes,)
 
 
-def make_host_mesh(data: int = 1, model: int = 1, *, device="cpu",
+def _pair_group(shape: Dict[str, int], pair, rank: int):
+    """The process group of this rank's ranks along the two axes ``pair``
+    (every group of that pair is made, as ``torch.distributed`` asks of
+    every rank); its ranks in row-major order over the pair."""
+    import itertools
+
+    import torch.distributed as dist
+
+    axes = list(shape)
+    strides = {ax: math.prod(shape[b] for b in axes[i + 1:]) for i, ax in enumerate(axes)}
+    rest = [ax for ax in axes if ax not in pair]
+    groups = []
+    for fixed in itertools.product(*(range(shape[ax]) for ax in rest)):
+        base = sum(i * strides[ax] for ax, i in zip(rest, fixed))
+        groups.append(sorted(base + sum(i * strides[ax] for ax, i in zip(pair, idx))
+                             for idx in itertools.product(*(range(shape[ax]) for ax in pair))))
+    mine, _ = dist.new_subgroups_by_enumeration(groups)
+    return mine
+
+
+def make_host_mesh(data: int = 1, model: int = 1, *, pod: int = 1, device="cpu",
                    backend: Optional[str] = None) -> HostMesh:
-    """The live (data, model) mesh of this process, on a process group of
-    world size ``data * model`` that the caller has initialised."""
+    """The live (data, model) mesh of this process, or with ``pod`` > 1 the
+    (pod, data, model) one, on a process group of world size ``pod * data
+    * model`` that the caller has initialised."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
         raise RuntimeError("make_host_mesh needs an initialised torch.distributed process "
                            "group (run_on_mesh starts one per rank)")
-    if dist.get_world_size() != data * model:
-        raise ValueError(f"a {data}x{model} mesh needs world size {data * model}, "
+    world = pod * data * model
+    if dist.get_world_size() != world:
+        name = f"{pod}x{data}x{model}" if pod > 1 else f"{data}x{model}"
+        raise ValueError(f"a {name} mesh needs world size {world}, "
                          f"not {dist.get_world_size()}")
-    return HostMesh(data, model, device, backend or dist.get_backend())
+    return HostMesh(data, model, device, backend or dist.get_backend(), pod=pod)
+
+
+@contextlib.contextmanager
+def meta_mesh(shape: Dict[str, int]):
+    """Rank 0's live view of a mesh of ``shape`` (``{"data": 16, "model":
+    16}``, or with "pod" first), in this one process and on ``meta``
+    tensors: a :class:`HostMesh` on torch's fake process group
+    (``torch.testing._internal.distributed.fake_pg``), whose collectives
+    run the c10d ops without moving a byte.  The dry run counts them as the
+    live mesh issues them.  The process group lives only inside the
+    ``with`` and is destroyed after it; a process with a group of its own
+    is refused."""
+    import torch.distributed as dist
+
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:  # a private module of torch: say what is missing
+        raise RuntimeError(f"the meta mesh needs torch's fake process group "
+                           f"(torch.testing._internal.distributed.fake_pg): {e}") from e
+    if dist.is_initialized():
+        raise RuntimeError("meta_mesh: this process already has a torch.distributed group")
+    dims = tuple(shape.values())
+    expect = POD_AXES if len(dims) == 3 else AXES
+    if tuple(shape) != expect:
+        raise ValueError(f"a mesh shape's axes are {AXES} or {POD_AXES}, not {tuple(shape)}")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(dims))
+    try:
+        yield HostMesh(dims[-2], dims[-1], "meta", "fake",
+                       pod=dims[0] if len(dims) == 3 else 1)
+    finally:
+        dist.destroy_process_group()
 
 
 def check_backend(backend: str, device, world: int) -> None:
@@ -392,7 +492,7 @@ def _rank_device(backend: str, device, rank: int) -> torch.device:
     return torch.device("cuda", dev.index or 0)  # gloo: the ranks share the card
 
 
-def _rank_main(rank, fn, data, model, backend, device, tmp, args, threads):
+def _rank_main(rank, fn, pod, data, model, backend, device, tmp, args, threads):
     import torch.distributed as dist
 
     torch.set_num_threads(threads)
@@ -400,9 +500,9 @@ def _rank_main(rank, fn, data, model, backend, device, tmp, args, threads):
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
-                            world_size=data * model, rank=rank)
+                            world_size=pod * data * model, rank=rank)
     try:
-        mesh = make_host_mesh(data, model, device=dev, backend=backend)
+        mesh = make_host_mesh(data, model, pod=pod, device=dev, backend=backend)
         result = fn(mesh, *args)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(result, f)
@@ -412,9 +512,10 @@ def _rank_main(rank, fn, data, model, backend, device, tmp, args, threads):
 
 
 def run_on_mesh(fn: Callable, data: int, model: int, *, backend: str, device="cuda",
-                args: Sequence = (), threads: Optional[int] = None) -> list:
-    """Run ``fn(mesh, *args)`` on every rank of a ``data x model`` mesh,
-    each rank a spawned process, and return the ranks' results in rank
+                args: Sequence = (), threads: Optional[int] = None, pod: int = 1) -> list:
+    """Run ``fn(mesh, *args)`` on every rank of a ``data x model`` mesh
+    (``pod x data x model`` with ``pod`` > 1), each rank a spawned
+    process, and return the ranks' results in rank
     order (``fn`` and its results must pickle).  A rank that raises fails
     the call: the others are stopped and the error is raised here.  On
     CUDA the kernels are built here first, so the ranks load the
@@ -422,7 +523,7 @@ def run_on_mesh(fn: Callable, data: int, model: int, *, backend: str, device="cu
     count over the world size) sets each rank's ``torch.set_num_threads``."""
     import torch.multiprocessing as mp
 
-    world = data * model
+    world = pod * data * model
     check_backend(backend, device, world)
     if torch.device(device).type == "cuda":
         from ..kernels import _build
@@ -431,7 +532,7 @@ def run_on_mesh(fn: Callable, data: int, model: int, *, backend: str, device="cu
                           "bgl_sumsq"])
     threads = threads or max(1, (os.cpu_count() or 1) // world)
     with tempfile.TemporaryDirectory(prefix="repro_torch_mesh_") as tmp:
-        mp.start_processes(_rank_main, args=(fn, data, model, backend, str(device), tmp,
+        mp.start_processes(_rank_main, args=(fn, pod, data, model, backend, str(device), tmp,
                                              tuple(args), threads),
                            nprocs=world, join=True, start_method="spawn")
         out = []

@@ -27,13 +27,15 @@ routing and dispatch run identically on every rank.  Each rank holds its
 block of the stacked experts under the rules (experts over "model", the
 hidden width f over "data"): it fills the dispatch rows of its own
 experts only, runs them on its f columns, and weighs their outputs into
-its partial y; one ``all_reduce`` over the whole mesh sums the partials
+its partial y; one ``all_reduce`` over the mesh's weight axes (the whole
+mesh but "pod", whose ranks hold copies of the experts) sums the partials
 (over f and over the experts) into y.  Training differentiates through
 it: x and the routing weights enter the rank's experts by
 ``HostMesh.enter`` (their gradients summed over the mesh, the sum's
 conjugate).  The shared experts are a dense MLP under the Megatron rule.
 In training each data rank's batch is its own: the router loss's token
-and probability sums are summed over "data" (``HostMesh.batch_sum``)
+and probability sums are summed over the data axes, "pod" and "data"
+(``HostMesh.batch_sum``),
 before the product, so every rank's loss is the whole batch's, JAX's.
 """
 from __future__ import annotations
@@ -188,8 +190,8 @@ def _router_loss(gates: torch.Tensor, top_e: torch.Tensor, n_experts: int, top_k
     """The Switch load-balance loss ``E * sum_e f_e P_e / k``: f the share of
     picks and P the mean router probability of each expert over the
     batch's tokens.  On a training view, whose batch is this data rank's,
-    the per-expert sums and the token count are summed over "data" first
-    (one ``HostMesh.batch_sum``)."""
+    the per-expert sums and the token count are summed over the data axes
+    ("pod" and "data" on a pod mesh) first (one ``HostMesh.batch_sum``)."""
     probs_full = torch.softmax(gates, dim=-1)  # (G, T, E)
     onehot = F.one_hot(top_e, n_experts).to(torch.float32)  # (G, T, k, E)
     n = torch.full((1,), gates.shape[0] * gates.shape[1], dtype=torch.float32,
@@ -224,7 +226,8 @@ def moe_apply(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
     e0, e1 = experts
     xe, pe = xg, probs
     if mesh is not None:  # the rank's experts: their gradients summed over the mesh
-        xe, pe = mesh.enter(xg, tuple(mesh.shape)), mesh.enter(probs, tuple(mesh.shape))
+        axes = mesh.weight_axes  # a pod holds a copy of the experts: never over "pod"
+        xe, pe = mesh.enter(xg, axes), mesh.enter(probs, axes)
     buf, slot, keep = _dispatch(xe, top_e, n_experts, C, experts)
     out = _experts(p, buf.reshape(G, e1 - e0, C, d), mlp_kind)
     y = _combine(out.reshape(G, (e1 - e0) * C, d), top_e, pe, slot, keep, experts, C)
@@ -232,7 +235,7 @@ def moe_apply(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
         if not counted:  # another rank adds this block's partial y
             y = torch.zeros_like(y)
         # the one reduction of the layer: over f's blocks and over the experts
-        y = mesh.all_reduce(y, tuple(mesh.shape))
+        y = mesh.all_reduce(y, axes)
     y = y.reshape(B, S, d)
     aux = _router_loss(gates, top_e, n_experts, top_k, mesh)
 

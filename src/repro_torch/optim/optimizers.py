@@ -36,7 +36,8 @@ def global_norm(tree: PyTree, mesh=None, specs: PyTree = None) -> torch.Tensor:
     On a mesh each leaf of ``tree`` is this rank's block under its spec in
     ``specs`` (the same structure): a leaf's square sum counts on the ranks
     that hold distinct blocks of it and on one rank of each axis it is
-    whole along, and one ``all_reduce`` over the mesh sums them."""
+    whole along, and one ``all_reduce`` over the mesh's weight axes sums
+    them (a pod holds a copy of every block: never over "pod")."""
     ls = [x.float() for x in leaves(tree)]
     sq = torch.stack(torch._foreach_norm(ls)) ** 2
     if mesh is None or mesh.size() == 1:
@@ -45,7 +46,7 @@ def global_norm(tree: PyTree, mesh=None, specs: PyTree = None) -> torch.Tensor:
 
     keep = torch.tensor([counted_once(s, mesh) for _, s in flatten_specs(specs)],
                         dtype=sq.dtype, device=sq.device)
-    return torch.sqrt(mesh.all_reduce(torch.sum(sq * keep), tuple(mesh.shape)))
+    return torch.sqrt(mesh.all_reduce(torch.sum(sq * keep), mesh.weight_axes))
 
 
 @torch.no_grad()

@@ -142,10 +142,10 @@ class ServeEngine:
         if mesh is not None:
             from ..dist import elastic, sharding
 
-            if placed:  # each packed weight is a block: the sum over the ranks
+            if placed:  # each packed weight is a block: the sum over a pod's ranks
                 self.packed_bytes_global = int(mesh.all_reduce(
                     torch.tensor(float(self.packed_bytes_global), dtype=torch.float64),
-                    tuple(mesh.shape)))
+                    mesh.weight_axes))
             else:
                 params = elastic.reshard_tree(sharding.annotate_packed_specs(params, mesh),
                                               mesh)

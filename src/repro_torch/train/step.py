@@ -23,18 +23,21 @@ state (32 GB of planes and momentum at 2 layers) is never held twice.
 same states on the ``meta`` device (shapes and dtypes, no data) for the
 dry run.
 
-On a ("data", "model") mesh (``mesh=``, a
+On a ("data", "model") or ("pod", "data", "model") mesh (``mesh=``, a
 :class:`~repro_torch.launch.mesh.HostMesh`, one process per rank) the
 state is this rank's block of every leaf under the partition rules
 (``dist.elastic.train_state_specs``): planes, moments, float leaves;
-rep scales, masks and the step are whole.  The batch is this rank's
-block over the data axes.  A step is JAX's ``jit`` of the same step over
-that placement, written out:
+rep scales, masks and the step are whole.  The rules never name "pod"
+for a leaf, so each pod holds a copy of every block.  The batch is this
+rank's block over the data axes ("pod" and "data"), laid out in
+microbatch order (``dist.sharding.batch_block``).  A step is JAX's
+``jit`` of the same step over that placement, written out:
 
 * the data axis is FSDP: each weight block is reconstructed on its own
   planes, gathered over "data" (``HostMesh.shard_gather``, whose backward
-  is a reduce-scatter of the data ranks' gradients); a leaf whole along
-  "data" enters by ``HostMesh.enter`` (its gradient summed over "data");
+  is a reduce-scatter of the data ranks' gradients, summed over the pods
+  too); a leaf whole along "data" enters by ``HostMesh.enter`` (its
+  gradient summed over the data axes);
 * the model axis keeps the serving path's Megatron pairs: the forward
   runs under a training view of the mesh ("data" hidden), each leaf in
   the form serving gives it (``dist.elastic.placed_leaf``), whose
@@ -48,8 +51,16 @@ that placement, written out:
   the MoE router loss is the whole batch's on every rank, each data
   rank's share carrying its part; the regulariser is the same on every
   rank (``core.regularizer``);
-* the gradient norm sums each leaf once over the mesh
-  (``optim.global_norm``); the update and the projection are elementwise.
+* the gradient norm sums each leaf once over the weight axes
+  (``optim.global_norm``); the update and the projection are elementwise;
+* every sum over a weight's blocks (the regulariser's norms, the clip's
+  norm, requant's flags) runs over the weight axes, never over "pod",
+  whose ranks hold copies (a mesh's ``weight_axes``);
+* with ``microbatches`` the rank's rows split into that many blocks in
+  order, block i its part of JAX's microbatch i; hoisted, the
+  reconstruction, the regulariser and the gathers run once per step and
+  the microbatches' task gradients add up against the gathered blocks
+  before one backward through them.
 
 Off a mesh the same step runs on the
 :class:`~repro_torch.launch.mesh.LocalMesh`, whose collectives are the
@@ -162,30 +173,45 @@ def state_scheme(state, ctx: BSQTrainContext):
 # ---------------------------------------------------------------------------
 
 
-def _forward_leaf(name: str, x: torch.Tensor, spec, mesh):
-    """This rank's block of a param as the training forward reads it: gathered
-    over "data" where the rule splits it there (FSDP, the gradient
-    reduce-scattered back), else entering with its gradient summed over
-    "data"; then in the form serving gives the same block
-    (``dist.elastic.placed_leaf`` on the training view, where "data" has
-    size 1): a FloatBlock that ``models.common.dense_apply`` stitches, a
-    RowsBlock of a stacked gate bias, or the plain block (the embedding,
-    the MoE experts).  Off a mesh (``spec`` None) ``x`` itself."""
+def _gathered_leaf(name: str, x: torch.Tensor, spec, mesh):
+    """This rank's block of a param gathered for the training forward:
+    gathered over "data" where the rule splits it there (FSDP, the
+    gradient reduce-scattered back and summed over the pods), else
+    entering with its gradient summed over the data axes.  Off a mesh
+    (``spec`` None) ``x`` itself."""
+    if spec is None:
+        return x
+    spec = tuple(spec) + (None,) * (x.ndim - len(spec))
+    if any(isinstance(ax, tuple) for ax in spec):  # JAX's rules give a param none
+        raise NotImplementedError(f"{name}: a param dim split over several axes ({spec})")
+    if "data" in spec:
+        pods = tuple(ax for ax in mesh.data_axes if ax != "data")
+        for dim, ax in enumerate(spec):
+            if ax == "data":
+                x = mesh.shard_gather(x, "data", dim, also=pods)
+    else:
+        x = mesh.enter(x, mesh.data_axes)
+    return x
+
+
+def _placed(name: str, x, spec, mesh):
+    """A gathered block in the form serving gives it
+    (``dist.elastic.placed_leaf`` on the training view, where the data
+    axes have size 1): a FloatBlock that ``models.common.dense_apply``
+    stitches, a RowsBlock of a stacked gate bias, or the plain block (the
+    embedding, the MoE experts).  Off a mesh ``x`` itself."""
     from ..dist.elastic import placed_leaf
 
     if spec is None:
         return x
     spec = tuple(spec) + (None,) * (x.ndim - len(spec))
-    if any(isinstance(ax, tuple) for ax in spec):
-        raise NotImplementedError(f"{name}: a dim split over several axes ({spec}) in "
-                                  "training comes with the 3-axis pod mesh (ROADMAP item 9b-ii)")
-    if "data" in spec:
-        for dim, ax in enumerate(spec):
-            if ax == "data":
-                x = mesh.shard_gather(x, "data", dim)
-    else:
-        x = mesh.enter(x, "data")
     return placed_leaf(name, x, spec, mesh.training_view())
+
+
+def _forward_leaf(name: str, x: torch.Tensor, spec, mesh):
+    """This rank's block of a param as the training forward reads it:
+    :func:`_gathered_leaf`, then :func:`_placed`."""
+    return _placed(name, _gathered_leaf(name, x, spec, mesh), spec, mesh)
 
 
 def _task_loss(params, batch, cfg: ModelConfig, mesh):
@@ -194,15 +220,15 @@ def _task_loss(params, batch, cfg: ModelConfig, mesh):
     so the shares add up to ``transformer.loss_fn``'s mean; on a mesh the
     forward runs under the training view, its heads local.  The MoE
     router loss is the whole batch's on every rank (``models.moe`` sums
-    its statistics over "data"), so each data rank's share carries its
-    part of it and the shares count it once."""
+    its statistics over the data axes), so each data rank's share carries
+    its part of it and the shares count it once."""
     sharded = mesh.size() > 1
     view = mesh.training_view() if sharded else None
     with packed_shard_mesh(view, local_heads=True):
         logits, aux = transformer.forward(params, batch, cfg)
     total, count = cross_entropy_sums(logits, batch["labels"])
-    share = total / torch.clamp(mesh.all_reduce(count, "data"), min=1.0)
-    ce = mesh.all_reduce(share.detach(), "data")
+    share = total / torch.clamp(mesh.all_reduce(count, mesh.data_axes), min=1.0)
+    ce = mesh.all_reduce(share.detach(), mesh.data_axes)
     n_data = mesh.size() // view.size() if sharded else 1
     return share + cfg.router_aux_weight * aux / n_data, {"ce": ce, "aux": aux}
 
@@ -286,14 +312,12 @@ def make_bsq_train_step(
     mathematically identical (linearity of accumulation).
 
     ``mesh``: the state and the batch are this rank's blocks (the module
-    docstring); ``microbatches > 1`` raises there.  Off a mesh the step runs
-    on the :class:`~repro_torch.launch.mesh.LocalMesh`.
+    docstring), the batch's rows in microbatch order
+    (``dist.sharding.batch_block``).  Off a mesh the step runs on the
+    :class:`~repro_torch.launch.mesh.LocalMesh`.
     """
     alpha = ctx.bsq_cfg.alpha
     mesh = mesh if mesh is not None else LocalMesh()
-    if mesh.size() > 1 and microbatches > 1:
-        raise NotImplementedError("gradient accumulation on a mesh (microbatches > 1, hoisted "
-                                  "or not) comes with ROADMAP item 9b-ii")
     specs, tree_specs = _specs_cache(mesh, lambda: ctx.template)
 
     def single_grads(trainable, masks, batch):
@@ -302,50 +326,53 @@ def make_bsq_train_step(
         return (loss, metrics), grads
 
     def hoisted_grads(trainable, masks, batch):
-        rep_tree = trainable["reps"]
-        named = flatten_with_path(rep_tree)
-        rep_leaves = [x for _, x in named]
-        for x in rep_leaves:
+        named = flatten_with_path(trainable)
+        leaves = [x for _, x in named]
+        for x in leaves:
             x.requires_grad_(True)
         try:
+            # once per step: the reconstruction, the regulariser, the gathers
             reps = _reps_from_state(trainable, masks, ctx.meta)
-            w = bsq_mod.reconstruct(reps, ctx.bsq_cfg)
-            reg = bsq_mod.regularizer(reps, ctx.bsq_cfg, ctx.total_quant_params)
-            gw = {k: torch.zeros_like(v) for k, v in w.items()}
-            gf = {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-                  for k, v in trainable["float"].items()}
-            acc_l, acc_m = 0.0, {"ce": 0.0, "aux": 0.0}
+            wspecs = _weight_specs(specs, reps)
+            w = bsq_mod.reconstruct(reps, ctx.bsq_cfg, mesh, wspecs)
+            reg = _regularizer(reps, ctx, mesh, wspecs)
+            fspecs = {k: specs.get(f"trainable/float/{k}") for k in trainable["float"]}
+            gathered = {**{k: _gathered_leaf(k, v, wspecs.get(k), mesh) for k, v in w.items()},
+                        **{k: _gathered_leaf(k, v, fspecs[k], mesh)
+                           for k, v in trainable["float"].items()}}
+            leaf_spec = {**{k: wspecs.get(k) for k in w}, **fspecs}
+            acc = {k: torch.zeros(v.shape, dtype=torch.float32 if k in fspecs else v.dtype,
+                                  device=v.device) for k, v in gathered.items()}
+            acc_m = {"ce": 0.0, "aux": 0.0}
             for mb in _split(batch, microbatches):
-                w_ = {k: v.detach().requires_grad_(True) for k, v in w.items()}
-                f_ = {k: v.detach().requires_grad_(True) for k, v in trainable["float"].items()}
-                params = bsq_mod.merge_params(ctx.template, w_, f_)
-                l, m = transformer.loss_fn(params, mb, ctx.cfg)
+                g_ = {k: v.detach().requires_grad_(True) for k, v in gathered.items()}
+                placed = {k: _placed(k, v, leaf_spec[k], mesh) for k, v in g_.items()}
+                params = bsq_mod.merge_params(ctx.template, {k: placed[k] for k in w},
+                                              {k: placed[k] for k in fspecs})
+                task, m = _task_loss(params, mb, ctx.cfg, mesh)
                 # an input a model never reads (musicgen's embedding, fed
                 # embeds) has no gradient: zero, as JAX's grad gives it
-                g = torch.autograd.grad(l, list(w_.values()) + list(f_.values()),
-                                        allow_unused=True)
-                for k, gk in zip(list(w_) + list(f_), g):
+                g = torch.autograd.grad(task, list(g_.values()), allow_unused=True)
+                for k, gk in zip(g_, g):
                     if gk is not None:
-                        (gw if k in w_ else gf)[k] += gk
-                acc_l = acc_l + l.detach()
+                        acc[k] += gk
                 acc_m = {k: acc_m[k] + m[k].detach() for k in acc_m}
             inv = 1.0 / microbatches
-            gw = {k: v * inv for k, v in gw.items()}
-            gf = {k: (v * inv).to(torch.float32) for k, v in gf.items()}
-            # one backward through reconstruct + regulariser for the whole step
-            g_reps = torch.autograd.grad(
-                list(w.values()) + [reg], rep_leaves,
-                grad_outputs=list(gw.values()) + [torch.tensor(alpha, dtype=torch.float32,
-                                                               device=reg.device)])
+            # one backward through the gathers, reconstruct and the regulariser
+            outs = list(gathered.values()) + [reg]
+            g_leaves = torch.autograd.grad(
+                outs, leaves, allow_unused=True,
+                grad_outputs=[v * inv for v in acc.values()]
+                + [torch.tensor(alpha, dtype=torch.float32, device=reg.device)])
         finally:
-            for x in rep_leaves:
+            for x in leaves:
                 x.requires_grad_(False)
-        grads = {"reps": unflatten_like(rep_tree, dict(zip([n for n, _ in named], g_reps))),
-                 "float": gf}
+        grads = unflatten_like(trainable, {n: torch.zeros_like(x) if g is None else g
+                                           for (n, x), g in zip(named, g_leaves)})
+        grads["float"] = {k: v.to(torch.float32) for k, v in grads["float"].items()}
         reg = reg.detach()
-        l = acc_l * inv
         m = {k: v * inv for k, v in acc_m.items()}
-        total = l + alpha * reg
+        total = m["ce"] + ctx.cfg.router_aux_weight * m["aux"] + alpha * reg
         return (total, dict(m, reg=reg, total=total)), grads
 
     def accumulated_grads(trainable, masks, batch):
@@ -437,17 +464,19 @@ def state_reps(state, ctx: BSQTrainContext) -> Dict[str, BitRep]:
 # ---------------------------------------------------------------------------
 
 
-def abstract_bsq_state(cfg: ModelConfig, bsq_cfg: BSQConfig, optimizer, predicate=None):
+def abstract_bsq_state(cfg: ModelConfig, bsq_cfg: BSQConfig, optimizer, predicate=None,
+                       mesh=None):
     """Meta-device twin of :func:`init_bsq_state`: ``(state, ctx)`` with
     every leaf's path, shape and dtype, and ``state["step"]`` a real CPU
-    int32 scalar, as the optimizers read it on the host."""
+    int32 scalar, as the optimizers read it on the host; on ``mesh`` (a
+    mesh on ``meta``, ``launch.mesh.meta_mesh``) this rank's blocks."""
     return init_bsq_state(torch.Generator(), cfg, bsq_cfg, optimizer, device="meta",
-                          predicate=predicate)
+                          predicate=predicate, mesh=mesh)
 
 
-def abstract_plain_state(cfg: ModelConfig, optimizer):
+def abstract_plain_state(cfg: ModelConfig, optimizer, mesh=None):
     """Meta-device twin of :func:`init_plain_state`."""
-    return init_plain_state(torch.Generator(), cfg, optimizer, device="meta")
+    return init_plain_state(torch.Generator(), cfg, optimizer, device="meta", mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

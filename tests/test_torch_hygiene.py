@@ -146,9 +146,11 @@ def test_unported_paths_say_so():
                              "--batch", "3"])
     from repro_torch.launch import dryrun
 
-    for flag in ("--single-pod", "--multi-pod"):
-        with pytest.raises(SystemExit, match="mesh slice of the port"):
-            dryrun.main(["--arch", "granite-3-2b", "--shape", "decode_32k", flag])
+    for flag in ("--single-pod", "--multi-pod"):  # each runs rank 0's cell of its mesh
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            assert dryrun.main(["--arch", "granite-3-2b", "--shape", "decode_32k", flag]) == 0
+        assert f"x {'16x16' if flag == '--single-pod' else '2x16x16'}:" in text.getvalue()
+        assert "1/1 cells ok" in text.getvalue()
     assert len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         params = transformer.init_params(reduced_config(arch), torch.Generator(), "cpu")

@@ -73,9 +73,10 @@ def _np(tree):
             for n, x in flatten_with_path(tree)}
 
 
-def _rank_batch(b, mesh):
-    return {k: ts.local_block(torch.from_numpy(v.astype(np.int64)),
-                              ts.data_batch_spec(mesh, v.shape[0], v.ndim), mesh).contiguous()
+def _rank_batch(b, mesh, microbatches=1):
+    """This rank's rows of a batch, in microbatch order."""
+    return {k: ts.batch_block(torch.from_numpy(v.astype(np.int64)), mesh,
+                              microbatches).contiguous()
             for k, v in b.items()}
 
 
@@ -99,7 +100,7 @@ def _bsq_run(mesh, ref, remat=False, steps=STEPS, **step_kw):
     step = make_bsq_train_step(ctx, SGDM(), _lr(), mesh=mesh, **step_kw)
     metrics = []
     for b in _batches(steps):
-        state, m = step(state, _rank_batch(b, mesh))
+        state, m = step(state, _rank_batch(b, mesh, step_kw.get("microbatches", 1)))
         metrics.append({k: float(v) for k, v in m.items()})
     specs = elastic.train_state_specs(state, mesh, ctx.template)
     out = {"local": _np(state), "whole": _np(elastic.gather_tree(state, mesh, specs)),
@@ -312,7 +313,8 @@ def _rank_2x2(mesh, ref, workdir):
 def _rank_2x1(mesh, ref):
     return {"coords": dict(mesh.coords), "bsq": _bsq_run(mesh, ref, remat=True),
             "plain": _plain_run(mesh, ref), "compressed": _compressed_run(mesh, ref),
-            "decoupled": _bsq_run(mesh, ref, steps=1, decouple_reg_clip=True)}
+            "decoupled": _bsq_run(mesh, ref, steps=1, decouple_reg_clip=True),
+            "microbatched": _bsq_run(mesh, ref, steps=1, microbatches=2)}
 
 
 def _rank_4x1(mesh, ref, workdir, probe):
@@ -493,22 +495,22 @@ def _port_state(flat, ref):
 def test_decoupled_clip_on_2x1_equals_one_process_and_accumulation_raises(mesh_2x1, ref):
     """``decouple_reg_clip`` on a mesh (the regulariser's gradient taken
     again on each rank's rows, the task gradient's norm over the mesh): one
-    step equals the same step in one process within 1e-5; gradient
-    accumulation on a mesh raises naming its ROADMAP item."""
+    step equals the same step in one process within 1e-5; so does a step of
+    gradient accumulation (microbatches 2, hoisted, each rank's rows in
+    microbatch order), which a mesh used to refuse."""
     ctx = _ctx()
-    state = bridge.bsq_state_from_jax(ref["bsq0"], ref["meta"])
-    step = make_bsq_train_step(ctx, SGDM(), _lr(), decouple_reg_clip=True)
-    state, m = step(state, {k: torch.from_numpy(v.astype(np.int64))
-                            for k, v in _batches(1)[0].items()})
-    want = _np(state)
-    for r in mesh_2x1:
-        _close(r["decoupled"]["whole"], want, 1e-5, "decoupled")
-        for k in ("ce", "reg", "total", "grad_norm"):
-            got = r["decoupled"]["metrics"][0][k]
-            assert abs(got - float(m[k])) <= 1e-5 * abs(float(m[k])), (k, got, float(m[k]))
-    with pytest.raises(NotImplementedError, match="9b-ii"):
-        make_bsq_train_step(ctx, SGDM(), _lr(), microbatches=2,
-                            mesh=SimpleNamespace(size=lambda: 2))
+    batch = {k: torch.from_numpy(v.astype(np.int64)) for k, v in _batches(1)[0].items()}
+    for key, kw in (("decoupled", {"decouple_reg_clip": True}), ("microbatched",
+                                                                 {"microbatches": 2})):
+        state = bridge.bsq_state_from_jax(ref["bsq0"], ref["meta"])
+        state, m = make_bsq_train_step(ctx, SGDM(), _lr(), **kw)(state, batch)
+        want = _np(state)
+        for r in mesh_2x1:
+            _close(r[key]["whole"], want, 1e-5, key)
+            for k in ("ce", "reg", "total", "grad_norm"):
+                got = r[key]["metrics"][0][k]
+                assert abs(got - float(m[k])) <= 1e-5 * abs(float(m[k])), \
+                    (key, k, got, float(m[k]))
 
 
 def test_requant_masks_on_the_mesh_equal_one_process(mesh_2x2, ref):

@@ -735,17 +735,32 @@ def test_routing_near_ties_on_the_mesh_are_reported(runs):
 
 
 def test_refusals_naming_the_next_mesh_slice_still_raise():
-    """A dim split over two axes and gradient accumulation on a mesh still
-    raise naming ROADMAP item 9b-ii."""
+    """What used to be refused now runs: no rule splits a param dim over
+    two axes, on the 2x16x16 pod mesh or on 2x2, for every arch at full
+    and reduced widths (the training forward's guard against one is never
+    reached); a microbatched step builds on a mesh, its placement the
+    rules' (the runs of it are in tests/test_torch_pod_mesh.py)."""
     from types import SimpleNamespace
 
-    with pytest.raises(NotImplementedError, match="9b-ii"):
+    from repro_torch.configs import ARCH_IDS, get_config
+
+    meshes = [SimpleNamespace(shape={"pod": 2, "data": 16, "model": 16}),
+              SimpleNamespace(shape={"data": 2, "model": 2})]
+    for arch in ARCH_IDS:
+        for cfg in (get_config(arch), reduced_config(arch)):
+            params = ttf.init_params(cfg, torch.Generator(), "meta")
+            for mesh in meshes:
+                for name, spec in ts.flatten_specs(ts.tree_param_specs(params, mesh)):
+                    assert not any(isinstance(ax, tuple) for ax in spec), (arch, name, spec)
+                    assert "pod" not in ts.spec_axes(spec), (arch, name, spec)
+    with pytest.raises(NotImplementedError, match="split over several axes"):
         st._forward_leaf("blocks/p0/mlp/w_up", torch.zeros(2, 4, 4),
                          (None, ("data", "model"), None), None)
     ctx = _ctx(reduced_config(MOE))
-    with pytest.raises(NotImplementedError, match="9b-ii"):
-        make_bsq_train_step(ctx, SGDM(), _lr(), microbatches=2,
-                            mesh=SimpleNamespace(size=lambda: 4))
+    mesh = SimpleNamespace(size=lambda: 4, shape={"data": 2, "model": 2})
+    for hoist in (True, False):
+        assert callable(make_bsq_train_step(ctx, SGDM(), _lr(), microbatches=2, mesh=mesh,
+                                            hoist_reconstruct=hoist))
 
 
 def test_the_iterator_cuts_frontend_inputs_over_data():
